@@ -1,0 +1,89 @@
+// K1: fused Gaussian-affinity x matrix product on Hopper.
+//
+// Replaces nle_tpu/ops/pallas/affinity_kernel.py:113 `_kernel` (called via
+// affinity_matmul_pallas). Computes
+//   out[q, j] = sum_p exp(-(sw*(dr^2 + dc^2) + pw*dy^2)) * B[p, j]
+// with dr, dc, dy the raw integer differences of the (row, col, y)
+// features of pixel q and sample p. The (rows, p) affinity block is built
+// tile by tile in shared memory and contracted at once: K_AB never reaches
+// device memory. Rows >= q_true are written as exact zeros (the out_rows
+// direct-write contract: pad features are zeros, which give NONZERO
+// affinities against real samples).
+//
+// Accuracy (this product is the fidelity floor of the whole pipeline,
+// nle_tpu DESIGN.md §2a): the argument is formed in the reference's op
+// order with explicitly rounded multiplies and adds (no FMA contraction),
+// squares of exact integer differences before any scaling, the IEEE expf
+// (never __expf; the build never passes --use_fast_math), and the p
+// contraction in fp32 FMA.
+//
+// Bound on the H100: at the 1 MP main path (q ~ 1.0 M, p = 600, mpad = 640)
+// it is 0.77 TFLOP of fp32 FMA on the CUDA cores plus 0.6 G expf, against
+// ~41 MB of traffic — compute-bound. This first version is a plain
+// 64x64x16 register-tiled SGEMM (common.cuh) with the affinity generated
+// in the A-tile load; each affinity is recomputed once per 64-column output
+// tile (mpad/64 = 10 times), ~2% of the FMA work. Tensor cores are not
+// used: TF32 would break the fp32 contract.
+
+#include "common.cuh"
+
+namespace {
+
+struct AffinityA {
+  const float* fb;  // (3, qpad) pixel features: rows, cols, y
+  const float* fa;  // (3, ppad) sample features
+  int qpad;
+  int ppad;
+  float sw;
+  float pw;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    const float dr = fb[r] - fa[k];
+    const float dc = fb[qpad + r] - fa[ppad + k];
+    const float dy = fb[2 * qpad + r] - fa[2 * ppad + k];
+    const float d2s = __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dc, dc));
+    const float arg =
+        __fadd_rn(__fmul_rn(sw, d2s), __fmul_rn(pw, __fmul_rn(dy, dy)));
+    return expf(-arg);
+  }
+};
+
+__global__ void __launch_bounds__(nle::GEMM_THREADS)
+    affinity_matmul_kernel(AffinityA a, nle::DenseB b, float* __restrict__ out,
+                           int mpad, int q_true) {
+  const int row0 = blockIdx.x * nle::BM;
+  const int col0 = blockIdx.y * nle::BN;
+  const int ty = threadIdx.x / (nle::BN / nle::TN);
+  const int tx = threadIdx.x % (nle::BN / nle::TN);
+  float acc[nle::TM][nle::TN] = {};
+  if (row0 < q_true) {  // block-uniform: whole pad tiles skip the product
+    nle::gemm_tile<true>(a, b, row0, col0, 0, a.ppad, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < nle::TM; ++i) {
+    const int r = row0 + ty * nle::TM + i;
+    float* dst = out + static_cast<size_t>(r) * mpad + col0 + tx * nle::TN;
+#pragma unroll
+    for (int j = 0; j < nle::TN; ++j) dst[j] = r < q_true ? acc[i][j] : 0.0f;
+  }
+}
+
+}  // namespace
+
+// fb (3, qpad), fa (3, ppad), B (ppad, mpad) -> out (qpad, mpad).
+// qpad % 64 == 0, ppad % 16 == 0, mpad % 64 == 0; pad samples must carry
+// zero rows of B.
+extern "C" int nle_affinity_matmul(const float* fb, const float* fa,
+                                   const float* B, float* out, int qpad,
+                                   int q_true, int ppad, int mpad, float sw,
+                                   float pw, void* stream) {
+  if (qpad % nle::BM || ppad % nle::BK || mpad % nle::BN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  AffinityA a{fb, fa, qpad, ppad, sw, pw};
+  nle::DenseB b{B, mpad};
+  dim3 grid(qpad / nle::BM, mpad / nle::BN);
+  affinity_matmul_kernel<<<grid, nle::GEMM_THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a, b, out, mpad,
+                                                                q_true);
+  return static_cast<int>(cudaGetLastError());
+}

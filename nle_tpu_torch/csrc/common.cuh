@@ -1,0 +1,106 @@
+// Shared device code of the port's kernels: one register-tiled fp32 GEMM
+// tile whose operand elements come from functors (so the affinity build
+// and the row scaling fuse into the operand load), and the fixed-order
+// reduction of per-block partial sums.
+//
+// Every contraction here is plain IEEE fp32 FMA on the CUDA cores: no
+// TF32, no bf16, no fast-math intrinsics. Every output element is summed
+// by one thread in increasing k, and cross-block sums go through an
+// (nparts, len) scratch reduced in a fixed order, never through float
+// atomics, so a result is a function of its inputs alone (training must be
+// bitwise repeatable).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace nle {
+
+constexpr int BM = 64;   // output tile rows
+constexpr int BN = 64;   // output tile columns
+constexpr int BK = 16;   // contraction step staged in shared memory
+constexpr int TM = 4;    // rows per thread
+constexpr int TN = 4;    // columns per thread
+constexpr int GEMM_THREADS = (BM / TM) * (BN / TN);  // 256
+
+// acc[i][j] += sum_{k0 <= k < k1} a(row0 + ty*TM + i, k) * b(k, col0 + tx*TN + j)
+// with (k1 - k0) % BK == 0. kFastA picks the thread order of the A load:
+// true walks k fastest (A stored row-major by output row), false walks the
+// output row fastest (A stored row-major by k, as for a transposed operand)
+// — whichever keeps neighbouring threads on neighbouring addresses.
+template <bool kFastA, class AFn, class BFn>
+__device__ __forceinline__ void gemm_tile(const AFn& a, const BFn& b, int row0,
+                                          int col0, int k0, int k1,
+                                          float (&acc)[TM][TN]) {
+  // +4 pads the A tile so the k-fastest store pattern spreads over banks.
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Bs[BK][BN];
+  const int tid = threadIdx.x;
+  const int ty = tid / (BN / TN);
+  const int tx = tid % (BN / TN);
+  for (int kk = k0; kk < k1; kk += BK) {
+#pragma unroll
+    for (int e = tid; e < BM * BK; e += GEMM_THREADS) {
+      const int r = kFastA ? e / BK : e % BM;
+      const int k = kFastA ? e % BK : e / BM;
+      As[k][r] = a(row0 + r, kk + k);
+    }
+#pragma unroll
+    for (int e = tid; e < BK * BN; e += GEMM_THREADS) {
+      const int k = e / BN;
+      const int c = e % BN;
+      Bs[k][c] = b(kk + k, col0 + c);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float av[TM];
+      float bv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) av[i] = As[k][ty * TM + i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx * TN + j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// Dense row-major operand element B[k, c].
+struct DenseB {
+  const float* B;
+  int ld;
+  __device__ __forceinline__ float operator()(int k, int c) const {
+    return B[static_cast<size_t>(k) * ld + c];
+  }
+};
+
+namespace {
+
+// out[j] = sum_{b < nparts} partial[b * len + j], summed in increasing b.
+__global__ void reduce_partials_kernel(const float* __restrict__ partial,
+                                       float* __restrict__ out, int nparts,
+                                       int len) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= len) return;
+  float s = 0.0f;
+  for (int b = 0; b < nparts; ++b) s += partial[static_cast<size_t>(b) * len + j];
+  out[j] = s;
+}
+
+inline cudaError_t launch_reduce_partials(const float* partial, float* out,
+                                          int nparts, int len,
+                                          cudaStream_t stream) {
+  const int threads = 256;
+  const int blocks = (len + threads - 1) / threads;
+  reduce_partials_kernel<<<blocks, threads, 0, stream>>>(partial, out, nparts,
+                                                         len);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+}  // namespace nle

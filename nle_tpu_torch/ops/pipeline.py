@@ -1,0 +1,400 @@
+"""The filter-training pipeline on PyTorch (port of nle_tpu/ops/pipeline.py,
+the dense path the 1 MP enhance takes).
+
+Composition (reference NLEFilter::trainFilter, src/filter.cpp:480-512):
+  sample -> Ka (f64 host) + eigh -> Nystrom extension -> Sinkhorn
+  -> orthogonalize (f64 host chain) -> eigenvectors, packed order.
+
+Everything on the device runs in packed [selected; rest] order. Stage 1
+and the m x m chain are float64 NumPy/SciPy on the host; every N-scale
+step is float32 on the device named by the caller, with every contraction
+in full IEEE fp32 (no TF32 — nle_tpu_torch/config.py).
+
+Stage 2a has two layouts:
+- split (default): the affinity kernel K1 writes the zero-tailed rest
+  block phi_b directly, Sinkhorn carries the top block as exact f32
+  matvecs beside the int16 rest stream through K3, and the Sb gram is the
+  top term plus K6 on the rest block. Stage 2b is K7 over the rest block
+  plus a row concat with the host-computed top rows.
+- assembled f32: [Um; phi_b] padded, Sinkhorn through K4, K6 and K7 on the
+  unscaled factor with c masked below m. The carrier guard's fallback and
+  NLE_SINKHORN_INT16=off.
+The JAX package sends images below NLE_CPHI_BYTES to a third "small"
+layout; its reasons (VMEM, the c*phi HBM buffer) are TPU reasons, so the
+port runs the split layout at every size and the small layout is not
+ported (ROADMAP).
+
+m (the kept Nystrom rank) travels as a plain int; columns m..mb of the
+rank bucket are exact zeros, as in the JAX package (tests/test_bucketing.py).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from nle_tpu_torch.config import EPS, resolve_device
+from nle_tpu_torch.ops.affinity import (
+    affinity_matmul,
+    bandwidth_weights,
+    features,
+)
+from nle_tpu_torch.ops.kernels._common import round_up
+from nle_tpu_torch.ops.kernels.scaled_matmul_kernel import (
+    scaled_gram,
+    scaled_matmul,
+)
+from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
+    carrier_guard_decision,
+    padded_shape,
+    resolve_int16,
+    sinkhorn_vectors_fused,
+    sinkhorn_vectors_split,
+    split_row_pad,
+)
+from nle_tpu_torch.ops.linalg import eigh64
+from nle_tpu_torch.ops.orthogonalize import host_chain64
+from nle_tpu_torch.ops.sampling import SampleGrid, sample_grid
+from nle_tpu_torch.ops.transform import transform_eigenvalues
+from nle_tpu_torch.utils.logging import (
+    logger,
+    stage,
+    warn_rank_deficient,
+    warn_truncation,
+)
+
+
+# -- stage 1 (host f64) -----------------------------------------------------
+
+def _build_ka64(y_sel, rows_sel, cols_sel, hx, hy) -> np.ndarray:
+    """Exact float64 Ka on the host, op for op with the reference
+    (src/filter.cpp:114-145)."""
+    r = np.asarray(rows_sel, np.float64)
+    c = np.asarray(cols_sel, np.float64)
+    y = np.asarray(y_sel, np.float64)
+    sw = 1.0 / (float(hx) * float(hx))
+    pw = 1.0 / (float(hy) * float(hy))
+    d2s = (r[:, None] - r[None, :]) ** 2 + (c[:, None] - c[None, :]) ** 2
+    d2i = (y[:, None] - y[None, :]) ** 2
+    return np.exp(-sw * d2s - pw * d2i)
+
+
+def ka_eigh_host64(y_sel, rows_sel, cols_sel, hx, hy, eps):
+    """Stage 1: float64 Ka + LAPACK eigh, descending, truncated at eps.
+    Returns float64 (U (p, m), lam (m,), U * Lambda^{-1} (p, m))."""
+    Ka = _build_ka64(y_sel, rows_sel, cols_sel, hx, hy)
+    lam, U = eigh64(Ka)
+    lam = lam[::-1]
+    U = U[:, ::-1]
+    m = int(np.count_nonzero(lam >= eps)) if lam.size else 0
+    U_m = U[:, :m]
+    lam_m = lam[:m]
+    return U_m, lam_m, U_m / lam_m[None, :]
+
+
+def bucket_m(m: int, p: int) -> int:
+    """Stage-2 column count for a kept rank m: m rounded up to NLE_M_BUCKET
+    (default 128), capped at p; NLE_M_BUCKET <= 1 gives m itself. The zero
+    columns are exact, so the bucket only fixes shapes."""
+    b = int(os.environ.get("NLE_M_BUCKET", "128"))
+    if b <= 1:
+        return m
+    return min(-(-m // b) * b, p)
+
+
+def pack_channel(channel_np: np.ndarray, perm: np.ndarray):
+    """Pack a channel into [selected; rest] order; returns (packed array,
+    is_8bit), the array uint8 when the values are integers in [0, 255]."""
+    packed = channel_np.reshape(-1)[perm]
+    if packed.dtype == np.uint8:
+        return packed, True
+    if (packed.min() >= 0 and packed.max() <= 255
+            and np.array_equal(packed, np.rint(packed))):
+        return packed.astype(np.uint8), True
+    return packed, False
+
+
+def pack_stage1(Um64, lam64, mb: int | None = None) -> np.ndarray:
+    """(p + 1, mb) float32 [Um; lam], columns zero-padded from m to the
+    bucket mb. Uinv = Um / lam is recomputed on the device
+    (_unpack_stage1)."""
+    p, m = Um64.shape
+    mb = m if mb is None else mb
+    out = np.zeros((p + 1, mb), np.float32)
+    out[:p, :m] = Um64
+    out[p, :m] = lam64
+    return out
+
+
+def _unpack_stage1(stage1: torch.Tensor, p: int):
+    """(Um (p, mb), lam (mb,), Uinv (p, mb)): Uinv = Um / lam in float32 on
+    the device, zero on the padded columns."""
+    Um = stage1[:p]
+    lam = stage1[p]
+    keep = lam > 0
+    Uinv = torch.where(keep[None, :],
+                       Um / torch.where(keep, lam, torch.ones_like(lam)),
+                       torch.zeros_like(Um))
+    return Um, lam, Uinv
+
+
+# -- stage 2a (device) ------------------------------------------------------
+
+def train_filter_stage2a(y, rows, cols, stage1, sw, pw, *, p: int, m: int,
+                         mb: int, n_sinkhorn_iter: int, eps: float,
+                         small: bool = False, split: bool = True,
+                         int16: bool = True):
+    """Device half 1: Nystrom extension, Sinkhorn, and the Sb gram.
+
+    Returns (rc, Sb (mb, mb), factor, c_rest). rc rows 0/1 are [r; c]
+    (the full (3, p) top rows in the split layout, (3, mb) assembled) and
+    row 2 column 0 is the int16 crush statistic (-1.0 when no carrier
+    engaged). factor is the TUPLE (phib_pad,) in the split layout, else
+    the assembled padded phi; c_rest is the matching (rows, 1) scaling
+    with rows < m zero.
+
+    split/int16 select the layout: split needs the carrier (int16=False
+    forces the assembled f32 layout, the guard's fallback); the assembled
+    int16 layout and small=True (the JAX package's small-image layout) are
+    not ported."""
+    if small:
+        raise NotImplementedError(
+            "the 'small' stage-2a layout is not ported (ROADMAP Queue 1)")
+    if not int16:
+        split = False
+    elif not split:
+        raise NotImplementedError(
+            "the assembled int16 stage-2a layout is not ported; use "
+            "split=True, or int16=False for the assembled f32 layout")
+    Um, lam_m, Uinv = _unpack_stage1(stage1, p)
+    f = features(rows, cols, y)
+    fa, fb = f[:p], f[p:]
+    n = y.shape[0]
+    mpad = round_up(mb, 128)
+    dev = y.device
+    if split:
+        nb = n - p
+        npad_b = split_row_pad(nb)
+        phib_pad = affinity_matmul(fa, fb, Uinv, sw, pw, out_rows=npad_b)
+        Um_pad = torch.nn.functional.pad(Um, (0, mpad - mb))
+        lam_pad = torch.nn.functional.pad(lam_m, (0, mpad - mb))
+        rp, cp, rb, cb, crush = sinkhorn_vectors_split(
+            Um_pad, lam_pad, phib_pad, n_sinkhorn_iter, float(eps))
+        stat = torch.full((p,), -1.0, dtype=torch.float32, device=dev)
+        stat[0] = crush
+        rc = torch.stack([rp, cp, stat])
+        cb_rest = cb[:, None]
+        top_mask = torch.arange(p, device=dev) >= m
+        cphiu = torch.where(top_mask, cp, torch.zeros_like(cp))[:, None] * Um_pad
+        Sb = ((cphiu.T @ cphiu)[:mb, :mb]
+              + scaled_gram(phib_pad, cb_rest)[:mb, :mb])
+        return rc, Sb, (phib_pad,), cb_rest
+
+    phi_b = affinity_matmul(fa, fb, Uinv, sw, pw)
+    npad, mpad = padded_shape(n, mb)
+    phi = torch.zeros((npad, mpad), dtype=torch.float32, device=dev)
+    phi[:p, :mb] = Um
+    phi[p:n, :mb] = phi_b
+    lam_pad = torch.nn.functional.pad(lam_m, (0, mpad - mb))
+    r, c = sinkhorn_vectors_fused(phi, lam_pad, n_sinkhorn_iter, float(eps),
+                                  n=n)
+    c_full = torch.nn.functional.pad(c, (0, npad - n))
+    row_mask = torch.arange(npad, device=dev) >= m
+    c_rest = torch.where(row_mask, c_full, torch.zeros_like(c_full))[:, None]
+    Sb = scaled_gram(phi, c_rest)[:mb, :mb]
+    stat = torch.full((mb,), -1.0, dtype=torch.float32, device=dev)
+    rc = torch.stack([r[:mb], c[:mb], stat])
+    return rc, Sb, phi, c_rest
+
+
+# -- host side between stage 2a and 2b ---------------------------------------
+
+def host_orthogonalize(rc_np, sb, Um64, lam64, m: int, mb: int, k: int,
+                       eps: float, q_solver: str | None = None):
+    """Rebuild the balanced-block small matrices in f64 from stage 1's
+    eigensystem, run the f64 chain, and pack [Va | GrT] zero-padded to the
+    rank bucket. rc_np rows 0/1 are [r; c]; sb is the (>=m, >=m) Sb gram
+    (or a zero-arg callable producing it). Returns (va_np (mb, 2k), Sq)."""
+    if q_solver is None:
+        q_solver = os.environ.get("NLE_Q_SOLVER", "auto")
+    rt, ct = rc_np[0][:m], rc_np[1][:m]
+    phi_top = Um64[:m]
+    Ga = phi_top * lam64[None, :]
+    RGa = rt[:, None] * Ga
+    Wa = RGa @ (ct[:, None] * phi_top).T
+
+    def sb_resolved():
+        raw = sb() if callable(sb) else sb
+        return np.asarray(raw, np.float64)[:m, :m]
+
+    Va, GrT, Sq = host_chain64(Wa, RGa, sb_resolved, k, eps,
+                               q_solver=q_solver)
+    warn_rank_deficient("orthogonalize eig(Q)", int(np.count_nonzero(Sq)), k)
+    va_np = np.zeros((mb, 2 * k))
+    va_np[:m, :k] = Va
+    va_np[:m, k:] = GrT
+    return va_np, Sq
+
+
+def pack_stage2b_upload(split: bool, va_np, rc_np, Um64, m: int, p: int,
+                        k: int):
+    """The stage-2b upload. Assembled layout: va_np itself. Split layout:
+    the (p + mb, k) [top; GrT] block, top being the whole top-block V in
+    f64 — Va rows < m plus (c[m:p] * Um[m:p]) @ GrT — so the device's
+    stage 2b is one fused scaled matmul over the rest block plus a row
+    concat. Needs the full (3, p) rc of the split stage 2a."""
+    if not split:
+        return va_np
+    GrT = va_np[:m, k:]
+    cp64 = np.asarray(rc_np[1], np.float64)
+    top = np.concatenate(
+        [va_np[:m, :k], (cp64[m:p, None] * Um64[m:]) @ GrT], axis=0)
+    return np.concatenate([top, va_np[:, k:]], axis=0)
+
+
+def check_carrier_guard(rc_np) -> bool:
+    """Read the crush statistic off rc (row 2, column 0; -1.0 when no
+    carrier engaged) and decide whether stage 2a must rerun through the
+    f32 carrier (warn-and-continue; see carrier_guard_decision)."""
+    if rc_np.shape[0] <= 2:
+        return False
+    crush = float(rc_np[2, 0])
+    if crush < 0.0:
+        return False
+    return carrier_guard_decision(crush, logger, "crush fraction",
+                                  "retraining")
+
+
+# -- stage 2b (device) ------------------------------------------------------
+
+def _stage2b_dense_body(factor, c_rest, va_grt, *, n: int, mb: int):
+    """Device half 2: the eigenvector tail product + assembly.
+
+    Split layout (factor is the tuple (phib_pad,)): va_grt is the
+    [top (p, k); GrT (mb, k)] upload of pack_stage2b_upload; V is the top
+    rows over K7 on the rest block. Assembled layout: va_grt is the
+    (mb, 2k) [Va | GrT] block; V is K7 on the unscaled factor (rows < m
+    zero through c_rest) plus the additive Va overlay on rows < mb."""
+    if isinstance(factor, tuple):
+        (phib_pad,) = factor
+        p = va_grt.shape[0] - mb
+        top = va_grt[:p]
+        grt = va_grt[p:]
+        k = grt.shape[1]
+        grt_pad = grt.new_zeros((phib_pad.shape[1], round_up(k, 128)))
+        grt_pad[:mb, :k] = grt
+        vb = scaled_matmul(phib_pad, c_rest, grt_pad)[:n - p, :k]
+        return torch.cat([top, vb], dim=0)
+    k = va_grt.shape[1] // 2
+    Va = va_grt[:, :k]
+    GrT = va_grt[:, k:]
+    grt_pad = GrT.new_zeros((factor.shape[1], round_up(k, 128)))
+    grt_pad[:mb, :k] = GrT
+    V = scaled_matmul(factor, c_rest, grt_pad)[:n, :k]
+    V[:mb] += Va
+    return V
+
+
+def _apply_u8_body(V, fs, y):
+    """V diag(fs) V^T y with the clamp-to-u8 epilogue; y (N,) or (N, C).
+    torch.round rounds half to even, like jnp.rint."""
+    c = y.to(V.dtype)
+    one_d = c.ndim == 1
+    if one_d:
+        c = c[:, None]
+    filtered = V @ (fs[:, None] * (V.T @ c))
+    out = torch.clamp(torch.round(filtered), 0, 255).to(torch.uint8)
+    return out[:, 0] if one_d else out
+
+
+def train_filter_stage2b_edit(factor, c_rest, va_grt, y, fs, *, n: int,
+                              mb: int):
+    """Stage 2b with the first edit's apply fused in (the train->edit flow):
+    returns (V, filtered u8 packed)."""
+    V = _stage2b_dense_body(factor, c_rest, va_grt, n=n, mb=mb)
+    return V, _apply_u8_body(V, fs, y[:n])
+
+
+def apply_filter_u8(eigvecs: torch.Tensor, f_eigvals: torch.Tensor,
+                    y_u8: torch.Tensor) -> torch.Tensor:
+    """V diag(f(S)) V^T y, clamped and rounded to uint8 (reference
+    src/filter.cpp:434-436); y_u8 (N,) or (N, C)."""
+    return _apply_u8_body(eigvecs, f_eigvals, y_u8)
+
+
+# -- the host-level entry point ----------------------------------------------
+
+def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
+                 hy: float, n_sinkhorn_iter: int = 10, n_eig_vectors: int = 5,
+                 *, device, eps: float | None = None,
+                 grid: SampleGrid | None = None, packed_y=None,
+                 edit_weights=None):
+    """Train the nonlocal filter on one channel (H, W) on `device`.
+
+    Returns (eigvecs (N, k) in packed [selected; rest] order, eigvals (k,)),
+    both float32 on the device; with edit_weights, also the first edit's
+    filtered u8 channel (packed order), fused into stage 2b. packed_y: the
+    packed channel already on the device (skips the upload)."""
+    dev = resolve_device(device)
+    channel_np = np.asarray(channel)
+    if eps is None:
+        eps = EPS
+    nrows, ncols = channel_np.shape
+    if grid is None:
+        grid = sample_grid(nrows, ncols, n_row_samples, n_col_samples)
+    if packed_y is None:
+        packed_np, _ = pack_channel(channel_np, grid.perm)
+        packed_y = torch.from_numpy(np.ascontiguousarray(packed_np)).to(dev)
+    y = packed_y.to(torch.float32)
+    perm = torch.from_numpy(grid.perm).to(dev)
+    rr = (perm // ncols).to(torch.float32)
+    cc = (perm % ncols).to(torch.float32)
+    sw, pw = bandwidth_weights(hx, hy)
+    p = grid.n_samples
+    n = grid.n_pixels
+
+    with stage("Computing kernel"):
+        Um64, lam64, _ = ka_eigh_host64(
+            channel_np[grid.sel_rows, grid.sel_cols].astype(np.float64),
+            grid.sel_rows, grid.sel_cols, hx, hy, float(eps))
+        m = lam64.shape[0]
+    if m == 0:
+        raise ValueError("Affinity matrix Ka has no eigenvalues above eps.")
+    warn_truncation(p, m, float(eps))
+    mb = bucket_m(m, p)
+    stage1 = torch.from_numpy(pack_stage1(Um64, lam64, mb=mb)).to(dev)
+
+    with stage("Nystrom approximation + Sinkhorn"):
+        int16 = resolve_int16()
+        rc, sb, factor, c_rest = train_filter_stage2a(
+            y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
+            n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps), split=int16,
+            int16=int16)
+        rc_np = rc.cpu().double().numpy()
+        if check_carrier_guard(rc_np):
+            # Out-of-domain input for the int16 carrier: retrain through
+            # the assembled f32 trajectory.
+            rc, sb, factor, c_rest = train_filter_stage2a(
+                y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
+                n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps),
+                split=False, int16=False)
+            rc_np = rc.cpu().double().numpy()
+    k = min(n_eig_vectors, m)
+    with stage("Orthogonalize"):
+        va_np, Sq = host_orthogonalize(rc_np, sb.cpu().double().numpy(),
+                                       Um64, lam64, m, mb, k, float(eps))
+        split = isinstance(factor, tuple)
+        va_grt = torch.from_numpy(
+            pack_stage2b_upload(split, va_np, rc_np, Um64, m, p, k)
+        ).to(dev, torch.float32)
+        S = torch.from_numpy(Sq).to(dev, torch.float32)
+    with stage("Stage 2b"):
+        if edit_weights is None:
+            V = _stage2b_dense_body(factor, c_rest, va_grt, n=n, mb=mb)
+            return V, S
+        fs = transform_eigenvalues(S, edit_weights)
+        V, edit_out = train_filter_stage2b_edit(
+            factor, c_rest, va_grt, packed_y, fs, n=n, mb=mb)
+    return V, S, edit_out
