@@ -4,23 +4,52 @@
     python3 chip_smoke.py
 
 1. requires CUDA and prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from nle_tpu_torch/csrc and prints the build
-   time and ptxas' register/spill lines;
+2. builds the CUDA kernels from nle_tpu_torch/csrc (one nvcc per source,
+   all started together) and prints the build time and ptxas'
+   register/spill lines;
 3. checks each kernel against its plain PyTorch version on the card at the
-   1 MP main path's shapes (real data: the rock2-parameter frame below)
-   and times both with CUDA events;
+   1 MP main path's shapes (real data: the rock2-parameter frame below),
+   each within a stated error bound (the streaming kernels K8, K10 and
+   K11 at R = 1, 2, 3, and K12 against their plain versions evaluated in
+   float64), and times the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call, with CUDA events;
+   each kernel's bound (the least time the card could take: bytes over
+   3.35 TB/s or fp32 operations over 67 TFLOP/s) is computed from the same
+   inputs;
 4. runs a small frame on device="cuda" and device="cpu" (>= 45 dB between
    them) and twice on the card (bitwise equal), and edits on the card with
    the filter the CPU trained;
-5. drives the main path: NLEFilter(device="cuda").train_and_enhance on a
-   structured 832x1216 frame with the rock2 parameters 20 30 500 10 50 50
-   (p = 600, 50 Sinkhorn iterations, k = 50), weights [4, 3, 4, 1], cold
-   then warm. The launch counts of the cold run alone prove which kernels
-   the path went through (K1, K3 >= 2 x 50, K6, K7). Then one
-   uniform-noise frame, whose int16 carrier guard trips, drives the f32
-   fallback; its own counts (guard_launches) prove K4 ran;
+5. drives the dense main path: NLEFilter(device="cuda").train_and_enhance
+   on a structured 832x1216 frame with the rock2 parameters
+   20 30 500 10 50 50 (p = 600, 50 Sinkhorn iterations, k = 50), weights
+   [4, 3, 4, 1], cold then warm. The launch counts of the cold run alone
+   prove which kernels the path went through (K1, K3 >= 2 x 50, K6, K7);
+   its peak device memory over the padded phi must stay within the
+   streaming rule's DENSE_PEAK_PER_PHI_BYTE. Then one uniform-noise frame, whose int16 carrier guard trips, drives
+   the f32 fallback; its own counts (guard_launches) prove K4 ran;
 6. profiles one more warm 1 MP call (torch.profiler): wall, device time and
-   busy share, host time per pipeline stage, and the device time per kernel.
+   busy share, host time per pipeline stage, and the device time per kernel
+   ([7] profiles one more 32 MP call the same way);
+7. drives the phi-free capacity path at full size:
+   NLEFilter(factored=True, device="cuda").train_and_enhance on a
+   structured 5656x5656 frame (31,990,336 px) with 24 25 5000 30 50 50
+   (p = 600), cold then warm (bitwise equal). The cold run's own counts
+   prove K8 >= 101, K12, K10, K11 ran and K3, K4, K6, K7 did not (no phi);
+   its peak device memory must stay below 256 B/pixel; the warm run prints
+   train and apply seconds. Then K8 (unit_x and a real half-step), K10,
+   K11 and K12 are held against their float64 plain versions on this
+   frame's own operands (q ~ 32 M rest pixels, mpad 384);
+8. cross-path checks: (a) the factored path on the card vs the CPU
+   (>= 45 dB) and twice on the card (bitwise) on a 128x192 frame; (b) the
+   factored path vs the dense main path at 1 MP (>= 45 dB); (c)
+   train_filter(streaming=True) vs streaming=False on a 2000x2000 frame
+   with the rock2 parameters (>= 45 dB on the edit), the streaming run's
+   counts proving it took K8, K12 and K1 and no dense kernel; (d) the
+   streaming auto rule: a frame at ~92% of the phi limit it computes on
+   this card runs dense through NLEFilter's default (no K8), on the split
+   int16 route and on the assembled f32 route, without running out of
+   memory and within DENSE_PEAK_PER_PHI_BYTE x phi, and 15% more pixels
+   would stream.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -50,7 +79,24 @@ GRAM_SUM_TOL = 2.5e-4
 # blocks differently. Rounding of such sums grows like sqrt(terms) u: a few
 # 1e-6 at most here. A dropped 32-row tile moves s by ~3e-5 of the sum.
 S_SUM_TOL = 1e-5
+# Tolerance of K12's Sb, relative to the gram of absolute terms. Its deepest
+# fp32 chains: a 2048-row split inside each chunk, then one add per 32,768-row
+# chunk (977 at 32 MP), then 16 split partials. The reference is float64, so
+# this bounds the kernel's own rounding (~sqrt(chain) u: a few 1e-6). A
+# dropped 16-row k-step moves a 1 MP gram by ~1.6e-5, a 64-row tile by ~6e-5.
+GRAM_STREAM_TOL = 1e-5
 GUARD_ITERS = 10                              # Sinkhorn iterations, noise frame
+CAP_SHAPE = (5656, 5656)                      # 31,990,336 px
+CAP_ARGS = (24, 25, 5000.0, 30.0, 50, 50)     # p = 600 samples
+CAP_BYTES_PER_PIXEL = 256                     # phi would be 2,560, V 200
+STREAM_SHAPE = (2000, 2000)
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and fp32
+# FLOP/s outside the tensor cores (TF32 is barred by the fidelity contract).
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+# fp32 operations of one affinity entry's argument: three differences, five
+# multiplies, two adds (the IEEE expf is not counted, so the bound is low).
+ENTRY_FLOPS = 10
 
 
 def structured_frame(h: int, w: int, seed: int = 0) -> np.ndarray:
@@ -62,8 +108,10 @@ def structured_frame(h: int, w: int, seed: int = 0) -> np.ndarray:
     for _ in range(6):
         cy, cx = rng.uniform(0, h), rng.uniform(0, w)
         rad = rng.uniform(0.05, 0.2) * min(h, w)
-        base += rng.uniform(-40, 40) / (
-            1 + np.exp(((yy - cy) ** 2 + (xx - cx) ** 2) ** 0.5 / 8 - rad / 8))
+        # The exponent is capped below exp's float64 overflow: past ~40 the
+        # term is far below one ulp of base either way.
+        base += rng.uniform(-40, 40) / (1 + np.exp(np.minimum(
+            ((yy - cy) ** 2 + (xx - cx) ** 2) ** 0.5 / 8 - rad / 8, 700.0)))
     base += rng.normal(0, 2.0, (h, w))
     img = np.stack([base * 0.9 + 10, base, base * 1.05 - 5], axis=-1)
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
@@ -94,14 +142,146 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def check(name: str, diff, bound) -> float:
-    """Assert |diff| <= bound elementwise; returns max |diff|."""
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the fp32 operations over the peak rate."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def check(name: str, diff, bound) -> tuple[float, float]:
+    """Assert |diff| <= bound elementwise; returns (max |diff|, max
+    |diff| / bound)."""
     ratio = float((diff.abs() / bound.clamp(min=1e-30)).max())
     worst = float(diff.abs().max())
     print(f"  {name}: max_abs_err {worst:.3e}, max err/bound {ratio:.3e}")
     if not ratio <= 1.0:
         raise AssertionError(f"{name}: error exceeds its bound ({ratio})")
-    return worst
+    return worst, ratio
+
+
+def path_operands(torch, L: np.ndarray, args, dev):
+    """The device operands the path builds from a Lab luminance frame L
+    (H, W) and its args: stage 1 on the host, then the packed channel, the
+    features (rest pixels fb, samples fa) and Um, lam, Uinv."""
+    from types import SimpleNamespace
+
+    from nle_tpu_torch.ops.affinity import bandwidth_weights, features
+    from nle_tpu_torch.ops.pipeline import (
+        _unpack_stage1,
+        bucket_m,
+        ka_eigh_host64,
+        pack_stage1,
+    )
+    from nle_tpu_torch.ops.sampling import sample_grid
+
+    h, w = L.shape
+    rows_s, cols_s, hx, hy = args[:4]
+    grid = sample_grid(h, w, rows_s, cols_s)
+    p, n = grid.n_samples, grid.n_pixels
+    Um64, lam64, _ = ka_eigh_host64(
+        L[grid.sel_rows, grid.sel_cols].astype(np.float64), grid.sel_rows,
+        grid.sel_cols, hx, hy, 1e-10)
+    m = lam64.shape[0]
+    mb = bucket_m(m, p)
+    stage1 = torch.from_numpy(pack_stage1(Um64, lam64, mb=mb)).to(dev)
+    Um, lam, Uinv = _unpack_stage1(stage1, p)
+    perm = torch.from_numpy(grid.perm).to(dev)
+    y = torch.from_numpy(L.reshape(-1)[grid.perm]).to(dev)
+    f = features((perm // w).float(), (perm % w).float(), y)
+    sw, pw = bandwidth_weights(hx, hy)
+    return SimpleNamespace(p=p, n=n, m=m, mb=mb, mpad=-(-mb // 128) * 128,
+                           Um=Um, lam=lam, Uinv=Uinv, y=y, fa=f[:p],
+                           fb=f[p:], sw=sw, pw=pw)
+
+
+def hold_streaming(torch, op, eps: float, label: str):
+    """K8 (its unit_x pass and a real half-step), K10 and K11 (R = 1, 2, 3)
+    and K12 on the path's own operands `op`, each held against its plain
+    version evaluated in float64 on the same inputs, so each bound covers
+    the kernel's own rounding. Returns ({kernel: (max_abs_err, max
+    err/bound)}, the f32 operands for timing)."""
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        pad_stream_operands,
+        streaming_ap,
+        streaming_ap_plain,
+        streaming_atb,
+        streaming_atb_plain,
+        streaming_halfstep,
+        streaming_halfstep_plain,
+        streaming_scaled_gram,
+        streaming_scaled_gram_plain,
+    )
+
+    pad = torch.nn.functional.pad
+    p, q, sw, pw = op.p, op.n - op.p, op.sw, op.pw
+    fa_rows, fb_cols, mask = pad_stream_operands(op.fa, op.fb)
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    print(f"  {label}: streaming kernels at q={q}, Qpad={qpad}, p={p}, "
+          f"Ppad={ppad}, mpad={op.mpad}; float64 references")
+    f64 = torch.float64
+    fa64, fb64 = fa_rows.to(f64), fb_cols.to(f64)
+    out = {}
+
+    def hold(kernel, name, diff, bound):
+        e, r = check(f"{label} {name}", diff, bound)
+        e0, r0 = out.get(kernel, (0.0, 0.0))
+        out[kernel] = (max(e, e0), max(r, r0))
+
+    x0, ap0 = streaming_halfstep(fa_rows, fb_cols, mask, fa_rows.new_zeros(
+        ppad), sw, pw, eps, unit_x=True)
+    if not torch.equal(x0, mask[0]):
+        raise AssertionError("K8 unit_x: x is not the mask")
+    # A real half-step input: u = Uinv t for t = lam s0, s0 = phi^T 1.
+    u = pad(op.Uinv @ (op.lam * (op.Um.sum(dim=0) + op.Uinv.T @ ap0[:p])),
+            (0, ppad - p)).contiguous()
+    xk, apk = streaming_halfstep(fa_rows, fb_cols, mask, u, sw, pw, eps)
+    xp, _ = streaming_halfstep_plain(fa64, fb64, mask.to(f64), u.to(f64), sw,
+                                     pw, eps)
+    # Rows for K10: the factored projection's input (x y here), x itself,
+    # and the mask. One float64 pass gives K^T of them and of |them|, which
+    # also hold K8's ap (K^T x for the kernel's own x) and its unit_x pass.
+    X = torch.stack([xk * pad(op.y[p:], (0, qpad - q)), xk, mask[0]])
+    ref = streaming_ap_plain(fa64, fb64, torch.cat([X, X.abs()]).to(f64),
+                             sw, pw)[:, :p]
+    rng = np.random.default_rng(4)
+    B = torch.zeros((3, ppad), device=u.device)
+    B[:, :p] = torch.from_numpy(rng.standard_normal((3, p)).astype(np.float32)
+                                * 1e-3).to(u.device)
+    # K B, K |B| and K |u| (K8's x bound) in one float64 pass.
+    kref = streaming_atb_plain(fa64, fb64, torch.cat(
+        [B, B.abs(), u.abs()[None]]).to(f64), sw, pw)
+    # ap sums q positive-weighted terms per sample: S_SUM_TOL of the sum of
+    # absolute terms (the kernel's per-block chains are two-level).
+    hold("streaming_halfstep", "K8 unit_x ap", ap0[:p] - ref[2],
+         S_SUM_TOL * ref[5])
+    # x = 1/w: |dx| ~ |dw| x^2, |dw| <= (2 Ppad + 4) u (K |u|) for the p-term
+    # chain and the entries' rounding; x2 for the second order.
+    hold("streaming_halfstep", "K8 x", xk - xp,
+         2 * (2 * ppad + 4) * U * kref[6] * xp * xp)
+    hold("streaming_halfstep", "K8 ap", apk[:p] - ref[1], S_SUM_TOL * ref[4])
+    for R in (1, 2, 3):
+        hold("streaming_ap", f"K10 R={R}",
+             streaming_ap(fa_rows, fb_cols, X[:R].contiguous(), sw, pw)[:, :p]
+             - ref[:R], S_SUM_TOL * ref[3:3 + R])
+        # Ppad-term fp32 sums: (2 Ppad + 4) u (K |b|).
+        hold("streaming_atb", f"K11 R={R}",
+             streaming_atb(fa_rows, fb_cols, B[:R].contiguous(), sw, pw)
+             - kref[:R], (2 * ppad + 4) * U * kref[3:3 + R])
+    del ref, kref, xp
+    c_row = xk[None].contiguous()               # zero on the pad rows
+    uinv_pad = pad(op.Uinv, (0, op.mpad - op.mb, 0, ppad - p)).contiguous()
+    gk = streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw)
+    gref = streaming_scaled_gram_plain(fa64, fb64, c_row.to(f64),
+                                       uinv_pad.to(f64), sw, pw)
+    gabs = streaming_scaled_gram_plain(fa64, fb64, c_row.abs().to(f64),
+                                       uinv_pad.abs().to(f64), sw, pw)
+    hold("streaming_gram", "K12 Sb", gk - gref, GRAM_STREAM_TOL * gabs)
+    del fa64, fb64, gref, gabs
+    timing = dict(fa_rows=fa_rows, fb_cols=fb_cols, mask=mask, u=u,
+                  X=X[:1].contiguous(), b=B[:1].contiguous(), c_row=c_row,
+                  uinv_pad=uinv_pad, q=q, qpad=qpad, ppad=ppad)
+    return out, timing
 
 
 # Host-side stages of one train_and_enhance call (utils.logging.stage
@@ -110,8 +290,8 @@ STAGES = ("BGR to Lab", "Computing kernel", "Nystrom approximation + Sinkhorn",
           "Orthogonalize", "Stage 2b", "Fetch edit", "Lab to BGR")
 
 
-def profile_main(torch, NLEFilter, img, mp: float) -> None:
-    """Profile one warm 1 MP call: wall, device time (the sum of the
+def profile_call(torch, label: str, fn, mp: float) -> None:
+    """Profile one warm call of fn: wall, device time (the sum of the
     device-side events; one stream, so they do not overlap), busy share,
     host ms per stage and the device ms per kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -119,8 +299,7 @@ def profile_main(torch, NLEFilter, img, mp: float) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        NLEFilter(device="cuda").train_and_enhance(img, *MAIN_ARGS,
-                                                   weights=WEIGHTS)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
@@ -142,7 +321,7 @@ def profile_main(torch, NLEFilter, img, mp: float) -> None:
                       if e.device_type != cpu_type and e.key not in STAGES
                       and dev_ms(e) > 0), reverse=True)
     device_ms = sum(k[0] for k in kernels)
-    print(f"[6] profiled warm 1 MP call: wall {wall_ms:.1f} ms "
+    print(f"{label}: wall {wall_ms:.1f} ms "
           f"({mp / wall_ms * 1e3:.3f} MP/s under the profiler)")
     if device_ms > 0:
         print(f"  device time {device_ms:.1f} ms, busy share "
@@ -156,6 +335,340 @@ def profile_main(torch, NLEFilter, img, mp: float) -> None:
         print(f"  device {ms:9.3f} ms  x{count:<4d} {key[:70]}")
 
 
+STREAMING_KERNELS = ("streaming_halfstep", "streaming_ap", "streaming_atb",
+                     "streaming_gram")
+DENSE_KERNELS = ("sinkhorn_halfstep_int16", "sinkhorn_halfstep_f32",
+                 "scaled_gram", "scaled_matmul")
+
+
+def recompose(lab, edit_packed, perm):
+    """BGR output from the Lab frame and a packed u8 L edit."""
+    from nle_tpu_torch.color.lab import lab_to_bgr_u8_np
+
+    edit = edit_packed.cpu().numpy()
+    unpacked = np.empty_like(edit)
+    unpacked[perm] = edit
+    out = lab.copy()
+    out[..., 0] = unpacked.reshape(lab.shape[:2])
+    return lab_to_bgr_u8_np(out)
+
+
+def sass_per_entry(lib_path: str) -> dict:
+    """fp32-pipe issue cost of one affinity entry in each streaming
+    kernel's inner loop: the SASS instructions of the innermost loop that
+    holds the exp (MUFU.EX2), over the number of exps in it. Returns
+    {kernel: (instructions, exps)}; empty when cuobjdump is missing."""
+    import os
+    import re
+    import shutil
+
+    from nle_tpu_torch.ops.kernels import _build
+
+    tool = next((t for t in (
+        os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+        shutil.which("cuobjdump")) if t and os.path.exists(t)), None)
+    if tool is None:
+        return {}
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120).stdout
+    found = {}
+    for chunk in out.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        key = next((k for k in ("stream_halfstep_kernel",
+                                "stream_ap_kernelILi1E",
+                                "stream_atb_kernelILi1E") if k in name), None)
+        if key is None:
+            continue
+        # Instructions read "/*addr*/ [@P] OP args ;"; a branch names its
+        # target address ("BRA 0x12e0"). A backward branch closes a loop.
+        addrs, insts, branches = {}, [], []
+        for line in chunk.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if not m:
+                continue
+            addrs[int(m.group(1), 16)] = len(insts)
+            insts.append(m.group(2))
+            b = re.search(r"\bBRA\s+(0x[0-9a-f]+)", m.group(2))
+            if b:
+                branches.append((len(insts) - 1, int(b.group(1), 16)))
+        loops = [(addrs[t], i) for i, t in branches
+                 if t in addrs and addrs[t] < i]
+        loops = [(a, b) for a, b in loops
+                 if any("MUFU.EX2" in x for x in insts[a:b + 1])]
+        if not loops:
+            continue
+        a, b = min(loops, key=lambda ab: ab[1] - ab[0])
+        body = [x for x in insts[a:b + 1] if x.split()[0] != "NOP"]
+        found[key] = (len(body), sum("MUFU.EX2" in x for x in body))
+    return found
+
+
+def capacity_path(torch, NLEFilter, _build) -> dict:
+    """[7] NLEFilter(factored=True).train_and_enhance at 32 MP, cold then
+    warm, then K8, K10, K11 and K12 held against their float64 plain
+    versions on this frame's own operands; returns the cold run's launch
+    counts and {kernel: (max_abs_err, max err/bound)}."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.pipeline import bucket_m, ka_eigh_host64
+    from nle_tpu_torch.ops.sampling import sample_grid
+
+    h, w = CAP_SHAPE
+    n = h * w
+    t0 = time.perf_counter()
+    big = structured_frame(h, w, seed=7)
+    # The sampled pixels' Lab values alone give stage 1's rank (Lab is per
+    # pixel), so p, m and the bucket mb print without converting the frame.
+    grid = sample_grid(h, w, CAP_ARGS[0], CAP_ARGS[1])
+    Ls = bgr_to_lab_u8_np(big[grid.sel_rows, grid.sel_cols][None])[0, :, 0]
+    m = ka_eigh_host64(Ls.astype(np.float64), grid.sel_rows, grid.sel_cols,
+                       CAP_ARGS[2], CAP_ARGS[3], 1e-10)[1].shape[0]
+    print(f"[7] capacity path: {h}x{w} ({n} px) frame made in "
+          f"{time.perf_counter() - t0:.1f} s; args "
+          f"{' '.join(map(str, CAP_ARGS))}: p={grid.n_samples}, m={m}, "
+          f"mb={bucket_m(m, grid.n_samples)}")
+    del grid
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cold = NLEFilter(device="cuda", factored=True).train_and_enhance(
+        big, *CAP_ARGS, weights=WEIGHTS)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  cold {cold_s:.3f} s; launches {counts}")
+    print(f"  peak device memory {peak / 2**30:.3f} GiB = {peak / n:.1f} "
+          f"B/pixel ({before / 2**20:.1f} MiB held before the run; phi would "
+          f"be 2560 B/pixel, V 200)")
+    iters = CAP_ARGS[4]
+    if counts["streaming_halfstep"] < 2 * iters + 1:
+        raise AssertionError(f"K8 ran {counts['streaming_halfstep']} times")
+    for name in ("streaming_gram", "streaming_ap", "streaming_atb"):
+        if counts[name] < 1:
+            raise AssertionError(f"{name} never launched on the 32 MP path")
+    for name in DENSE_KERNELS:
+        if counts[name]:
+            raise AssertionError(f"{name} launched on the phi-free path")
+    if not peak / n < CAP_BYTES_PER_PIXEL:
+        raise AssertionError(f"peak {peak / n:.1f} B/pixel >= "
+                             f"{CAP_BYTES_PER_PIXEL}")
+    f = NLEFilter(device="cuda", factored=True)
+    t0 = time.perf_counter()
+    f.train_for_enhancement(big, *CAP_ARGS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = f.enhance(big, WEIGHTS)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    mp = n / 1e6
+    print(f"  warm: train {train_s:.3f} s, apply {apply_s:.3f} s, total "
+          f"{train_s + apply_s:.3f} s = {mp / (train_s + apply_s):.3f} MP/s; "
+          f"cold == warm bitwise: {bool(np.array_equal(cold, warm))}; "
+          f"PSNR(output, input) {psnr(warm, big):.2f} dB")
+    if cold.shape != big.shape or cold.dtype != np.uint8:
+        raise AssertionError(f"32 MP output {cold.shape} {cold.dtype}")
+    if not np.array_equal(cold, warm):
+        raise AssertionError("32 MP: cold and warm runs differ")
+    del f, cold, warm
+    profile_call(torch, "  profiled warm 32 MP train_and_enhance",
+                 lambda: NLEFilter(device="cuda", factored=True)
+                 .train_and_enhance(big, *CAP_ARGS, weights=WEIGHTS), mp)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    L = bgr_to_lab_u8_np(big)[..., 0].astype(np.float32)
+    del big
+    op = path_operands(torch, L, CAP_ARGS, torch.device("cuda"))
+    del L
+    errs, _ = hold_streaming(torch, op, 1e-10, "32 MP")
+    del op
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  32 MP kernel checks: {time.perf_counter() - t0:.1f} s")
+    return counts, errs
+
+
+def cross_paths(torch, NLEFilter, _build, img, dense_out) -> dict:
+    """[8] the factored path on card vs CPU and vs the dense path, and the
+    streaming train vs the dense train; returns the streaming run's
+    launch counts."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.pipeline import pack_channel, train_filter
+    from nle_tpu_torch.ops.sampling import sample_grid
+
+    small = structured_frame(128, 192, seed=5)
+    sargs = (10, 10, 100.0, 30.0, 10, 10)
+    g1 = NLEFilter(device="cuda", factored=True).train_and_enhance(
+        small, *sargs, weights=WEIGHTS)
+    g2 = NLEFilter(device="cuda", factored=True).train_and_enhance(
+        small, *sargs, weights=WEIGHTS)
+    cpu = NLEFilter(device="cpu", factored=True).train_and_enhance(
+        small, *sargs, weights=WEIGHTS)
+    db = psnr(g1, cpu)
+    print(f"[8a] factored, 128x192: cuda vs cpu {db:.2f} dB, two cuda runs "
+          f"bitwise equal: {bool(np.array_equal(g1, g2))}")
+    if not db >= 45.0:
+        raise AssertionError(f"factored cuda vs cpu {db:.2f} dB < 45")
+    if not np.array_equal(g1, g2):
+        raise AssertionError("factored: two cuda runs differ")
+
+    fac = NLEFilter(device="cuda", factored=True).train_and_enhance(
+        img, *MAIN_ARGS, weights=WEIGHTS)
+    db = psnr(fac, dense_out)
+    print(f"[8b] factored vs dense split path at 1 MP: {db:.2f} dB")
+    if not db >= 45.0:
+        raise AssertionError(f"factored vs dense {db:.2f} dB < 45")
+
+    h, w = STREAM_SHAPE
+    frame = structured_frame(h, w, seed=9)
+    lab = bgr_to_lab_u8_np(frame)
+    L = lab[..., 0].astype(np.float32)
+    grid = sample_grid(h, w, MAIN_ARGS[0], MAIN_ARGS[1])
+    packed = torch.from_numpy(np.ascontiguousarray(
+        pack_channel(L, grid.perm)[0])).cuda()
+    outs, counts = {}, {}
+    for mode in (True, False):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        _, _, edit = train_filter(L, *MAIN_ARGS, device="cuda", grid=grid,
+                                  packed_y=packed, edit_weights=WEIGHTS,
+                                  streaming=mode)
+        outs[mode] = recompose(lab, edit, grid.perm)
+        torch.cuda.synchronize()
+        counts[mode] = dict(_build.LAUNCHES)
+        print(f"[8c] {h}x{w} train_filter(streaming={mode}): "
+              f"{time.perf_counter() - t0:.3f} s; launches {counts[mode]}")
+    db = psnr(outs[True], outs[False])
+    print(f"  streaming vs dense edit: {db:.2f} dB")
+    if not db >= 45.0:
+        raise AssertionError(f"streaming vs dense {db:.2f} dB < 45")
+    st = counts[True]
+    if (st["streaming_halfstep"] < 2 * MAIN_ARGS[4] + 1
+            or st["streaming_gram"] < 1 or st["affinity_matmul"] < 1):
+        raise AssertionError(f"the streaming branch did not run: {st}")
+    if any(st[name] for name in DENSE_KERNELS):
+        raise AssertionError(f"dense kernels ran on the streaming train: {st}")
+    if any(counts[False][name] for name in STREAMING_KERNELS):
+        raise AssertionError("streaming kernels ran on the dense train")
+    return st
+
+
+class PeakMeter:
+    """Peak device bytes of one dense run over the padded f32 phi that
+    resolve_streaming weighs, against the rule's DENSE_PEAK_PER_PHI_BYTE.
+    Starts at construction (peak statistics reset, the cache emptied)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        self.base = torch.cuda.memory_allocated()
+
+    def dense_ratio(self, label: str, n: int, mb: int) -> float:
+        from nle_tpu_torch.ops.pipeline import (
+            DENSE_PEAK_PER_PHI_BYTE,
+            padded_shape,
+        )
+
+        peak = self.torch.cuda.max_memory_allocated() - self.base
+        npad, mpad = padded_shape(n, mb)
+        ratio = peak / (4 * npad * mpad)
+        print(f"{label}: peak device memory {peak / 1e9:.3f} GB above the "
+              f"{self.base / 1e6:.1f} MB held before = {ratio:.3f} x phi "
+              f"({4 * npad * mpad / 1e9:.3f} GB); the auto rule assumes "
+              f"{DENSE_PEAK_PER_PHI_BYTE}")
+        if not ratio <= DENSE_PEAK_PER_PHI_BYTE:
+            raise AssertionError(f"{label}: dense peak {ratio:.3f} x phi > "
+                                 f"{DENSE_PEAK_PER_PHI_BYTE}")
+        return ratio
+
+
+def near_threshold(torch, NLEFilter, _build) -> None:
+    """[8d] the streaming auto rule on this card: a frame sized to ~92% of
+    the phi limit the rule computes here runs dense through NLEFilter's
+    default streaming=None on both dense routes (the split int16 layout,
+    and the assembled f32 layout of the carrier guard's fallback, forced
+    with NLE_SINKHORN_INT16=off), without running out of memory and within
+    DENSE_PEAK_PER_PHI_BYTE x phi; a frame 15% larger would stream."""
+    import os
+
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.pipeline import (
+        bucket_m,
+        ka_eigh_host64,
+        padded_shape,
+        resolve_streaming,
+        stream_bytes_limit,
+    )
+    from nle_tpu_torch.ops.sampling import sample_grid
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    limit = stream_bytes_limit(dev)
+    t0 = time.perf_counter()
+    mpad = 640
+    for _ in range(2):
+        # A 4:3 frame whose phi is ~92% of the limit at this mpad; the
+        # second pass resizes for the mpad the frame's own rank gives.
+        n_target = 0.92 * limit / (4 * mpad)
+        h = int((n_target * 3 / 4) ** 0.5)
+        w = int(n_target / h)
+        frame = structured_frame(h, w, seed=11)
+        grid = sample_grid(h, w, MAIN_ARGS[0], MAIN_ARGS[1])
+        Ls = bgr_to_lab_u8_np(frame[grid.sel_rows, grid.sel_cols][None])[0, :, 0]
+        m = ka_eigh_host64(Ls.astype(np.float64), grid.sel_rows,
+                           grid.sel_cols, MAIN_ARGS[2], MAIN_ARGS[3],
+                           1e-10)[1].shape[0]
+        mb = bucket_m(m, grid.n_samples)
+        if padded_shape(h * w, mb)[1] == mpad:
+            break
+        mpad = padded_shape(h * w, mb)[1]
+    n = h * w
+    phi = 4 * padded_shape(n, mb)[0] * mpad
+    above = resolve_streaming(None, dev, int(n * 1.15), mb)
+    print(f"[8d] auto rule: phi limit {limit / 1e9:.3f} GB on this card; "
+          f"{h}x{w} frame ({n} px, mb={mb}) has phi {phi / 1e9:.3f} GB = "
+          f"{phi / limit:.3f} of it (made in {time.perf_counter() - t0:.1f} "
+          f"s); 15% more pixels would stream: {above}")
+    if resolve_streaming(None, dev, n, mb) or not above:
+        raise AssertionError("the auto rule does not switch near its limit")
+    routes = (("split int16", None, "sinkhorn_halfstep_int16"),
+              ("assembled f32", "off", "sinkhorn_halfstep_f32"))
+    saved = os.environ.get("NLE_SINKHORN_INT16")
+    try:
+        for label, env, kernel in routes:
+            if env is None:
+                os.environ.pop("NLE_SINKHORN_INT16", None)
+            else:
+                os.environ["NLE_SINKHORN_INT16"] = env
+            peak = PeakMeter(torch)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = NLEFilter(device="cuda").train_and_enhance(
+                frame, *MAIN_ARGS, weights=WEIGHTS)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            print(f"  {label}: dense train_and_enhance "
+                  f"{time.perf_counter() - t0:.3f} s; launches {counts}")
+            if (counts[kernel] < 2 * MAIN_ARGS[4]
+                    or any(counts[k] for k in STREAMING_KERNELS)):
+                raise AssertionError(f"{label}: the frame under the limit "
+                                     f"did not run that dense route: {counts}")
+            if out.shape != frame.shape or out.dtype != np.uint8:
+                raise AssertionError(f"output {out.shape} {out.dtype}")
+            peak.dense_ratio(f"  {label} near the limit", n, mb)
+            del out
+    finally:
+        if saved is None:
+            os.environ.pop("NLE_SINKHORN_INT16", None)
+        else:
+            os.environ["NLE_SINKHORN_INT16"] = saved
+    del frame
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -166,7 +679,6 @@ def main() -> int:
     import nle_tpu_torch  # noqa: F401  (pins fp32 precision)
     from nle_tpu_torch import NLEFilter
     from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
-    from nle_tpu_torch.ops.affinity import bandwidth_weights, features
     from nle_tpu_torch.ops.kernels import _build
     from nle_tpu_torch.ops.kernels.affinity_kernel import (
         affinity_matmul_kernel,
@@ -186,13 +698,16 @@ def main() -> int:
         sinkhorn_halfstep_plain,
         split_row_pad,
     )
-    from nle_tpu_torch.ops.pipeline import (
-        _unpack_stage1,
-        bucket_m,
-        ka_eigh_host64,
-        pack_stage1,
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        streaming_ap,
+        streaming_ap_plain,
+        streaming_atb,
+        streaming_atb_plain,
+        streaming_halfstep,
+        streaming_halfstep_plain,
+        streaming_scaled_gram,
+        streaming_scaled_gram_plain,
     )
-    from nle_tpu_torch.ops.sampling import sample_grid
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -213,37 +728,56 @@ def main() -> int:
     for line in (_build.build_log or "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
+    sass = sass_per_entry(_build.library_path())
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0]
+    # Thread instructions the card issues per second: 132 SMs x 4
+    # schedulers x 32 lanes x the maximum SM clock.
+    issue_rate = 132 * 128 * float(clock) * 1e6
+    for key, (ninst, nexp) in sass.items():
+        print(f"  sass: {key} inner loop {ninst} instructions for {nexp} "
+              f"affinity entries = {ninst / nexp:.1f} per entry "
+              f"(max SM clock {clock} MHz)")
+    if not sass:
+        print("  sass: not measured (no cuobjdump)")
 
     # -- [3] each kernel against its plain version at main-path shapes ----
     h, w = MAIN_SHAPE
-    rows_s, cols_s, hx, hy, iters, kvec = MAIN_ARGS
+    iters, kvec = MAIN_ARGS[4:]
     img = structured_frame(h, w)
     L = bgr_to_lab_u8_np(img)[..., 0].astype(np.float32)
-    grid = sample_grid(h, w, rows_s, cols_s)
-    p, n = grid.n_samples, grid.n_pixels
-    Um64, lam64, _ = ka_eigh_host64(
-        L[grid.sel_rows, grid.sel_cols].astype(np.float64), grid.sel_rows,
-        grid.sel_cols, hx, hy, 1e-10)
-    m = lam64.shape[0]
-    mb = bucket_m(m, p)
-    mpad = -(-mb // 128) * 128
-    stage1 = torch.from_numpy(pack_stage1(Um64, lam64, mb=mb)).to(dev)
-    Um, lam, Uinv = _unpack_stage1(stage1, p)
-    perm = torch.from_numpy(grid.perm).to(dev)
-    y = torch.from_numpy(L.reshape(-1)[grid.perm]).to(dev)
-    f = features((perm // w).float(), (perm % w).float(), y)
-    fa, fb = f[:p], f[p:]
-    sw, pw = bandwidth_weights(hx, hy)
+    op = path_operands(torch, L, MAIN_ARGS, dev)
+    p, n, m, mb, mpad = op.p, op.n, op.m, op.mb, op.mpad
+    Um, lam, Uinv, fa, fb, sw, pw = (op.Um, op.lam, op.Uinv, op.fa, op.fb,
+                                     op.sw, op.pw)
     nb = n - p
     npad_b = split_row_pad(nb)
     print(f"[3] kernels vs plain at the main path: n={n}, p={p}, m={m}, "
           f"mb={mb}, npad_b={npad_b}, mpad={mpad}")
     rows = []
 
-    def record(name, src, repl, err, ms, plain_ms):
-        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    def record(name, src, repl, err, ms, plain_ms, nbytes, flops,
+               library_ms=None, sass_key=None, entries=0):
+        """err: (max_abs_err, max err/bound) of the kernel's checks."""
+        bms, by = bound_ms(nbytes, flops)
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
+        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, "
+              f"bound {bms:.4f} ms ({by}: {nbytes:.4g} B, {flops:.4g} flop)")
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                         max_abs_err=err[0], err_over_bound=err[1], ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=library_ms))
+        if sass_key in sass:
+            ninst, nexp = sass[sass_key]
+            # Issue time of the entry-building loop alone: a floor under
+            # the kernel's instruction-issue time.
+            issue_ms = entries * ninst / nexp / issue_rate * 1e3
+            rows[-1]["sass_per_entry"] = ninst / nexp
+            rows[-1]["issue_ms_entry_loop"] = issue_ms
+            print(f"  {name}: entry loop {ninst / nexp:.1f} instructions per "
+                  f"entry -> issue time {issue_ms:.3f} ms")
 
     eps = 1e-10
     phib = affinity_matmul_kernel(fa, fb, Uinv, sw, pw, out_rows=npad_b)
@@ -262,7 +796,9 @@ def main() -> int:
            cuda_ms(torch, lambda: affinity_matmul_kernel(
                fa, fb, Uinv, sw, pw, out_rows=npad_b)),
            cuda_ms(torch, lambda: affinity_matmul_plain(
-               fa, fb, Uinv, sw, pw, out_rows=npad_b)))
+               fa, fb, Uinv, sw, pw, out_rows=npad_b)),
+           4 * (3 * nb + p * mb + npad_b * mpad),
+           2 * nb * p * mb + ENTRY_FLOPS * nb * p)
 
     Um_pad = torch.nn.functional.pad(Um, (0, mpad - mb))
     lam_pad = torch.nn.functional.pad(lam, (0, mpad - mb))
@@ -282,13 +818,14 @@ def main() -> int:
         bx = 2 * (2 * mpad + 4) * U * (Qa @ t.abs()) * xp * xp + 1e-30
         ex = check(f"{label} x", xk - xp, bx)
         es = check(f"{label} s", sk - sp, S_SUM_TOL * (Qa.T @ xp.abs()) + 1e-30)
-        return xk, max(ex, es)
+        return xk, (max(ex[0], es[0]), max(ex[1], es[1]))
 
     xk, err = halfstep_check("K3 sinkhorn int16", q16, tq)
     record("sinkhorn_halfstep_int16", "nle_tpu_torch/csrc/sinkhorn.cu",
            "nle_tpu/ops/pallas/sinkhorn_kernel.py:121", err,
            cuda_ms(torch, lambda: sinkhorn_halfstep(q16, tq, eps), reps=10),
-           cuda_ms(torch, lambda: sinkhorn_halfstep_plain(q16, tq, eps)))
+           cuda_ms(torch, lambda: sinkhorn_halfstep_plain(q16, tq, eps)),
+           2 * npad_b * mpad + 4 * (npad_b + 2 * mpad), 4 * nb * mb)
     del q16
 
     npad, _ = padded_shape(n, mb)
@@ -300,7 +837,8 @@ def main() -> int:
     record("sinkhorn_halfstep_f32", "nle_tpu_torch/csrc/sinkhorn.cu",
            "nle_tpu/ops/pallas/sinkhorn_kernel.py:121", err,
            cuda_ms(torch, lambda: sinkhorn_halfstep(phi, t32, eps), reps=10),
-           cuda_ms(torch, lambda: sinkhorn_halfstep_plain(phi, t32, eps)))
+           cuda_ms(torch, lambda: sinkhorn_halfstep_plain(phi, t32, eps)),
+           4 * (npad * mpad + npad + 2 * mpad), 4 * n * mb)
     del phi
 
     c = xk[:, None].contiguous()          # a real balancing vector
@@ -308,10 +846,13 @@ def main() -> int:
     gp = scaled_gram_plain(phib, c)
     err = check("K6 scaled_gram", gk - gp,
                 GRAM_SUM_TOL * scaled_gram_plain(phib.abs(), c.abs()) + 1e-30)
+    cphi = phib * c                       # pre-scaled, for the library call
     record("scaled_gram", "nle_tpu_torch/csrc/scaled_matmul.cu",
            "nle_tpu/ops/pallas/scaled_matmul_kernel.py:56", err,
            cuda_ms(torch, lambda: scaled_gram(phib, c)),
-           cuda_ms(torch, lambda: scaled_gram_plain(phib, c)))
+           cuda_ms(torch, lambda: scaled_gram_plain(phib, c)),
+           4 * (npad_b * mpad + npad_b + mpad * mpad), nb * mb * (mb + 1),
+           cuda_ms(torch, lambda: torch.matmul(cphi.T, cphi)))
 
     rng = np.random.default_rng(3)
     B = np.zeros((mpad, 128), np.float32)
@@ -325,8 +866,59 @@ def main() -> int:
     record("scaled_matmul", "nle_tpu_torch/csrc/scaled_matmul.cu",
            "nle_tpu/ops/pallas/scaled_matmul_kernel.py:111", err,
            cuda_ms(torch, lambda: scaled_matmul(phib, c, B)),
-           cuda_ms(torch, lambda: scaled_matmul_plain(phib, c, B)))
-    del phib, gk, gp, vk, vp, c, xk
+           cuda_ms(torch, lambda: scaled_matmul_plain(phib, c, B)),
+           4 * (npad_b * mpad + npad_b + mpad * 128 + npad_b * 128),
+           2 * nb * mb * kvec,
+           cuda_ms(torch, lambda: torch.matmul(cphi, B)))
+    del phib, gk, gp, vk, vp, c, xk, cphi
+    torch.cuda.empty_cache()
+
+    # The streaming kernels at the same frame's shapes: the rest pixels
+    # against the p samples, R = 1 row for the timed K10/K11 calls.
+    errs, t = hold_streaming(torch, op, eps, "1 MP")
+    fa_rows, fb_cols, mask, u = t["fa_rows"], t["fb_cols"], t["mask"], t["u"]
+    X, b, c_row, uinv_pad = t["X"], t["b"], t["c_row"], t["uinv_pad"]
+    qpad, ppad = t["qpad"], t["ppad"]
+    unit_ms = cuda_ms(torch, lambda: streaming_halfstep(
+        fa_rows, fb_cols, mask, u, sw, pw, eps, unit_x=True), reps=10)
+    entries = nb * p
+    record("streaming_halfstep", "nle_tpu_torch/csrc/streaming.cu",
+           "nle_tpu/ops/pallas/streaming_kernel.py:105",
+           errs["streaming_halfstep"],
+           cuda_ms(torch, lambda: streaming_halfstep(
+               fa_rows, fb_cols, mask, u, sw, pw, eps), reps=10),
+           cuda_ms(torch, lambda: streaming_halfstep_plain(
+               fa_rows, fb_cols, mask, u, sw, pw, eps)),
+           4 * (3 * qpad + 2 * qpad + 5 * ppad), (ENTRY_FLOPS + 4) * entries,
+           sass_key="stream_halfstep_kernel", entries=entries)
+    rows[-1]["unit_x_ms"] = unit_ms
+    print(f"  streaming_halfstep unit_x: kernel {unit_ms:.3f} ms")
+    record("streaming_ap", "nle_tpu_torch/csrc/streaming.cu",
+           "nle_tpu/ops/pallas/streaming_kernel.py:299", errs["streaming_ap"],
+           cuda_ms(torch, lambda: streaming_ap(fa_rows, fb_cols, X, sw, pw),
+                   reps=10),
+           cuda_ms(torch, lambda: streaming_ap_plain(fa_rows, fb_cols, X,
+                                                     sw, pw)),
+           4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries,
+           sass_key="stream_ap_kernelILi1E", entries=entries)
+    record("streaming_atb", "nle_tpu_torch/csrc/streaming.cu",
+           "nle_tpu/ops/pallas/streaming_kernel.py:369", errs["streaming_atb"],
+           cuda_ms(torch, lambda: streaming_atb(fa_rows, fb_cols, b, sw, pw),
+                   reps=10),
+           cuda_ms(torch, lambda: streaming_atb_plain(fa_rows, fb_cols, b,
+                                                      sw, pw)),
+           4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries,
+           sass_key="stream_atb_kernelILi1E", entries=entries)
+    record("streaming_gram", "nle_tpu_torch/csrc/streaming.cu",
+           "nle_tpu/ops/pallas/streaming_kernel.py:453",
+           errs["streaming_gram"],
+           cuda_ms(torch, lambda: streaming_scaled_gram(
+               fa_rows, fb_cols, c_row, uinv_pad, sw, pw)),
+           cuda_ms(torch, lambda: streaming_scaled_gram_plain(
+               fa_rows, fb_cols, c_row, uinv_pad, sw, pw)),
+           4 * (4 * qpad + 3 * ppad + ppad * mpad + mpad * mpad),
+           2 * entries * mb + ENTRY_FLOPS * entries + nb * mb * (mb + 1))
+    del fa_rows, fb_cols, mask, u, X, b, c_row, uinv_pad, t, op
     torch.cuda.empty_cache()
 
     # -- [4] small frame: card against CPU, and repeatability ------------
@@ -358,6 +950,7 @@ def main() -> int:
 
     # -- [5] the main path ------------------------------------------------
     mp = n / 1e6
+    peak = PeakMeter(torch)
     _build.reset_launches()
     t0 = time.perf_counter()
     cold = NLEFilter(device="cuda").train_and_enhance(img, *MAIN_ARGS,
@@ -368,6 +961,7 @@ def main() -> int:
     print(f"[5] 1 MP train_and_enhance ({h}x{w}, {' '.join(map(str, MAIN_ARGS))})"
           f" cold {cold_s:.3f} s; launches {main_counts}; guard tripped: "
           f"{'yes' if main_counts['sinkhorn_halfstep_f32'] else 'no'}")
+    peak.dense_ratio("  1 MP dense", n, mb)
     if main_counts["sinkhorn_halfstep_int16"] < 2 * iters:
         raise AssertionError(
             f"K3 ran {main_counts['sinkhorn_halfstep_int16']} times at 1 MP")
@@ -399,12 +993,29 @@ def main() -> int:
         raise AssertionError(
             f"K4 ran {guard_counts['sinkhorn_halfstep_f32']} times on the "
             "guard-tripping frame")
-    for row in rows:
-        row["launches"] = main_counts[row["name"]]
-        row["guard_launches"] = guard_counts[row["name"]]
-
     # -- [6] where the time goes: one profiled warm call ------------------
-    profile_main(torch, NLEFilter, img, mp)
+    profile_call(torch, "[6] profiled warm 1 MP call",
+                 lambda: NLEFilter(device="cuda").train_and_enhance(
+                     img, *MAIN_ARGS, weights=WEIGHTS), mp)
+
+    # -- [7] the capacity path at 32 MP; [8] cross-path checks ------------
+    cap_counts, cap_errs = capacity_path(torch, NLEFilter, _build)
+    stream_counts = cross_paths(torch, NLEFilter, _build, img, warm)
+    near_threshold(torch, NLEFilter, _build)
+    # launches: the count of each kernel's own path (the dense 1 MP run
+    # for K1-K7, the 32 MP factored run for K8-K12); the other paths'
+    # counts ride beside it.
+    for row in rows:
+        name = row["name"]
+        row["launches"] = (cap_counts if name in STREAMING_KERNELS
+                           else main_counts)[name]
+        row["launches_dense_1mp"] = main_counts[name]
+        row["launches_guard_frame"] = guard_counts[name]
+        row["launches_factored_32mp"] = cap_counts[name]
+        row["launches_streaming_4mp"] = stream_counts[name]
+        if name in cap_errs:
+            row["max_abs_err_32mp"], row["err_over_bound_32mp"] = (
+                cap_errs[name])
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

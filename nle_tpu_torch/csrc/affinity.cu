@@ -11,11 +11,10 @@
 // affinities against real samples).
 //
 // Accuracy (this product is the fidelity floor of the whole pipeline,
-// nle_tpu DESIGN.md §2a): the argument is formed in the reference's op
-// order with explicitly rounded multiplies and adds (no FMA contraction),
-// squares of exact integer differences before any scaling, the IEEE expf
-// (never __expf; the build never passes --use_fast_math), and the p
-// contraction in fp32 FMA.
+// nle_tpu DESIGN.md §2a): each entry is nle::affinity (common.cuh: explicit
+// rounding, no FMA contraction in the argument, IEEE expf), the entry the
+// streaming kernels of streaming.cu recompute, and the p contraction is
+// fp32 FMA.
 //
 // Bound on the H100: at the 1 MP main path (q ~ 1.0 M, p = 600, mpad = 640)
 // it is 0.77 TFLOP of fp32 FMA on the CUDA cores plus 0.6 G expf, against
@@ -29,26 +28,9 @@
 
 namespace {
 
-struct AffinityA {
-  const float* fb;  // (3, qpad) pixel features: rows, cols, y
-  const float* fa;  // (3, ppad) sample features
-  int qpad;
-  int ppad;
-  float sw;
-  float pw;
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    const float dr = fb[r] - fa[k];
-    const float dc = fb[qpad + r] - fa[ppad + k];
-    const float dy = fb[2 * qpad + r] - fa[2 * ppad + k];
-    const float d2s = __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dc, dc));
-    const float arg =
-        __fadd_rn(__fmul_rn(sw, d2s), __fmul_rn(pw, __fmul_rn(dy, dy)));
-    return expf(-arg);
-  }
-};
-
 __global__ void __launch_bounds__(nle::GEMM_THREADS)
-    affinity_matmul_kernel(AffinityA a, nle::DenseB b, float* __restrict__ out,
+    affinity_matmul_kernel(nle::AffinityA a, nle::DenseB b,
+                           float* __restrict__ out,
                            int mpad, int q_true) {
   const int row0 = blockIdx.x * nle::BM;
   const int col0 = blockIdx.y * nle::BN;
@@ -79,7 +61,7 @@ extern "C" int nle_affinity_matmul(const float* fb, const float* fa,
   if (qpad % nle::BM || ppad % nle::BK || mpad % nle::BN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  AffinityA a{fb, fa, qpad, ppad, sw, pw};
+  nle::AffinityA a{fb, fa, qpad, ppad, sw, pw};
   nle::DenseB b{B, mpad};
   dim3 grid(qpad / nle::BM, mpad / nle::BN);
   affinity_matmul_kernel<<<grid, nle::GEMM_THREADS, 0,

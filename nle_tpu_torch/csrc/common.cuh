@@ -1,7 +1,8 @@
 // Shared device code of the port's kernels: one register-tiled fp32 GEMM
 // tile whose operand elements come from functors (so the affinity build
-// and the row scaling fuse into the operand load), and the fixed-order
-// reduction of per-block partial sums.
+// and the row scaling fuse into the operand load), the one affinity entry
+// every kernel that recomputes K uses, and the fixed-order reduction of
+// per-block partial sums.
 //
 // Every contraction here is plain IEEE fp32 FMA on the CUDA cores: no
 // TF32, no bf16, no fast-math intrinsics. Every output element is summed
@@ -75,6 +76,61 @@ struct DenseB {
   int ld;
   __device__ __forceinline__ float operator()(int k, int c) const {
     return B[static_cast<size_t>(k) * ld + c];
+  }
+};
+
+// The ONE Gaussian affinity entry of the port, shared by K1 and the
+// streaming kernels K8-K12, so the streaming passes recompute exactly the
+// entries the dense path stores in phi. (br, bc, by) are the raw (row,
+// col, y) features of a pixel, (ar, ac, ay) those of a sample. The
+// argument is formed in the reference's op order with explicitly rounded
+// multiplies and adds (no FMA contraction), from squares of exact integer
+// differences before any scaling, and exponentiated by the IEEE expf
+// (never __expf: the build never passes --use_fast_math).
+__device__ __forceinline__ float affinity(float br, float bc, float by,
+                                          float ar, float ac, float ay,
+                                          float sw, float pw) {
+  const float dr = br - ar;
+  const float dc = bc - ac;
+  const float dy = by - ay;
+  const float d2s = __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dc, dc));
+  const float arg =
+      __fadd_rn(__fmul_rn(sw, d2s), __fmul_rn(pw, __fmul_rn(dy, dy)));
+  return expf(-arg);
+}
+
+// Affinity operand element K[r, k] from (3, qpad) pixel features and
+// (3, ppad) sample features, both stored as rows (row, col, y).
+struct AffinityA {
+  const float* fb;
+  const float* fa;
+  int qpad;
+  int ppad;
+  float sw;
+  float pw;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    return affinity(fb[r], fb[qpad + r], fb[2 * qpad + r], fa[k],
+                    fa[ppad + k], fa[2 * ppad + k], sw, pw);
+  }
+};
+
+// Element (i, r) of (diag(c) phi)^T: phi row-major (rows, ld).
+struct ScaledColsA {
+  const float* phi;
+  const float* c;
+  int ld;
+  __device__ __forceinline__ float operator()(int i, int r) const {
+    return __fmul_rn(phi[static_cast<size_t>(r) * ld + i], c[r]);
+  }
+};
+
+// Element (r, j) of diag(c) phi.
+struct ScaledRows {
+  const float* phi;
+  const float* c;
+  int ld;
+  __device__ __forceinline__ float operator()(int r, int j) const {
+    return __fmul_rn(phi[static_cast<size_t>(r) * ld + j], c[r]);
   }
 };
 

@@ -25,25 +25,8 @@
 
 namespace {
 
-// Element (i, r) of (diag(c) phi)^T: phi row-major (npad, ld).
-struct ScaledColsA {
-  const float* phi;
-  const float* c;
-  int ld;
-  __device__ __forceinline__ float operator()(int i, int r) const {
-    return __fmul_rn(phi[static_cast<size_t>(r) * ld + i], c[r]);
-  }
-};
-
-// Element (r, j) of diag(c) phi.
-struct ScaledRows {
-  const float* phi;
-  const float* c;
-  int ld;
-  __device__ __forceinline__ float operator()(int r, int j) const {
-    return __fmul_rn(phi[static_cast<size_t>(r) * ld + j], c[r]);
-  }
-};
+using nle::ScaledColsA;
+using nle::ScaledRows;
 
 __global__ void __launch_bounds__(nle::GEMM_THREADS)
     scaled_gram_partial_kernel(ScaledColsA a, ScaledRows b,

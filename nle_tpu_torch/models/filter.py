@@ -6,7 +6,8 @@ Lab luminance; `enhance` re-weights its eigen detail layers;
 `train_and_enhance` does both with the first edit fused into stage 2b.
 `TrainedFilter.save/load` use the JAX package's npz format (eigvecs,
 eigvals, shape, perm), so a filter trained by either package edits in the
-other.
+other. NLEFilter(factored=True) trains and edits the V-free FactoredFilter
+(models/factored.py) instead; `load_filter` reads either kind of npz.
 
 The device is explicit: NLEFilter(device="cuda") runs the CUDA kernels
 and raises without a card; device="cpu" runs their plain versions.
@@ -22,7 +23,13 @@ import torch
 
 from nle_tpu_torch.color.lab import bgr_to_lab_u8_np, lab_to_bgr_u8_np
 from nle_tpu_torch.config import resolve_device
-from nle_tpu_torch.ops.pipeline import apply_filter_u8, pack_channel, train_filter
+from nle_tpu_torch.models.factored import FactoredFilter, train_filter_factored
+from nle_tpu_torch.ops.pipeline import (
+    apply_filter,
+    apply_filter_u8,
+    pack_channel,
+    train_filter,
+)
 from nle_tpu_torch.ops.sampling import sample_grid
 from nle_tpu_torch.ops.transform import transform_eigenvalues
 from nle_tpu_torch.utils.logging import stage
@@ -76,16 +83,30 @@ class TrainedFilter:
 
     @classmethod
     def load(cls, path: str, device) -> "TrainedFilter":
-        # np.savez_compressed appends ".npz" when missing; mirror that.
-        if not os.path.exists(path) and os.path.exists(path + ".npz"):
-            path = path + ".npz"
-        with np.load(path) as z:
-            return cls.from_numpy({k: z[k] for k in z.files}, device)
+        return cls.from_numpy(load_filter_host(path), device)
 
 
-def _to_lab(image):
-    with stage("BGR to Lab"):
-        return bgr_to_lab_u8_np(image)
+def load_filter_host(path: str) -> dict:
+    """Disk half of load_filter: the npz decompressed to host arrays."""
+    # np.savez_compressed appends ".npz" when missing; mirror that.
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path = path + ".npz"
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def filter_from_host(arrays, device):
+    """Device half of load_filter: a FactoredFilter when the arrays carry
+    the `factored` key, else a TrainedFilter, on `device`."""
+    if "factored" in arrays:
+        return FactoredFilter.from_numpy(arrays, device)
+    return TrainedFilter.from_numpy(arrays, device)
+
+
+def load_filter(path: str, device):
+    """Load a saved filter of either kind (a TrainedFilter npz with eigvecs,
+    or a FactoredFilter npz marked factored=True) onto `device`."""
+    return filter_from_host(load_filter_host(path), device)
 
 
 def _check_image(image, n_pixels):
@@ -102,23 +123,50 @@ def _check_image(image, n_pixels):
 
 class NLEFilter:
     """Train-and-edit wrapper around the functional pipeline, on one
-    explicit device ("cuda" or "cpu"). A given `trained` filter moves to
-    that device, so every edit runs where the caller asked."""
+    explicit device ("cuda" or "cpu"). A given `trained` filter (either
+    kind) moves to that device, so every edit runs where the caller asked.
+    factored=True trains the V-free FactoredFilter (the capacity path)."""
 
-    def __init__(self, trained: TrainedFilter | None = None, *,
-                 device="cuda", eps: float | None = None):
+    def __init__(self, trained=None, *, device="cuda",
+                 eps: float | None = None, factored: bool = False):
         self.device = resolve_device(device)
         self._eps = eps
+        self._factored = factored
         self._trained = None if trained is None else trained.to(self.device)
+        self._lab_cache: tuple[np.ndarray, np.ndarray] | None = None
 
     @property
-    def trained(self) -> TrainedFilter:
+    def trained(self):
         if self._trained is None:
             raise RuntimeError("Filter has not been trained.")
         return self._trained
 
+    def _to_lab(self, image) -> np.ndarray:
+        """BGR->Lab with a one-entry cache: the factored train->edit flow
+        converts the same image twice. The cache keys on a private SNAPSHOT
+        of the pixels, never the caller's array, so an in-place change of
+        the image (img[:] = ...) misses the cache instead of returning the
+        stale Lab; revalidation is an array_equal."""
+        image = np.asarray(image)
+        if self._lab_cache is not None:
+            cached_img, cached_lab = self._lab_cache
+            if (cached_img.shape == image.shape
+                    and cached_img.dtype == image.dtype
+                    and np.array_equal(cached_img, image)):
+                return cached_lab
+        with stage("BGR to Lab"):
+            lab = bgr_to_lab_u8_np(image)
+        self._lab_cache = (image.copy(), lab)
+        return lab
+
     def _train(self, channel, n_row_samples, n_col_samples, hx, hy,
                n_sinkhorn_iter, n_eigen_vectors, edit_weights=None):
+        if self._factored:
+            self._trained = train_filter_factored(
+                channel, n_row_samples, n_col_samples, hx, hy,
+                n_sinkhorn_iter, n_eigen_vectors, device=self.device,
+                eps=self._eps)
+            return self._trained
         nrows, ncols = channel.shape
         grid = sample_grid(nrows, ncols, n_row_samples, n_col_samples)
         packed_np, _ = pack_channel(channel, grid.perm)
@@ -137,7 +185,7 @@ class NLEFilter:
     def train_for_enhancement(self, image_bgr_u8, n_row_samples, n_col_samples,
                               hx, hy, n_sinkhorn_iter=10, n_eigen_vectors=5):
         """Train on the 8-bit Lab luminance (src/filter.cpp:514-519)."""
-        lab = _to_lab(np.asarray(image_bgr_u8))
+        lab = self._to_lab(image_bgr_u8)
         L = lab[..., 0].astype(np.float32)
         return self._train(L, n_row_samples, n_col_samples, hx, hy,
                            n_sinkhorn_iter, n_eigen_vectors)
@@ -146,23 +194,58 @@ class NLEFilter:
                           hx, hy, n_sinkhorn_iter=10, n_eigen_vectors=5,
                           weights=()) -> np.ndarray:
         """train_for_enhancement + enhance in one flow, with the first
-        edit's apply fused into stage 2b; the filter stays trained."""
+        edit's apply fused into stage 2b; the filter stays trained. The
+        factored path has no stage 2b: it runs the two calls."""
         image = np.asarray(image_bgr_u8)
         if image.ndim != 3 or image.shape[2] != 3:
             raise ValueError("Can only enhance RGB image.")
-        lab = _to_lab(image)
+        if self._factored:
+            self.train_for_enhancement(image, n_row_samples, n_col_samples,
+                                       hx, hy, n_sinkhorn_iter,
+                                       n_eigen_vectors)
+            return self.enhance(image, weights)
+        lab = self._to_lab(image)
         L = lab[..., 0].astype(np.float32)
         trained, edit = self._train(
             L, n_row_samples, n_col_samples, hx, hy, n_sinkhorn_iter,
             n_eigen_vectors, edit_weights=list(weights))
         return self._recompose(lab, edit, trained.perm)
 
+    def apply(self, channel, transformed_eigvals) -> np.ndarray:
+        """V diag(f(S)) V^T c on a pixel-order channel, no clamp
+        (src/filter.cpp:445-458); host array in and out."""
+        t = self.trained
+        if not isinstance(t, TrainedFilter):     # FactoredFilter (V-free)
+            return t.apply(channel, transformed_eigvals)
+        channel_np = np.asarray(channel)
+        if channel_np.size != t.n_pixels:
+            raise ValueError(
+                "Number of values in channel must match that of training "
+                "image.")
+        flat = channel_np.reshape(-1).astype(np.float32)
+        if t.perm is not None:
+            flat = flat[t.perm]
+        fS = torch.as_tensor(transformed_eigvals, dtype=torch.float32,
+                             device=self.device)
+        out = apply_filter(t.eigvecs, fS,
+                           torch.from_numpy(flat).to(self.device)).cpu().numpy()
+        if t.perm is not None:
+            unpacked = np.empty_like(out)
+            unpacked[t.perm] = out
+            out = unpacked
+        return out.reshape(channel_np.shape)
+
     def enhance(self, image_bgr_u8, weights) -> np.ndarray:
         """Detail-layer recomposition on L only (src/filter.cpp:412-443)."""
         t = self.trained
         image = _check_image(image_bgr_u8, t.n_pixels)
-        lab = _to_lab(image)
+        lab = self._to_lab(image)
         fS = transform_eigenvalues(t.eigvals, weights)
+        if not isinstance(t, TrainedFilter):     # FactoredFilter (V-free)
+            out = lab.copy()
+            out[..., 0] = t.apply_u8(lab[..., 0], fS)
+            with stage("Lab to BGR"):
+                return lab_to_bgr_u8_np(out)
         flat = lab[..., 0].reshape(-1)
         if t.perm is not None:
             flat = flat[t.perm]

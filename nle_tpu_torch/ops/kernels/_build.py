@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
-All sources under nle_tpu_torch/csrc compile with one nvcc call into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), loaded with ctypes. The build runs at first use, into
+The sources under nle_tpu_torch/csrc compile with one nvcc process per
+.cu file, all started together, and link into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), loaded
+with ctypes. The build runs at first use, into
 nle_tpu_torch/_build/, keyed on a hash of the sources and flags; it writes
 a temp file and os.replace()s it into place under a file lock, so
 concurrent first users never load a half-written library. Nothing here runs
@@ -40,6 +41,10 @@ LAUNCHES = {
     "sinkhorn_halfstep_f32": 0,    # K4
     "scaled_gram": 0,              # K6
     "scaled_matmul": 0,            # K7
+    "streaming_halfstep": 0,       # K8 (the unit_x s0 pass included)
+    "streaming_ap": 0,             # K10
+    "streaming_atb": 0,            # K11
+    "streaming_gram": 0,           # K12
 }
 
 # What the last build printed (ptxas registers/spills per kernel) and how
@@ -97,20 +102,40 @@ def library_path() -> str:
 
 
 def _compile(so: str) -> None:
+    """One nvcc per source, all started together, then one link: the
+    build takes as long as the slowest source, not their sum."""
     global build_log, build_seconds
     tmp = f"{so}.tmp-{os.getpid()}"
     cu = [p for p in _sources() if p.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
+    procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(cu, objs)]
+    logs, failed = [], []
+    for src, proc in zip(cu, procs):
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} (exit {proc.returncode})"
+                          f":\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {link.returncode}):\n{link.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for path in [tmp, *objs]:
+            if os.path.exists(path):
+                os.unlink(path)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stderr
+    build_log = "".join(logs)
 
 
 def _declare(lib) -> None:
@@ -122,6 +147,11 @@ def _declare(lib) -> None:
         "nle_sinkhorn_nblocks": [i],
         "nle_scaled_gram": [p, p, p, p, i, i, i, i, p],
         "nle_scaled_matmul": [p, p, p, p, i, i, i, p],
+        "nle_stream_nblocks": [i],
+        "nle_stream_halfstep": [p, p, p, p, p, p, p, i, i, f, f, f, i, p],
+        "nle_stream_ap": [p, p, p, p, p, i, i, i, f, f, p],
+        "nle_stream_atb": [p, p, p, p, i, i, i, f, f, p],
+        "nle_stream_gram": [p, p, p, p, p, p, p, i, i, i, i, i, f, f, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -52,23 +52,47 @@ def split_row_pad(nb: int) -> int:
 
 # -- the int16 carrier (K5 quantize prep: plain torch in this port) --------
 
+# Rows of phi one step of the int16 prep reads at a time. Its f32 and bool
+# temporaries stay ~170 MB at mpad 640, so the split stage 2a holds phi_b
+# and its int16 copy (1.5 x phi) instead of three phi-sized arrays, which
+# also fragmented the allocator's cache near the card's capacity.
+PREP_CHUNK_ROWS = 65536
+
+
+def _row_chunks(rows: int):
+    for lo in range(0, rows, PREP_CHUNK_ROWS):
+        yield lo, min(lo + PREP_CHUNK_ROWS, rows)
+
+
 def quantize_int16(phi: torch.Tensor):
     """Per-COLUMN int16 quantization of an f32 factor. Returns (q int16,
     scale (cols,) with 1.0 on all-zero columns, colmax (cols,)); phi ~
-    q * scale. torch.round rounds half to even, like jnp.round."""
-    colmax = phi.abs().amax(dim=0)
+    q * scale. torch.round rounds half to even, like jnp.round. Works in
+    row chunks; every step is elementwise or an exact max, so the result
+    does not depend on the chunking."""
+    colmax = torch.stack([phi[lo:hi].abs().amax(dim=0)
+                          for lo, hi in _row_chunks(phi.shape[0])]).amax(dim=0)
     scale = torch.where(colmax > 0, colmax / 32767.0, torch.ones_like(colmax))
-    q = phi / scale[None, :]
-    q.round_().clamp_(-32767, 32767)
-    return q.to(torch.int16), scale, colmax
+    q16 = torch.empty(phi.shape, dtype=torch.int16, device=phi.device)
+    for lo, hi in _row_chunks(phi.shape[0]):
+        q = phi[lo:hi] / scale[None, :]
+        q16[lo:hi] = q.round_().clamp_(-32767, 32767)
+    return q16, scale, colmax
 
 
 def crush_counts(phi: torch.Tensor, scale: torch.Tensor):
     """(crushed, nonzero) counts as float32 scalars: an entry is crushed
-    when it is nonzero and quantizes to 0 (|phi| < scale/2)."""
-    nz = phi != 0
-    num = ((phi.abs() < 0.5 * scale[None, :]) & nz).sum(dtype=torch.float32)
-    return num, nz.sum(dtype=torch.float32)
+    when it is nonzero and quantizes to 0 (|phi| < scale/2). Summed per
+    row chunk, then over the chunks."""
+    num = phi.new_zeros(())
+    den = phi.new_zeros(())
+    for lo, hi in _row_chunks(phi.shape[0]):
+        chunk = phi[lo:hi]
+        nz = chunk != 0
+        num += ((chunk.abs() < 0.5 * scale[None, :]) & nz).sum(
+            dtype=torch.float32)
+        den += nz.sum(dtype=torch.float32)
+    return num, den
 
 
 def carrier_crush_frac(phi: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,313 @@
+"""K8, K10, K11, K12: the phi-free (streaming) stage-2 kernels (CUDA,
+csrc/streaming.cu), their plain PyTorch twins, and the streaming Sinkhorn
+loop (port of nle_tpu/ops/pallas/streaming_kernel.py).
+
+The dense pipeline stores the Nystrom factor phi (N, mpad): 2.5 kB per
+pixel at mpad = 640, past the H100's 80 GB near 32 MP. These kernels
+recompute the (rows, p) affinity K between rest pixels and samples from
+the raw features inside every pass, using
+
+    phi_rest t      = K (Uinv t)          K8's w, then x = 1 / w
+    phi_rest^T x    = Uinv^T (K^T x)      K8's ap / K10
+    Sb = (c phi_rest)^T (c phi_rest)      K12, phi recomputed per row chunk
+    V_rest = c (K W),  W = Uinv GrT       K1 (stage 2b) or K11 (factored)
+
+so per-pixel state is the features and a few vectors. Each entry is
+nle::affinity (csrc/common.cuh), the entry K1 stores in phi: the streaming
+values differ from the dense ones only by the association of the
+contractions (~1e-7 relative).
+
+- K8 replaces `_halfstep_kernel` (:105, call :163):
+  x = mask * safe_recip(K u, eps), ap = K^T x in one sweep; unit_x gives
+  x = mask (the s0 = phi^T 1 pass).
+- K10 replaces `_ap_kernel` (:299, call :345): ap (R, Ppad) = K^T x.
+- K11 replaces `_atb_kernel` (:369, call :411): out (R, Qpad) = K b.
+- K12 replaces `_gram_kernel` (:453, call :492).
+(K is written (pixels, samples) here; the JAX docstrings call the same
+products K_AB^T u and K_AB x.)
+
+On the H100, K8, K10 and K11 are bound by instruction issue (the IEEE
+expf and the rounded argument of every entry), not by bytes; K12 is fp32
+FMA work like K1 and K6. Cross-block sums are fixed-order partials, never
+float atomics: training stays bitwise repeatable.
+
+Layout: the public functions keep the JAX argument layout, features as
+(3, Qpad) / (3, Ppad) rows and vectors as (1, Qpad) or (R, Qpad) rows. The
+TPU's lane-padding reason for it does not apply on the card; the layout
+still gives coalesced loads.
+
+Only the single-pass regime (Ppad <= 1792, p <= 1792 samples) is ported:
+every entry point raises NotImplementedError beyond it. Dense sampling
+grids are the next slice (K9, K2, the plain-torch XLA-gram fallback).
+
+Dispatch rule (the same for every kernel of the port): a CPU tensor goes
+to the plain PyTorch version; a CUDA tensor goes to the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nle_tpu_torch.ops.kernels import _build
+from nle_tpu_torch.ops.kernels._common import cuda_or_cpu, round_up
+from nle_tpu_torch.ops.linalg import safe_reciprocal
+
+TILE_Q = 512                 # Qpad alignment (the JAX package's row tile)
+PTILE = 1024                 # Ppad alignment past the single-pass regime
+MAX_STREAM_P_FUSED = 1792    # single-pass regime: Ppad <= this
+MAX_ROWS = 3                 # K10/K11 rows: one channel, or a colour frame's
+GRAM_CHUNK_ROWS = 32768      # K12 phi scratch rows (84 MB at mpad = 640)
+GRAM_NSPLIT = 16             # K12 partial grams per chunk
+PLAIN_CHUNK_ROWS = 8192      # rows of one affinity block in the plain twins
+
+
+def stream_p_alignment(p: int) -> int:
+    """Sample padding rule shared by the streaming kernels: 128 while the
+    single-pass half-step applies, PTILE beyond."""
+    return 128 if round_up(p, 128) <= MAX_STREAM_P_FUSED else PTILE
+
+
+def pad_stream_operands(fa: torch.Tensor, fb: torch.Tensor):
+    """The ONE padding rule of the streaming kernels: sample features
+    (p, 3) -> (3, Ppad), rest features (q, 3) -> (3, Qpad), and the (1, Qpad)
+    validity mask. Qpad is a TILE_Q multiple, Ppad a stream_p_alignment
+    multiple; pad entries are zero."""
+    p, q = fa.shape[0], fb.shape[0]
+    qpad = round_up(max(q, 1), TILE_Q)
+    ppad = round_up(p, stream_p_alignment(p))
+    fa_rows = fa.new_zeros((3, ppad))
+    fa_rows[:, :p] = fa.T
+    fb_cols = fb.new_zeros((3, qpad))
+    fb_cols[:, :q] = fb.T
+    mask = (torch.arange(qpad, device=fb.device) < q).to(torch.float32)[None]
+    return fa_rows, fb_cols, mask
+
+
+def _single_pass(ppad: int) -> None:
+    if ppad > MAX_STREAM_P_FUSED:
+        raise NotImplementedError(
+            f"streaming stage 2 at Ppad = {ppad} > {MAX_STREAM_P_FUSED} "
+            "(a dense sampling grid) is not ported yet: it needs the "
+            "two-pass half-step K9, the p-tiled affinity K2 and the plain "
+            "streaming_scaled_gram_xla fallback (ROADMAP Queue 2).")
+
+
+# -- plain PyTorch twins (row chunks: one (chunk, Ppad) block at a time) ----
+
+def _affinity_rows(fa_rows, fb_cols, lo: int, hi: int, sw, pw):
+    """(hi - lo, Ppad) affinity of pixels lo..hi against every sample, in
+    nle::affinity's op order (exact differences, squared, then scaled)."""
+    dr = fb_cols[0, lo:hi, None] - fa_rows[0][None, :]
+    dc = fb_cols[1, lo:hi, None] - fa_rows[1][None, :]
+    dy = fb_cols[2, lo:hi, None] - fa_rows[2][None, :]
+    return torch.exp(-(sw * (dr * dr + dc * dc) + pw * (dy * dy)))
+
+
+def _chunks(qpad: int):
+    for lo in range(0, qpad, PLAIN_CHUNK_ROWS):
+        yield lo, min(lo + PLAIN_CHUNK_ROWS, qpad)
+
+
+def streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
+                             unit_x: bool = False):
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    if unit_x:
+        x = mask[0]
+    else:
+        x = fb_cols.new_empty((qpad,))
+    ap = fa_rows.new_zeros((ppad,))
+    for lo, hi in _chunks(qpad):
+        A = _affinity_rows(fa_rows, fb_cols, lo, hi, sw, pw)
+        if not unit_x:
+            x[lo:hi] = safe_reciprocal(A @ u_pad, eps) * mask[0, lo:hi]
+        ap += x[lo:hi] @ A
+    return x, ap
+
+
+def streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw):
+    ap = fa_rows.new_zeros((x_rows.shape[0], fa_rows.shape[1]))
+    for lo, hi in _chunks(fb_cols.shape[1]):
+        ap += x_rows[:, lo:hi] @ _affinity_rows(fa_rows, fb_cols, lo, hi,
+                                                sw, pw)
+    return ap
+
+
+def streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw):
+    b_rows = b_rows[None] if b_rows.ndim == 1 else b_rows
+    out = fb_cols.new_empty((b_rows.shape[0], fb_cols.shape[1]))
+    for lo, hi in _chunks(fb_cols.shape[1]):
+        out[:, lo:hi] = b_rows @ _affinity_rows(fa_rows, fb_cols, lo, hi,
+                                                sw, pw).T
+    return out
+
+
+def streaming_scaled_gram_plain(fa_rows, fb_cols, c_row, uinv_pad, sw, pw):
+    mpad = uinv_pad.shape[1]
+    Sb = fa_rows.new_zeros((mpad, mpad))
+    for lo, hi in _chunks(fb_cols.shape[1]):
+        cphi = c_row[0, lo:hi, None] * (
+            _affinity_rows(fa_rows, fb_cols, lo, hi, sw, pw) @ uinv_pad)
+        Sb += cphi.T @ cphi
+    return Sb
+
+
+# -- the kernel wrappers ------------------------------------------------------
+
+def _check_layout(fa_rows, fb_cols) -> None:
+    if fa_rows.shape[0] != 3 or fb_cols.shape[0] != 3:
+        raise ValueError("features must be (3, Ppad) and (3, Qpad) rows")
+    if fb_cols.shape[1] % TILE_Q or fa_rows.shape[1] % 128:
+        raise ValueError(
+            f"Qpad {fb_cols.shape[1]} must be a {TILE_Q} multiple and Ppad "
+            f"{fa_rows.shape[1]} a 128 multiple (pad_stream_operands)")
+    _single_pass(fa_rows.shape[1])
+
+
+def _check_rows(rows) -> None:
+    if not 1 <= rows.shape[0] <= MAX_ROWS:
+        raise ValueError(f"{rows.shape[0]} rows: K10/K11 take 1 to {MAX_ROWS}")
+
+
+def streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
+                       unit_x: bool = False):
+    """One phi-free Sinkhorn half-step over the rest pixels (K8), the
+    streaming_halfstep dispatch of the JAX package: Ppad <= 1792 runs the
+    single-pass kernel; beyond it raises (the p-tiled K9 is not ported).
+
+    fa_rows (3, Ppad), fb_cols (3, Qpad), mask (1, Qpad), u_pad (Ppad,) =
+    Uinv t zero-padded. Returns (x (Qpad,), ap (Ppad,)); pad columns of ap
+    are garbage the caller slices off. unit_x: x = mask, u unused."""
+    _check_layout(fa_rows, fb_cols)
+    if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
+        return streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw,
+                                        pw, eps, unit_x)
+    lib = _build.load()
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    dev = fb_cols.device
+    x = mask[0] if unit_x else torch.empty((qpad,), dtype=torch.float32,
+                                           device=dev)
+    ap = torch.empty((ppad,), dtype=torch.float32, device=dev)
+    partial = torch.empty((lib.nle_stream_nblocks(qpad), ppad),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.nle_stream_halfstep(
+            fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
+            u_pad.data_ptr(), None if unit_x else x.data_ptr(),
+            partial.data_ptr(), ap.data_ptr(), qpad, ppad, float(sw),
+            float(pw), float(eps), int(unit_x), _build.stream_ptr(fb_cols))
+    _build.check(status, "streaming_halfstep")
+    _build.count_launch("streaming_halfstep")
+    return x, ap
+
+
+def streaming_ap(fa_rows, fb_cols, x_rows, sw, pw):
+    """ap (R, Ppad) = K^T x for x (R, Qpad), 1 <= R <= 3, zero on pad
+    columns (K10)."""
+    _check_layout(fa_rows, fb_cols)
+    _check_rows(x_rows)
+    if not cuda_or_cpu(fa_rows, fb_cols, x_rows, dtype=torch.float32):
+        return streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw)
+    lib = _build.load()
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    R = x_rows.shape[0]
+    dev = fb_cols.device
+    ap = torch.empty((R, ppad), dtype=torch.float32, device=dev)
+    partial = torch.empty((lib.nle_stream_nblocks(qpad), R * ppad),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.nle_stream_ap(
+            fb_cols.data_ptr(), fa_rows.data_ptr(), x_rows.data_ptr(),
+            partial.data_ptr(), ap.data_ptr(), qpad, ppad, R, float(sw),
+            float(pw), _build.stream_ptr(fb_cols))
+    _build.check(status, "streaming_ap")
+    _build.count_launch("streaming_ap")
+    return ap
+
+
+def streaming_atb(fa_rows, fb_cols, b_rows, sw, pw):
+    """out (R, Qpad) = K b for b (R, Ppad) zero beyond the true p (K11),
+    1 <= R <= 3; a bare (Ppad,) vector gives (1, Qpad). Rows are
+    independent."""
+    _check_layout(fa_rows, fb_cols)
+    b_rows = b_rows[None] if b_rows.ndim == 1 else b_rows
+    _check_rows(b_rows)
+    if not cuda_or_cpu(fa_rows, fb_cols, b_rows, dtype=torch.float32):
+        return streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw)
+    lib = _build.load()
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    R = b_rows.shape[0]
+    out = torch.empty((R, qpad), dtype=torch.float32, device=fb_cols.device)
+    with torch.cuda.device(fb_cols.device):
+        status = lib.nle_stream_atb(
+            fb_cols.data_ptr(), fa_rows.data_ptr(), b_rows.data_ptr(),
+            out.data_ptr(), qpad, ppad, R, float(sw), float(pw),
+            _build.stream_ptr(fb_cols))
+    _build.check(status, "streaming_atb")
+    _build.count_launch("streaming_atb")
+    return out
+
+
+def streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw):
+    """Sb (Mpad, Mpad) = (c phi_rest)^T (c phi_rest), phi_rest = K Uinv
+    recomputed per row chunk (K12). c_row (1, Qpad) is zero on pad
+    columns; uinv_pad (Ppad, Mpad), Mpad a 64 multiple."""
+    _check_layout(fa_rows, fb_cols)
+    ppad, mpad = uinv_pad.shape
+    if ppad != fa_rows.shape[1] or mpad % 64:
+        raise ValueError(f"uinv_pad {tuple(uinv_pad.shape)} must be "
+                         f"({fa_rows.shape[1]}, 64k)")
+    if not cuda_or_cpu(fa_rows, fb_cols, c_row, uinv_pad,
+                       dtype=torch.float32):
+        return streaming_scaled_gram_plain(fa_rows, fb_cols, c_row,
+                                           uinv_pad, sw, pw)
+    lib = _build.load()
+    qpad = fb_cols.shape[1]
+    dev = fb_cols.device
+    chunk = min(GRAM_CHUNK_ROWS, qpad)
+    phi_chunk = torch.empty((chunk, mpad), dtype=torch.float32, device=dev)
+    partial = torch.empty((GRAM_NSPLIT, mpad, mpad), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((mpad, mpad), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.nle_stream_gram(
+            fb_cols.data_ptr(), fa_rows.data_ptr(), c_row.data_ptr(),
+            uinv_pad.data_ptr(), phi_chunk.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), qpad, ppad, mpad, chunk, GRAM_NSPLIT, float(sw),
+            float(pw), _build.stream_ptr(fb_cols))
+    _build.check(status, "streaming_gram")
+    _build.count_launch("streaming_gram")
+    return out
+
+
+# -- the streaming Sinkhorn loop ---------------------------------------------
+
+def streaming_sinkhorn_vectors(fa, fb, Um, lam_m, Uinv, max_iter: int,
+                               eps: float, sw, pw):
+    """Sinkhorn balancing without phi: (r, c), each (N,) in packed
+    [selected; rest] order for N = p + q. The p sampled rows of phi are Um
+    (exact f32 matvecs); the rest rows are recomputed every half-step by
+    K8, after one unit_x pass for s0 = phi^T 1: 1 + 2 max_iter launches."""
+    p = Um.shape[0]
+    q = fb.shape[0]
+    fa_rows, fb_cols, mask = pad_stream_operands(fa, fb)
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+
+    def halfstep(t):
+        u_pad = torch.nn.functional.pad(Uinv @ t, (0, ppad - p))
+        x_top = safe_reciprocal(Um @ t, eps)
+        x_rest, ap = streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw,
+                                        pw, eps)
+        return x_top, x_rest, Um.T @ x_top + Uinv.T @ ap[:p]
+
+    _, ap0 = streaming_halfstep(fa_rows, fb_cols, mask,
+                                fa_rows.new_zeros((ppad,)), sw, pw, eps,
+                                unit_x=True)
+    s = Um.sum(dim=0) + Uinv.T @ ap0[:p]
+    r_top = fa_rows.new_ones((p,))
+    r_rest = fb_cols.new_ones((qpad,))
+    c_top = fa_rows.new_zeros((p,))
+    c_rest = fb_cols.new_zeros((qpad,))
+    for _ in range(max_iter):
+        c_top, c_rest, s = halfstep(lam_m * s)
+        r_top, r_rest, s = halfstep(lam_m * s)
+    return (torch.cat([r_top, r_rest[:q]]), torch.cat([c_top, c_rest[:q]]))

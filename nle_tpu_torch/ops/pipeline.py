@@ -10,7 +10,8 @@ and the m x m chain are float64 NumPy/SciPy on the host; every N-scale
 step is float32 on the device named by the caller, with every contraction
 in full IEEE fp32 (no TF32 — nle_tpu_torch/config.py).
 
-Stage 2a has two layouts:
+Stage 2a has two dense layouts, plus the phi-free streaming stage 2 for
+frames whose phi would not fit (train_filter's `streaming`, below):
 - split (default): the affinity kernel K1 writes the zero-tailed rest
   block phi_b directly, Sinkhorn carries the top block as exact f32
   matvecs beside the int16 rest stream through K3, and the Sb gram is the
@@ -23,6 +24,11 @@ The JAX package sends images below NLE_CPHI_BYTES to a third "small"
 layout; its reasons (VMEM, the c*phi HBM buffer) are TPU reasons, so the
 port runs the split layout at every size and the small layout is not
 ported (ROADMAP).
+
+The streaming stage 2 (K8 Sinkhorn, K12 gram, then K1 with the small
+right factor W = Uinv GrT for V) keeps O(N) device state; the V-free
+factored filter (models/factored.py) stops before V and edits through
+factored_apply (K10, K11).
 
 m (the kept Nystrom rank) travels as a plain int; columns m..mb of the
 rank bucket are exact zeros, as in the JAX package (tests/test_bucketing.py).
@@ -53,6 +59,13 @@ from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
     sinkhorn_vectors_fused,
     sinkhorn_vectors_split,
     split_row_pad,
+)
+from nle_tpu_torch.ops.kernels.streaming_kernel import (
+    pad_stream_operands,
+    streaming_ap,
+    streaming_atb,
+    streaming_scaled_gram,
+    streaming_sinkhorn_vectors,
 )
 from nle_tpu_torch.ops.linalg import eigh64
 from nle_tpu_torch.ops.orthogonalize import host_chain64
@@ -197,6 +210,7 @@ def train_filter_stage2a(y, rows, cols, stage1, sw, pw, *, p: int, m: int,
     phi = torch.zeros((npad, mpad), dtype=torch.float32, device=dev)
     phi[:p, :mb] = Um
     phi[p:n, :mb] = phi_b
+    del phi_b
     lam_pad = torch.nn.functional.pad(lam_m, (0, mpad - mb))
     r, c = sinkhorn_vectors_fused(phi, lam_pad, n_sinkhorn_iter, float(eps),
                                   n=n)
@@ -207,6 +221,41 @@ def train_filter_stage2a(y, rows, cols, stage1, sw, pw, *, p: int, m: int,
     stat = torch.full((mb,), -1.0, dtype=torch.float32, device=dev)
     rc = torch.stack([r[:mb], c[:mb], stat])
     return rc, Sb, phi, c_rest
+
+
+def _masked_top(c, Um, p: int, m: int):
+    """diag(c[:p]) Um with the rows below the balanced-block boundary m
+    zeroed."""
+    keep = torch.arange(p, device=c.device) >= m
+    return torch.where(keep, c[:p], torch.zeros_like(c[:p]))[:, None] * Um
+
+
+def train_filter_stage2a_streaming(y, rr, cc, stage1, sw, pw, *, p: int,
+                                   m: int, mb: int, n_sinkhorn_iter: int,
+                                   eps: float):
+    """phi-free device half 1 (port of nle_tpu train_filter_stage2a_
+    streaming): Sinkhorn through K8 and the rest-block Sb gram through
+    K12, both recomputing the affinity from the features, so the (N, m)
+    phi never exists. Returns (rc (2, mb) = [r; c], Sb (mb, mb), c (N,)).
+    Only the single-pass regime (p <= 1792 samples) is ported."""
+    Um, lam_m, Uinv = _unpack_stage1(stage1, p)
+    f = features(rr, cc, y)
+    fa, fb = f[:p], f[p:]
+    r, c = streaming_sinkhorn_vectors(fa, fb, Um, lam_m, Uinv,
+                                      n_sinkhorn_iter, eps, sw, pw)
+    # Rows m..p of the gram come from the stored Um block (rows < m are
+    # masked to exact zeros); rows p..N are streamed.
+    cu = _masked_top(c, Um, p, m)
+    fa_rows, fb_cols, _ = pad_stream_operands(fa, fb)
+    del f, fa, fb
+    q = y.shape[0] - p
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    mpad = round_up(mb, 128)
+    c_row = torch.nn.functional.pad(c[p:], (0, qpad - q))[None]
+    uinv_pad = torch.nn.functional.pad(Uinv, (0, mpad - mb, 0, ppad - p))
+    Sb = cu.T @ cu + streaming_scaled_gram(fa_rows, fb_cols, c_row,
+                                           uinv_pad, sw, pw)[:mb, :mb]
+    return torch.stack([r[:mb], c[:mb]]), Sb, c
 
 
 # -- host side between stage 2a and 2b ---------------------------------------
@@ -324,19 +373,92 @@ def apply_filter_u8(eigvecs: torch.Tensor, f_eigvals: torch.Tensor,
     return _apply_u8_body(eigvecs, f_eigvals, y_u8)
 
 
+def apply_filter(eigvecs: torch.Tensor, f_eigvals: torch.Tensor,
+                 channel: torch.Tensor) -> torch.Tensor:
+    """filtered = V diag(f(S)) V^T c on a flattened channel, no clamp
+    (reference NLEFilter::apply, src/filter.cpp:445-458)."""
+    c = channel.reshape(-1).to(eigvecs.dtype)
+    return (eigvecs @ (f_eigvals * (eigvecs.T @ c))).reshape(channel.shape)
+
+
+# -- the phi-free stage 2b and the V-free factored filter --------------------
+
+def factored_filter_pieces(stage1, c, va_grt, *, p: int, m: int, mb: int):
+    """The small matrices of the V-free factored filter: V_head (p, k), the
+    sampled-pixel rows of V (diag(c) Um GrT with rows < m masked, plus the
+    host Va on rows < mb), and W = Uinv GrT (p, k), the tail generator:
+    V_rest = diag(c_rest) K W. va_grt is the (mb, 2k) [Va | GrT] upload."""
+    Um, _, Uinv = _unpack_stage1(stage1, p)
+    k = va_grt.shape[1] // 2
+    Va, GrT = va_grt[:, :k], va_grt[:, k:]
+    V_head = _masked_top(c, Um, p, m) @ GrT
+    V_head[:mb] += Va
+    return V_head, Uinv @ GrT
+
+
+def train_filter_stage2b_streaming(y, rr, cc, stage1, sw, pw, c, va_grt, *,
+                                   p: int, m: int, mb: int):
+    """phi-free device half 2: V (N, k) in packed order, [V_head;
+    diag(c_rest) K W], the tail one K1 call with the small right factor
+    W = Uinv GrT (p, k). K1's padded (Qpad, 128) output is the peak of this
+    stage (~512 B/pixel); the TPU's slab-chunked build, made for its lane
+    padding, is not ported."""
+    V_head, W = factored_filter_pieces(stage1, c, va_grt, p=p, m=m, mb=mb)
+    f = features(rr, cc, y)
+    tail = affinity_matmul(f[:p], f[p:], W, sw, pw)
+    return torch.cat([V_head, c[p:, None] * tail], dim=0)
+
+
+def train_filter_stage2b_streaming_edit(y, rr, cc, stage1, sw, pw, c, va_grt,
+                                        fs, *, p: int, m: int, mb: int):
+    """The phi-free stage 2b with the first edit's apply fused in: returns
+    (V, filtered u8 packed)."""
+    V = train_filter_stage2b_streaming(y, rr, cc, stage1, sw, pw, c, va_grt,
+                                       p=p, m=m, mb=mb)
+    return V, _apply_u8_body(V, fs, y)
+
+
+def factored_apply(y, y_train, rr, cc, c, v_head, w, f_eigvals, sw, pw, *,
+                   p: int):
+    """filtered = V diag(f(S)) V^T y without a stored V: the tail rows of V
+    are regenerated from the training features, by K10 for the projection
+    V^T y and K11 for the output. y is (N,) or (C, N) packed float (the
+    channels ride the same two passes as kernel rows); y_train (N,) is the
+    training channel. Returns y's shape."""
+    ft = features(rr, cc, y_train)
+    fa_rows, fb_cols, _ = pad_stream_operands(ft[:p], ft[p:])
+    del ft
+    q = y_train.shape[0] - p
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    y = y.to(torch.float32)
+    one_d = y.ndim == 1
+    if one_d:
+        y = y[None]
+    cy = torch.nn.functional.pad(c[None, p:] * y[:, p:], (0, qpad - q))
+    ap = streaming_ap(fa_rows, fb_cols, cy, sw, pw)[:, :p]        # (C, p)
+    del cy
+    t = (y[:, :p] @ v_head + ap @ w) * f_eigvals[None]           # (C, k)
+    b = torch.nn.functional.pad(t @ w.T, (0, ppad - p))
+    tail = streaming_atb(fa_rows, fb_cols, b.contiguous(), sw, pw)[:, :q]
+    out = torch.cat([t @ v_head.T, c[None, p:] * tail], dim=1)
+    return out[0] if one_d else out
+
+
 # -- the host-level entry point ----------------------------------------------
 
 def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
                  hy: float, n_sinkhorn_iter: int = 10, n_eig_vectors: int = 5,
                  *, device, eps: float | None = None,
                  grid: SampleGrid | None = None, packed_y=None,
-                 edit_weights=None):
+                 edit_weights=None, streaming: bool | None = None):
     """Train the nonlocal filter on one channel (H, W) on `device`.
 
     Returns (eigvecs (N, k) in packed [selected; rest] order, eigvals (k,)),
     both float32 on the device; with edit_weights, also the first edit's
     filtered u8 channel (packed order), fused into stage 2b. packed_y: the
-    packed channel already on the device (skips the upload)."""
+    packed channel already on the device (skips the upload). streaming:
+    True/False forces the phi-free or the dense stage 2; None applies
+    resolve_streaming's rule."""
     dev = resolve_device(device)
     channel_np = np.asarray(channel)
     if eps is None:
@@ -366,6 +488,13 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
     mb = bucket_m(m, p)
     stage1 = torch.from_numpy(pack_stage1(Um64, lam64, mb=mb)).to(dev)
 
+    if resolve_streaming(streaming, dev, n, mb):
+        return _train_streaming(y, rr, cc, stage1, sw, pw, Um64,
+                                lam64, p=p, m=m, mb=mb,
+                                n_sinkhorn_iter=n_sinkhorn_iter,
+                                n_eig_vectors=n_eig_vectors, eps=float(eps),
+                                edit_weights=edit_weights)
+
     with stage("Nystrom approximation + Sinkhorn"):
         int16 = resolve_int16()
         rc, sb, factor, c_rest = train_filter_stage2a(
@@ -375,7 +504,8 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
         rc_np = rc.cpu().double().numpy()
         if check_carrier_guard(rc_np):
             # Out-of-domain input for the int16 carrier: retrain through
-            # the assembled f32 trajectory.
+            # the assembled f32 trajectory (the split factor freed first).
+            del factor, c_rest
             rc, sb, factor, c_rest = train_filter_stage2a(
                 y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
                 n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps),
@@ -397,4 +527,72 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
         fs = transform_eigenvalues(S, edit_weights)
         V, edit_out = train_filter_stage2b_edit(
             factor, c_rest, va_grt, packed_y, fs, n=n, mb=mb)
+    return V, S, edit_out
+
+
+# Peak device bytes of the dense stage 2 per byte of the padded f32 phi, on
+# its worse route: the assembled f32 layout (the carrier guard's fallback,
+# NLE_SINKHORN_INT16=off) holds K1's phi_b and the assembled phi at once
+# (2 x phi); the split layout holds phi_b and its int16 copy (1.5 x phi);
+# both add the O(N) vectors. chip_smoke.py measures the ratio on the card
+# ([5] at 1 MP, [8d] on both routes just under the limit) and fails if a
+# run exceeds it; PERF.md records the readings.
+DENSE_PEAK_PER_PHI_BYTE = 2.1
+
+
+def stream_bytes_limit(device: torch.device) -> int:
+    """phi bytes past which train_filter streams: NLE_STREAM_BYTES when
+    set, else the largest phi whose dense stage 2 (DENSE_PEAK_PER_PHI_BYTE
+    times phi at its peak) fits in what this process can still allocate on
+    the card: its free memory (mem_get_info) plus the allocator's unused
+    cache."""
+    raw = os.environ.get("NLE_STREAM_BYTES")
+    if raw is not None:
+        return int(raw)
+    free, _ = torch.cuda.mem_get_info(device)
+    available = (free + torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
+    return int(available / DENSE_PEAK_PER_PHI_BYTE)
+
+
+def resolve_streaming(streaming: bool | None, device: torch.device, n: int,
+                      mb: int) -> bool:
+    """Whether stage 2 runs phi-free. An explicit True/False wins. Auto:
+    on the card, when the padded f32 phi (4 npad mpad bytes) exceeds
+    stream_bytes_limit; on the CPU never (as the JAX package streams only
+    where its Pallas kernels run). The JAX rule's second half (VMEM fit of
+    the scaled kernels) is a TPU reason and is not ported."""
+    if streaming is not None:
+        return bool(streaming)
+    if device.type != "cuda":
+        return False
+    npad, mpad = padded_shape(n, mb)
+    return 4 * npad * mpad > stream_bytes_limit(device)
+
+
+def _train_streaming(y, rr, cc, stage1, sw, pw, Um64, lam64, *,
+                     p: int, m: int, mb: int, n_sinkhorn_iter: int,
+                     n_eig_vectors: int, eps: float, edit_weights):
+    """train_filter's phi-free branch: streaming stage 2a (K8, K12), the
+    host f64 chain, and the streaming stage 2b (K1 with W = Uinv GrT)."""
+    logger.info("using the phi-free streaming stage 2 (%d pixels, m = %d)",
+                y.shape[0], m)
+    with stage("Nystrom approximation + Sinkhorn"):
+        rc, sb, c = train_filter_stage2a_streaming(
+            y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
+            n_sinkhorn_iter=n_sinkhorn_iter, eps=eps)
+        rc_np = rc.cpu().double().numpy()
+    k = min(n_eig_vectors, m)
+    with stage("Orthogonalize"):
+        va_np, Sq = host_orthogonalize(rc_np, sb.cpu().double().numpy(),
+                                       Um64, lam64, m, mb, k, eps)
+        va_grt = torch.from_numpy(va_np).to(y.device, torch.float32)
+        S = torch.from_numpy(Sq).to(y.device, torch.float32)
+    with stage("Stage 2b"):
+        args = (y, rr, cc, stage1, sw, pw, c, va_grt)
+        if edit_weights is None:
+            return train_filter_stage2b_streaming(*args, p=p, m=m, mb=mb), S
+        fs = transform_eigenvalues(S, edit_weights)
+        V, edit_out = train_filter_stage2b_streaming_edit(
+            *args, fs, p=p, m=m, mb=mb)
     return V, S, edit_out
