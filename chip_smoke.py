@@ -49,7 +49,23 @@
    this card runs dense through NLEFilter's default (no K8), on the split
    int16 route and on the assembled f32 route, without running out of
    memory and within DENSE_PEAK_PER_PHI_BYTE x phi, and 15% more pixels
-   would stream.
+   would stream;
+9. dense sampling grids (more than 1792 samples; p > 1024 on the dense
+   route): (a) the capacity run of [7] on a structured 4000x4000 (16 MP)
+   frame with 48 44 5000 30 50 50 (p = 2112, Ppad 2176), cold then warm
+   (bitwise equal), its own counts proving K9 >= 100, K10 >= 2 (the s0
+   pass and the apply), K11, K12 and no dense kernel and no K8, peak below
+   256 B/pixel; K9, K10, K11 and K12 held against their float64 plain
+   versions on that frame's own operands and timed there (rows for K9 and
+   for K10-K12 at that Ppad); (b) NLEFilter(device="cuda") at 1 MP with
+   40 30 500 10 50 50 (p = 1200): K1 at K2's contract, K3, K6, K7, and K1
+   held and timed at p = 1200 (the K2 row); (c) train_filter(streaming=
+   True) against streaming=False, on the default int16 route and on the
+   f32 route (K4), on the 2000x2000 frame with 48 44 500 10 50 50:
+   streaming vs dense f32 >= 45 dB or, as this rank cut (eigenvalues down
+   to 1e-10) puts out of reach, inside both routes' measured 1e-3
+   perturbation cones less 6 dB (streaming_vs_dense); then K1 at p = 2112
+   and K3/K4 at mpad 2176 on 2^20 of its rest pixels.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -90,6 +106,12 @@ CAP_SHAPE = (5656, 5656)                      # 31,990,336 px
 CAP_ARGS = (24, 25, 5000.0, 30.0, 50, 50)     # p = 600 samples
 CAP_BYTES_PER_PIXEL = 256                     # phi would be 2,560, V 200
 STREAM_SHAPE = (2000, 2000)
+# [9] dense sampling grids: a 48 x 44 grid samples p = 2112 (Ppad 2176).
+GRID_CAP_SHAPE = (4000, 4000)                 # 16 MP
+GRID_CAP_ARGS = (48, 44, 5000.0, 30.0, 50, 50)
+GRID_ARGS = (48, 44, 500.0, 10.0, 50, 50)     # on STREAM_SHAPE
+P1200_ARGS = (40, 30, 500.0, 10.0, 50, 50)    # p = 1200 on MAIN_SHAPE
+WIDE_MPAD = 2176                              # K3/K4 past 2048 columns
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and fp32
 # FLOP/s outside the tensor cores (TF32 is barred by the fidelity contract).
 PEAK_BYTES = 3.35e12
@@ -152,8 +174,16 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 def check(name: str, diff, bound) -> tuple[float, float]:
     """Assert |diff| <= bound elementwise; returns (max |diff|, max
     |diff| / bound)."""
-    ratio = float((diff.abs() / bound.clamp(min=1e-30)).max())
-    worst = float(diff.abs().max())
+    return check_parts(name, [(diff, bound)])
+
+
+def check_parts(name: str, parts) -> tuple[float, float]:
+    """check() over (diff, bound) pairs taken in pieces (row chunks of one
+    comparison), a pair at a time."""
+    worst = ratio = 0.0
+    for diff, bound in parts:
+        ratio = max(ratio, float((diff.abs() / bound.clamp(min=1e-30)).max()))
+        worst = max(worst, float(diff.abs().max()))
     print(f"  {name}: max_abs_err {worst:.3e}, max err/bound {ratio:.3e}")
     if not ratio <= 1.0:
         raise AssertionError(f"{name}: error exceeds its bound ({ratio})")
@@ -196,12 +226,14 @@ def path_operands(torch, L: np.ndarray, args, dev):
 
 
 def hold_streaming(torch, op, eps: float, label: str):
-    """K8 (its unit_x pass and a real half-step), K10 and K11 (R = 1, 2, 3)
-    and K12 on the path's own operands `op`, each held against its plain
-    version evaluated in float64 on the same inputs, so each bound covers
-    the kernel's own rounding. Returns ({kernel: (max_abs_err, max
-    err/bound)}, the f32 operands for timing)."""
+    """The half-step (K8, or past Ppad 1792 K9, whose unit_x pass is K10
+    with x = mask), K10 and K11 (R = 1, 2, 3) and K12 on the path's own
+    operands `op`, each held against its plain version evaluated in float64
+    on the same inputs, so each bound covers the kernel's own rounding.
+    Returns ({kernel: (max_abs_err, max err/bound)}, the f32 operands for
+    timing)."""
     from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        MAX_STREAM_P_FUSED,
         pad_stream_operands,
         streaming_ap,
         streaming_ap_plain,
@@ -219,6 +251,10 @@ def hold_streaming(torch, op, eps: float, label: str):
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
     print(f"  {label}: streaming kernels at q={q}, Qpad={qpad}, p={p}, "
           f"Ppad={ppad}, mpad={op.mpad}; float64 references")
+    wide = ppad > MAX_STREAM_P_FUSED
+    half, kh = (("streaming_halfstep_ptiled", "K9") if wide
+                else ("streaming_halfstep", "K8"))
+    unit, ku = ("streaming_ap", "K10") if wide else (half, kh)
     f64 = torch.float64
     fa64, fb64 = fa_rows.to(f64), fb_cols.to(f64)
     out = {}
@@ -231,7 +267,7 @@ def hold_streaming(torch, op, eps: float, label: str):
     x0, ap0 = streaming_halfstep(fa_rows, fb_cols, mask, fa_rows.new_zeros(
         ppad), sw, pw, eps, unit_x=True)
     if not torch.equal(x0, mask[0]):
-        raise AssertionError("K8 unit_x: x is not the mask")
+        raise AssertionError(f"{ku} unit_x: x is not the mask")
     # A real half-step input: u = Uinv t for t = lam s0, s0 = phi^T 1.
     u = pad(op.Uinv @ (op.lam * (op.Um.sum(dim=0) + op.Uinv.T @ ap0[:p])),
             (0, ppad - p)).contiguous()
@@ -240,7 +276,8 @@ def hold_streaming(torch, op, eps: float, label: str):
                                      pw, eps)
     # Rows for K10: the factored projection's input (x y here), x itself,
     # and the mask. One float64 pass gives K^T of them and of |them|, which
-    # also hold K8's ap (K^T x for the kernel's own x) and its unit_x pass.
+    # also hold the half-step's ap (K^T x for the kernel's own x) and its
+    # unit_x pass.
     X = torch.stack([xk * pad(op.y[p:], (0, qpad - q)), xk, mask[0]])
     ref = streaming_ap_plain(fa64, fb64, torch.cat([X, X.abs()]).to(f64),
                              sw, pw)[:, :p]
@@ -248,18 +285,16 @@ def hold_streaming(torch, op, eps: float, label: str):
     B = torch.zeros((3, ppad), device=u.device)
     B[:, :p] = torch.from_numpy(rng.standard_normal((3, p)).astype(np.float32)
                                 * 1e-3).to(u.device)
-    # K B, K |B| and K |u| (K8's x bound) in one float64 pass.
+    # K B, K |B| and K |u| (the half-step's x bound) in one float64 pass.
     kref = streaming_atb_plain(fa64, fb64, torch.cat(
         [B, B.abs(), u.abs()[None]]).to(f64), sw, pw)
     # ap sums q positive-weighted terms per sample: S_SUM_TOL of the sum of
     # absolute terms (the kernel's per-block chains are two-level).
-    hold("streaming_halfstep", "K8 unit_x ap", ap0[:p] - ref[2],
-         S_SUM_TOL * ref[5])
+    hold(unit, f"{ku} unit_x ap", ap0[:p] - ref[2], S_SUM_TOL * ref[5])
     # x = 1/w: |dx| ~ |dw| x^2, |dw| <= (2 Ppad + 4) u (K |u|) for the p-term
     # chain and the entries' rounding; x2 for the second order.
-    hold("streaming_halfstep", "K8 x", xk - xp,
-         2 * (2 * ppad + 4) * U * kref[6] * xp * xp)
-    hold("streaming_halfstep", "K8 ap", apk[:p] - ref[1], S_SUM_TOL * ref[4])
+    hold(half, f"{kh} x", xk - xp, 2 * (2 * ppad + 4) * U * kref[6] * xp * xp)
+    hold(half, f"{kh} ap", apk[:p] - ref[1], S_SUM_TOL * ref[4])
     for R in (1, 2, 3):
         hold("streaming_ap", f"K10 R={R}",
              streaming_ap(fa_rows, fb_cols, X[:R].contiguous(), sw, pw)[:, :p]
@@ -335,8 +370,8 @@ def profile_call(torch, label: str, fn, mp: float) -> None:
         print(f"  device {ms:9.3f} ms  x{count:<4d} {key[:70]}")
 
 
-STREAMING_KERNELS = ("streaming_halfstep", "streaming_ap", "streaming_atb",
-                     "streaming_gram")
+STREAMING_KERNELS = ("streaming_halfstep", "streaming_halfstep_ptiled",
+                     "streaming_ap", "streaming_atb", "streaming_gram")
 DENSE_KERNELS = ("sinkhorn_halfstep_int16", "sinkhorn_halfstep_f32",
                  "scaled_gram", "scaled_matmul")
 
@@ -351,6 +386,12 @@ def recompose(lab, edit_packed, perm):
     out = lab.copy()
     out[..., 0] = unpacked.reshape(lab.shape[:2])
     return lab_to_bgr_u8_np(out)
+
+
+# Mangled-name pieces of the kernels whose entry loop chip_smoke counts: K8,
+# K10 (R = 1; also K9's pass 2), K11 (R = 1) and K9's pass 1.
+SASS_KEYS = ("stream_halfstep_kernel", "stream_ap_kernelILi1E",
+             "stream_atb_kernelILi1ELb0E", "stream_atb_kernelILi1ELb1E")
 
 
 def sass_per_entry(lib_path: str) -> dict:
@@ -374,9 +415,7 @@ def sass_per_entry(lib_path: str) -> dict:
     found = {}
     for chunk in out.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        key = next((k for k in ("stream_halfstep_kernel",
-                                "stream_ap_kernelILi1E",
-                                "stream_atb_kernelILi1E") if k in name), None)
+        key = next((k for k in SASS_KEYS if k in name), None)
         if key is None:
             continue
         # Instructions read "/*addr*/ [@P] OP args ;"; a branch names its
@@ -403,37 +442,55 @@ def sass_per_entry(lib_path: str) -> dict:
     return found
 
 
-def capacity_path(torch, NLEFilter, _build) -> dict:
-    """[7] NLEFilter(factored=True).train_and_enhance at 32 MP, cold then
-    warm, then K8, K10, K11 and K12 held against their float64 plain
-    versions on this frame's own operands; returns the cold run's launch
-    counts and {kernel: (max_abs_err, max err/bound)}."""
+def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
+                  seed: int):
+    """NLEFilter(factored=True).train_and_enhance on a structured frame,
+    cold then warm (bitwise equal), a profiled warm call, then the
+    streaming kernels held against their float64 plain versions on this
+    frame's own operands. The cold run's own counts must show the phi-free
+    route alone: the half-step (K8, or K9 past Ppad 1792 with the s0 pass
+    on K10) at least 2 x iters times, K10, K11 and K12, and no dense kernel.
+    Returns (the cold run's launch counts, {kernel: (max_abs_err, max
+    err/bound)}, the f32 operands for timing)."""
     from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        MAX_STREAM_P_FUSED,
+        P_ALIGN,
+    )
     from nle_tpu_torch.ops.pipeline import bucket_m, ka_eigh_host64
     from nle_tpu_torch.ops.sampling import sample_grid
 
-    h, w = CAP_SHAPE
+    h, w = shape
     n = h * w
     t0 = time.perf_counter()
-    big = structured_frame(h, w, seed=7)
+    big = structured_frame(h, w, seed=seed)
     # The sampled pixels' Lab values alone give stage 1's rank (Lab is per
     # pixel), so p, m and the bucket mb print without converting the frame.
-    grid = sample_grid(h, w, CAP_ARGS[0], CAP_ARGS[1])
+    grid = sample_grid(h, w, args[0], args[1])
+    p = grid.n_samples
     Ls = bgr_to_lab_u8_np(big[grid.sel_rows, grid.sel_cols][None])[0, :, 0]
     m = ka_eigh_host64(Ls.astype(np.float64), grid.sel_rows, grid.sel_cols,
-                       CAP_ARGS[2], CAP_ARGS[3], 1e-10)[1].shape[0]
-    print(f"[7] capacity path: {h}x{w} ({n} px) frame made in "
+                       args[2], args[3], 1e-10)[1].shape[0]
+    ppad = -(-p // P_ALIGN) * P_ALIGN
+    print(f"{tag} capacity path: {h}x{w} ({n} px) frame made in "
           f"{time.perf_counter() - t0:.1f} s; args "
-          f"{' '.join(map(str, CAP_ARGS))}: p={grid.n_samples}, m={m}, "
-          f"mb={bucket_m(m, grid.n_samples)}")
+          f"{' '.join(map(str, args))}: p={p}, m={m}, mb={bucket_m(m, p)}, "
+          f"Ppad={ppad}")
     del grid
+    wide = ppad > MAX_STREAM_P_FUSED
+    half = "streaming_halfstep_ptiled" if wide else "streaming_halfstep"
+    iters = args[4]
+    need = {half: 2 * iters + (0 if wide else 1), "streaming_ap": 2 if wide
+            else 1, "streaming_atb": 1, "streaming_gram": 1}
+    barred = DENSE_KERNELS + ("affinity_matmul", "streaming_halfstep_ptiled"
+                              if not wide else "streaming_halfstep")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     _build.reset_launches()
     t0 = time.perf_counter()
     cold = NLEFilter(device="cuda", factored=True).train_and_enhance(
-        big, *CAP_ARGS, weights=WEIGHTS)
+        big, *args, weights=WEIGHTS)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
@@ -441,22 +498,21 @@ def capacity_path(torch, NLEFilter, _build) -> dict:
     print(f"  cold {cold_s:.3f} s; launches {counts}")
     print(f"  peak device memory {peak / 2**30:.3f} GiB = {peak / n:.1f} "
           f"B/pixel ({before / 2**20:.1f} MiB held before the run; phi would "
-          f"be 2560 B/pixel, V 200)")
-    iters = CAP_ARGS[4]
-    if counts["streaming_halfstep"] < 2 * iters + 1:
-        raise AssertionError(f"K8 ran {counts['streaming_halfstep']} times")
-    for name in ("streaming_gram", "streaming_ap", "streaming_atb"):
-        if counts[name] < 1:
-            raise AssertionError(f"{name} never launched on the 32 MP path")
-    for name in DENSE_KERNELS:
+          f"be {4 * -(-m // 128) * 128} B/pixel, V 200)")
+    for name, least in need.items():
+        if counts[name] < least:
+            raise AssertionError(f"{tag}: {name} ran {counts[name]} times, "
+                                 f"fewer than {least}")
+    for name in barred:
         if counts[name]:
-            raise AssertionError(f"{name} launched on the phi-free path")
+            raise AssertionError(f"{tag}: {name} launched on the phi-free "
+                                 "path")
     if not peak / n < CAP_BYTES_PER_PIXEL:
         raise AssertionError(f"peak {peak / n:.1f} B/pixel >= "
                              f"{CAP_BYTES_PER_PIXEL}")
     f = NLEFilter(device="cuda", factored=True)
     t0 = time.perf_counter()
-    f.train_for_enhancement(big, *CAP_ARGS)
+    f.train_for_enhancement(big, *args)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -469,35 +525,32 @@ def capacity_path(torch, NLEFilter, _build) -> dict:
           f"cold == warm bitwise: {bool(np.array_equal(cold, warm))}; "
           f"PSNR(output, input) {psnr(warm, big):.2f} dB")
     if cold.shape != big.shape or cold.dtype != np.uint8:
-        raise AssertionError(f"32 MP output {cold.shape} {cold.dtype}")
+        raise AssertionError(f"{tag} output {cold.shape} {cold.dtype}")
     if not np.array_equal(cold, warm):
-        raise AssertionError("32 MP: cold and warm runs differ")
+        raise AssertionError(f"{tag}: cold and warm runs differ")
     del f, cold, warm
-    profile_call(torch, "  profiled warm 32 MP train_and_enhance",
+    profile_call(torch, f"  profiled warm {mp:.0f} MP train_and_enhance",
                  lambda: NLEFilter(device="cuda", factored=True)
-                 .train_and_enhance(big, *CAP_ARGS, weights=WEIGHTS), mp)
+                 .train_and_enhance(big, *args, weights=WEIGHTS), mp)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     L = bgr_to_lab_u8_np(big)[..., 0].astype(np.float32)
     del big
-    op = path_operands(torch, L, CAP_ARGS, torch.device("cuda"))
+    op = path_operands(torch, L, args, torch.device("cuda"))
     del L
-    errs, _ = hold_streaming(torch, op, 1e-10, "32 MP")
+    errs, timing = hold_streaming(torch, op, 1e-10, f"{mp:.0f} MP")
+    timing.update(p=op.p, mb=op.mb, mpad=op.mpad)
     del op
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"  32 MP kernel checks: {time.perf_counter() - t0:.1f} s")
-    return counts, errs
+    print(f"  {mp:.0f} MP kernel checks: {time.perf_counter() - t0:.1f} s")
+    return counts, errs, timing
 
 
 def cross_paths(torch, NLEFilter, _build, img, dense_out) -> dict:
     """[8] the factored path on card vs CPU and vs the dense path, and the
     streaming train vs the dense train; returns the streaming run's
     launch counts."""
-    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
-    from nle_tpu_torch.ops.pipeline import pack_channel, train_filter
-    from nle_tpu_torch.ops.sampling import sample_grid
-
     small = structured_frame(128, 192, seed=5)
     sargs = (10, 10, 100.0, 30.0, 10, 10)
     g1 = NLEFilter(device="cuda", factored=True).train_and_enhance(
@@ -521,38 +574,113 @@ def cross_paths(torch, NLEFilter, _build, img, dense_out) -> dict:
     if not db >= 45.0:
         raise AssertionError(f"factored vs dense {db:.2f} dB < 45")
 
-    h, w = STREAM_SHAPE
-    frame = structured_frame(h, w, seed=9)
+    return streaming_vs_dense(torch, _build, "[8c]", STREAM_SHAPE, MAIN_ARGS,
+                              seed=9)[0]
+
+
+def streaming_vs_dense(torch, _build, tag: str, shape, args, seed: int,
+                       f32_dense: bool = False):
+    """train_filter(streaming=True) against streaming=False on a structured
+    frame, each with its own launch counts: the streaming run takes the
+    half-step (K8, or K9 past Ppad 1792), K12 and K1 and no dense kernel;
+    the dense run (the default split int16 route, K3) no streaming kernel.
+    f32_dense adds the dense route's f32 trajectory (NLE_SINKHORN_INT16=off:
+    the assembled layout on K4), and the gate then holds the two f32
+    trajectories, streaming and dense, to each other, while the int16
+    carrier's own distance from both is printed. The gated edits must
+    agree to >= 45 dB, or, where a rank cut at tiny eigenvalues puts that
+    out of reach, sit inside the configuration's own cone: each route is
+    run again on the frame with one luminance value moved by 1e-3, and the
+    PSNR between a route's two edits is its cone; the bound is the smaller
+    cone less 6 dB (a factor 2 in RMS: the two routes' rounding errors
+    need not be independent, and each cone is one perturbation's sample).
+    Returns (streaming counts, dense counts)."""
+    import os
+
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        MAX_STREAM_P_FUSED,
+        P_ALIGN,
+    )
+    from nle_tpu_torch.ops.pipeline import pack_channel, train_filter
+    from nle_tpu_torch.ops.sampling import sample_grid
+
+    h, w = shape
+    frame = structured_frame(h, w, seed=seed)
     lab = bgr_to_lab_u8_np(frame)
     L = lab[..., 0].astype(np.float32)
-    grid = sample_grid(h, w, MAIN_ARGS[0], MAIN_ARGS[1])
-    packed = torch.from_numpy(np.ascontiguousarray(
-        pack_channel(L, grid.perm)[0])).cuda()
+    grid = sample_grid(h, w, args[0], args[1])
+    wide = -(-grid.n_samples // P_ALIGN) * P_ALIGN > MAX_STREAM_P_FUSED
+    half = "streaming_halfstep_ptiled" if wide else "streaming_halfstep"
+
+    def run(mode, chan, int16_env=None):
+        packed = torch.from_numpy(np.ascontiguousarray(
+            pack_channel(chan, grid.perm)[0])).cuda()
+        saved = os.environ.get("NLE_SINKHORN_INT16")
+        if int16_env is not None:
+            os.environ["NLE_SINKHORN_INT16"] = int16_env
+        try:
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            _, _, edit = train_filter(chan, *args, device="cuda", grid=grid,
+                                      packed_y=packed, edit_weights=WEIGHTS,
+                                      streaming=mode)
+            out = recompose(lab, edit, grid.perm)
+            torch.cuda.synchronize()
+        finally:
+            if saved is None:
+                os.environ.pop("NLE_SINKHORN_INT16", None)
+            else:
+                os.environ["NLE_SINKHORN_INT16"] = saved
+        return out, dict(_build.LAUNCHES), time.perf_counter() - t0
+
+    routes = [("streaming", True, None), ("dense", False, None)]
+    if f32_dense:
+        routes.append(("dense f32", False, "off"))
     outs, counts = {}, {}
-    for mode in (True, False):
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        _, _, edit = train_filter(L, *MAIN_ARGS, device="cuda", grid=grid,
-                                  packed_y=packed, edit_weights=WEIGHTS,
-                                  streaming=mode)
-        outs[mode] = recompose(lab, edit, grid.perm)
-        torch.cuda.synchronize()
-        counts[mode] = dict(_build.LAUNCHES)
-        print(f"[8c] {h}x{w} train_filter(streaming={mode}): "
-              f"{time.perf_counter() - t0:.3f} s; launches {counts[mode]}")
-    db = psnr(outs[True], outs[False])
-    print(f"  streaming vs dense edit: {db:.2f} dB")
+    for name, mode, env in routes:
+        outs[name], counts[name], secs = run(mode, L, env)
+        print(f"{tag} {h}x{w} {' '.join(map(str, args))} (p="
+              f"{grid.n_samples}) {name} train_filter(streaming={mode}): "
+              f"{secs:.3f} s; launches {counts[name]}")
+    ref = "dense f32" if f32_dense else "dense"
+    env = "off" if f32_dense else None
+    db = psnr(outs["streaming"], outs[ref])
+    print(f"  streaming vs {ref} edit: {db:.2f} dB")
+    if f32_dense:
+        print(f"  the int16 carrier (K3) vs the f32 trajectories: dense vs "
+              f"dense f32 {psnr(outs['dense'], outs['dense f32']):.2f} dB, "
+              f"dense vs streaming "
+              f"{psnr(outs['dense'], outs['streaming']):.2f} dB")
     if not db >= 45.0:
-        raise AssertionError(f"streaming vs dense {db:.2f} dB < 45")
-    st = counts[True]
-    if (st["streaming_halfstep"] < 2 * MAIN_ARGS[4] + 1
-            or st["streaming_gram"] < 1 or st["affinity_matmul"] < 1):
-        raise AssertionError(f"the streaming branch did not run: {st}")
+        moved = L.copy()
+        moved[h // 2, w // 2] += 1e-3
+        cones = {name: psnr(run(mode, moved, e)[0], outs[name])
+                 for name, mode, e in (("streaming", True, None),
+                                       (ref, False, env))}
+        bound = min(cones.values()) - 6.0
+        print(f"  below 45 dB: with one luminance value moved by 1e-3 the "
+              f"edits move to {cones['streaming']:.2f} dB (streaming) and "
+              f"{cones[ref]:.2f} dB ({ref}); bound {bound:.2f} dB")
+        if not db >= bound:
+            raise AssertionError(f"{tag} streaming vs {ref} {db:.2f} dB, "
+                                 f"outside the cone ({bound:.2f} dB)")
+    st = counts["streaming"]
+    if (st[half] < 2 * args[4] + (0 if wide else 1) or st["streaming_gram"] < 1
+            or st["affinity_matmul"] < 1):
+        raise AssertionError(f"{tag}: the streaming branch did not run: {st}")
     if any(st[name] for name in DENSE_KERNELS):
-        raise AssertionError(f"dense kernels ran on the streaming train: {st}")
-    if any(counts[False][name] for name in STREAMING_KERNELS):
-        raise AssertionError("streaming kernels ran on the dense train")
-    return st
+        raise AssertionError(f"{tag}: dense kernels ran on the streaming "
+                             f"train: {st}")
+    for name, kernel in (("dense", "sinkhorn_halfstep_int16"),
+                         ("dense f32", "sinkhorn_halfstep_f32")):
+        if name not in counts:
+            continue
+        if (counts[name][kernel] < 2 * args[4]
+                or any(counts[name][k] for k in STREAMING_KERNELS)):
+            raise AssertionError(f"{tag}: the {name} train did not take its "
+                                 f"route: {counts[name]}")
+    return counts["streaming"], counts["dense"]
 
 
 class PeakMeter:
@@ -705,6 +833,7 @@ def main() -> int:
         streaming_atb_plain,
         streaming_halfstep,
         streaming_halfstep_plain,
+        streaming_halfstep_ptiled_plain,
         streaming_scaled_gram,
         streaming_scaled_gram_plain,
     )
@@ -759,25 +888,35 @@ def main() -> int:
     rows = []
 
     def record(name, src, repl, err, ms, plain_ms, nbytes, flops,
-               library_ms=None, sass_key=None, entries=0):
-        """err: (max_abs_err, max err/bound) of the kernel's checks."""
+               library_ms=None, sass_key=(), entries=0, launch=None):
+        """err: (max_abs_err, max err/bound) of the kernel's checks.
+        sass_key: the SASS_KEYS of the kernel's entry loops (K9 has two).
+        launch: (path, LAUNCHES key) whose count is the row's launches;
+        by default the kernel's own name on the 1 MP dense path (K1-K7)
+        or the 32 MP factored path (K8-K12)."""
         bms, by = bound_ms(nbytes, flops)
         lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
         print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, "
               f"bound {bms:.4f} ms ({by}: {nbytes:.4g} B, {flops:.4g} flop)")
+        if launch is None:
+            launch = ("factored_32mp" if name in STREAMING_KERNELS
+                      else "dense_1mp", name)
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          max_abs_err=err[0], err_over_bound=err[1], ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=library_ms))
-        if sass_key in sass:
-            ninst, nexp = sass[sass_key]
-            # Issue time of the entry-building loop alone: a floor under
+                         library_ms=library_ms, _launch=launch))
+        keys = (sass_key,) if isinstance(sass_key, str) else sass_key
+        if keys and all(k in sass for k in keys):
+            per = sum(sass[k][0] / sass[k][1] for k in keys)
+            # Issue time of the entry-building loops alone: a floor under
             # the kernel's instruction-issue time.
-            issue_ms = entries * ninst / nexp / issue_rate * 1e3
-            rows[-1]["sass_per_entry"] = ninst / nexp
+            issue_ms = entries * per / issue_rate * 1e3
+            # Each loop builds an entry once, with one MUFU.EX2 (expf).
+            rows[-1]["expf_per_entry"] = len(keys)
+            rows[-1]["sass_per_entry"] = per
             rows[-1]["issue_ms_entry_loop"] = issue_ms
-            print(f"  {name}: entry loop {ninst / nexp:.1f} instructions per "
-                  f"entry -> issue time {issue_ms:.3f} ms")
+            print(f"  {name}: entry loops {per:.1f} instructions and "
+                  f"{len(keys)} expf per entry -> issue time {issue_ms:.3f} ms")
 
     eps = 1e-10
     phib = affinity_matmul_kernel(fa, fb, Uinv, sw, pw, out_rows=npad_b)
@@ -813,9 +952,9 @@ def main() -> int:
         xk, sk = sinkhorn_halfstep(Q, t, eps)
         xp, sp = sinkhorn_halfstep_plain(Q, t, eps)
         Qa = Q.float().abs()
-        # x = 1/w: |dx| ~ |dw| x^2 with |dw| <= (2 mpad + 4) u (|Q| |t|);
-        # x2 for the two sides.
-        bx = 2 * (2 * mpad + 4) * U * (Qa @ t.abs()) * xp * xp + 1e-30
+        # x = 1/w: |dx| ~ |dw| x^2 with |dw| <= (2 mpad + 4) u (|Q| |t|)
+        # for the factor's own width; x2 for the two sides.
+        bx = 2 * (2 * Q.shape[1] + 4) * U * (Qa @ t.abs()) * xp * xp + 1e-30
         ex = check(f"{label} x", xk - xp, bx)
         es = check(f"{label} s", sk - sp, S_SUM_TOL * (Qa.T @ xp.abs()) + 1e-30)
         return xk, (max(ex[0], es[0]), max(ex[1], es[1]))
@@ -908,7 +1047,7 @@ def main() -> int:
            cuda_ms(torch, lambda: streaming_atb_plain(fa_rows, fb_cols, b,
                                                       sw, pw)),
            4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries,
-           sass_key="stream_atb_kernelILi1E", entries=entries)
+           sass_key="stream_atb_kernelILi1ELb0E", entries=entries)
     record("streaming_gram", "nle_tpu_torch/csrc/streaming.cu",
            "nle_tpu/ops/pallas/streaming_kernel.py:453",
            errs["streaming_gram"],
@@ -999,23 +1138,189 @@ def main() -> int:
                      img, *MAIN_ARGS, weights=WEIGHTS), mp)
 
     # -- [7] the capacity path at 32 MP; [8] cross-path checks ------------
-    cap_counts, cap_errs = capacity_path(torch, NLEFilter, _build)
+    cap_counts, cap_errs = capacity_path(torch, NLEFilter, _build, "[7]",
+                                         CAP_SHAPE, CAP_ARGS, seed=7)[:2]
     stream_counts = cross_paths(torch, NLEFilter, _build, img, warm)
     near_threshold(torch, NLEFilter, _build)
-    # launches: the count of each kernel's own path (the dense 1 MP run
-    # for K1-K7, the 32 MP factored run for K8-K12); the other paths'
-    # counts ride beside it.
+
+    # -- [9] dense sampling grids ------------------------------------------
+    t9 = time.perf_counter()
+    grid_counts, grid_errs, t = capacity_path(
+        torch, NLEFilter, _build, "[9a]", GRID_CAP_SHAPE, GRID_CAP_ARGS, seed=7)
+    print(f"[9a] kernels vs plain at the 16 MP frame's shapes (q={t['q']}, "
+          f"p={t['p']}, Ppad={t['ppad']}, mpad={t['mpad']})")
+    fa_rows, fb_cols, mask, u = t["fa_rows"], t["fb_cols"], t["mask"], t["u"]
+    qg, qpad, ppad, pg = t["q"], t["qpad"], t["ppad"], t["p"]
+    entries = qg * pg
+    grid_launch = "dense_grid_16mp"
+    record("streaming_halfstep_ptiled", "nle_tpu_torch/csrc/streaming.cu",
+           "nle_tpu/ops/pallas/streaming_kernel.py:189",
+           grid_errs["streaming_halfstep_ptiled"],
+           cuda_ms(torch, lambda: streaming_halfstep(
+               fa_rows, fb_cols, mask, u, sw, pw, eps)),
+           cuda_ms(torch, lambda: streaming_halfstep_ptiled_plain(
+               fa_rows, fb_cols, mask, u, sw, pw, eps), reps=1),
+           4 * (3 * qpad + 2 * qpad + 5 * ppad), (ENTRY_FLOPS + 4) * entries,
+           sass_key=("stream_atb_kernelILi1ELb1E", "stream_ap_kernelILi1E"),
+           entries=entries,
+           launch=(grid_launch, "streaming_halfstep_ptiled"))
+    Xg, bg = t["X"], t["b"]
+    record(f"streaming_ap@ppad{ppad}", "nle_tpu_torch/csrc/streaming.cu",
+           "nle_tpu/ops/pallas/streaming_kernel.py:299",
+           grid_errs["streaming_ap"],
+           cuda_ms(torch, lambda: streaming_ap(fa_rows, fb_cols, Xg, sw, pw)),
+           cuda_ms(torch, lambda: streaming_ap_plain(fa_rows, fb_cols, Xg,
+                                                     sw, pw), reps=1),
+           4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries,
+           sass_key="stream_ap_kernelILi1E", entries=entries,
+           launch=(grid_launch, "streaming_ap"))
+    record(f"streaming_atb@ppad{ppad}", "nle_tpu_torch/csrc/streaming.cu",
+           "nle_tpu/ops/pallas/streaming_kernel.py:369",
+           grid_errs["streaming_atb"],
+           cuda_ms(torch, lambda: streaming_atb(fa_rows, fb_cols, bg, sw, pw)),
+           cuda_ms(torch, lambda: streaming_atb_plain(fa_rows, fb_cols, bg,
+                                                      sw, pw), reps=1),
+           4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries,
+           sass_key="stream_atb_kernelILi1ELb0E", entries=entries,
+           launch=(grid_launch, "streaming_atb"))
+    c_row, uinv_pad, mbg, mpg = t["c_row"], t["uinv_pad"], t["mb"], t["mpad"]
+    record(f"streaming_gram@ppad{ppad}", "nle_tpu_torch/csrc/streaming.cu",
+           "nle_tpu/ops/pallas/streaming_kernel.py:453",
+           grid_errs["streaming_gram"],
+           cuda_ms(torch, lambda: streaming_scaled_gram(
+               fa_rows, fb_cols, c_row, uinv_pad, sw, pw), reps=1),
+           cuda_ms(torch, lambda: streaming_scaled_gram_plain(
+               fa_rows, fb_cols, c_row, uinv_pad, sw, pw), reps=1),
+           4 * (4 * qpad + 3 * ppad + ppad * mpg + mpg * mpg),
+           2 * entries * mbg + ENTRY_FLOPS * entries + qg * mbg * (mbg + 1),
+           launch=(grid_launch, "streaming_gram"))
+    del t, fa_rows, fb_cols, mask, u, Xg, bg, c_row, uinv_pad
+    torch.cuda.empty_cache()
+
+    # [9b] the dense route past p = 1024 at 1 MP: K1 at K2's contract.
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = NLEFilter(device="cuda").train_and_enhance(img, *P1200_ARGS,
+                                                     weights=WEIGHTS)
+    torch.cuda.synchronize()
+    p1200_counts = dict(_build.LAUNCHES)
+    print(f"[9b] 1 MP dense train_and_enhance "
+          f"({' '.join(map(str, P1200_ARGS))}): {time.perf_counter() - t0:.3f}"
+          f" s; launches {p1200_counts}; PSNR(output, input) "
+          f"{psnr(out, img):.2f} dB")
+    if out.shape != img.shape or out.dtype != np.uint8:
+        raise AssertionError(f"[9b] output {out.shape} {out.dtype}")
+    if (p1200_counts["affinity_matmul"] < 1
+            or p1200_counts["sinkhorn_halfstep_int16"] < 2 * P1200_ARGS[4]
+            or p1200_counts["scaled_gram"] < 1
+            or p1200_counts["scaled_matmul"] < 1
+            or any(p1200_counts[k] for k in STREAMING_KERNELS)):
+        raise AssertionError(f"[9b] not the dense route: {p1200_counts}")
+    op = path_operands(torch, L, P1200_ARGS, dev)
+    nb1 = op.n - op.p
+    npad1 = split_row_pad(nb1)
+    print(f"  K1 at p={op.p}: m={op.m}, mb={op.mb}, mpad={op.mpad}")
+
+    def hold_k1(label, o, rows_b, out_rows, B):
+        """K1 with out_rows against its plain version: the zero tail rows
+        and columns, and (2p + 4) u (|K| |B|) per entry; the plain version
+        runs on 2^18-row chunks (its (rows, p) block is materialized)."""
+        got = affinity_matmul_kernel(o.fa, rows_b, B, o.sw, o.pw,
+                                     out_rows=out_rows)
+        torch.cuda.synchronize()
+        nr, mb_ = rows_b.shape[0], B.shape[1]
+        if bool((got[nr:] != 0).any()) or bool((got[:, mb_:] != 0).any()):
+            raise AssertionError(f"{label}: out_rows tail is not exact zero")
+        step = 1 << 18
+
+        def parts():
+            for lo in range(0, nr, step):
+                rb = rows_b[lo:lo + step]
+                absb = affinity_matmul_plain(o.fa, rb, B.abs(), o.sw, o.pw)
+                yield (got[lo:lo + rb.shape[0], :mb_]
+                       - affinity_matmul_plain(o.fa, rb, B, o.sw, o.pw),
+                       (2 * o.p + 4) * U * absb + 1e-30)
+
+        return got, check_parts(label, parts())
+
+    err1200 = hold_k1("K1 at p=1200 (K2's contract)", op, op.fb, npad1,
+                      op.Uinv)[1]
+    record("affinity_matmul_ptiled", "nle_tpu_torch/csrc/affinity.cu",
+           "nle_tpu/ops/pallas/affinity_kernel.py:128", err1200,
+           cuda_ms(torch, lambda: affinity_matmul_kernel(
+               op.fa, op.fb, op.Uinv, op.sw, op.pw, out_rows=npad1)),
+           cuda_ms(torch, lambda: affinity_matmul_plain(
+               op.fa, op.fb, op.Uinv, op.sw, op.pw, out_rows=npad1)),
+           4 * (3 * nb1 + op.p * op.mb + npad1 * op.mpad),
+           2 * nb1 * op.p * op.mb + ENTRY_FLOPS * nb1 * op.p,
+           launch=("dense_p1200_1mp", "affinity_matmul"))
+    del op, out
+    torch.cuda.empty_cache()
+
+    # [9c] streaming vs dense at p = 2112; then K1 at p = 2112 and K3/K4 at
+    # mpad 2176 on 2^20 of that frame's rest pixels.
+    gs_counts, gd_counts = streaming_vs_dense(
+        torch, _build, "[9c]", STREAM_SHAPE, GRID_ARGS, seed=9,
+        f32_dense=True)
+    torch.cuda.empty_cache()
+    frame = structured_frame(*STREAM_SHAPE, seed=9)
+    op = path_operands(torch, bgr_to_lab_u8_np(frame)[..., 0].astype(
+        np.float32), GRID_ARGS, dev)
+    del frame
+    rows_b = op.fb[:1 << 20]
+    nb2 = rows_b.shape[0]
+    print(f"  K1 at p={op.p} (m={op.m}, mb={op.mb}) on {nb2} rest pixels; "
+          f"K3/K4 at mpad {WIDE_MPAD}")
+    err2112 = hold_k1("K1 at p=2112", op, rows_b, nb2, op.Uinv)[1]
+    k2_row = next(r for r in rows if r["name"] == "affinity_matmul_ptiled")
+    k2_row["max_abs_err_p2112"], k2_row["err_over_bound_p2112"] = err2112
+    rng = np.random.default_rng(6)
+    Bw = torch.from_numpy(np.abs(rng.standard_normal(
+        (op.p, WIDE_MPAD))).astype(np.float32) * 1e-3).to(dev)
+    phiw = affinity_matmul_kernel(op.fa, rows_b, Bw, op.sw, op.pw,
+                                  out_rows=nb2)
+    del Bw, op, rows_b
+    torch.cuda.empty_cache()
+    q16w, scalew, _ = quantize_int16(phiw)
+    torch.cuda.empty_cache()
+    tw = (1.0 / phiw.sum(dim=0)).contiguous()
+    for label, Q, tq_w, row_name in (
+            ("K3 int16 at mpad 2176", q16w, (scalew * tw).contiguous(),
+             "sinkhorn_halfstep_int16"),
+            ("K4 f32 at mpad 2176", phiw, tw, "sinkhorn_halfstep_f32")):
+        _, errw = halfstep_check(label, Q, tq_w)
+        row = next(r for r in rows if r["name"] == row_name)
+        nbytes = Q.element_size() * nb2 * WIDE_MPAD + 4 * (nb2 + 2 * WIDE_MPAD)
+        bw, byw = bound_ms(nbytes, 4 * nb2 * WIDE_MPAD)
+        row.update({
+            "max_abs_err_mpad2176": errw[0], "err_over_bound_mpad2176": errw[1],
+            "ms_mpad2176": cuda_ms(torch, lambda: sinkhorn_halfstep(
+                Q, tq_w, eps), reps=10),
+            "plain_ms_mpad2176": cuda_ms(torch, lambda: sinkhorn_halfstep_plain(
+                Q, tq_w, eps)),
+            "bound_ms_mpad2176": bw, "bound_by_mpad2176": byw})
+        print(f"  {label}: kernel {row['ms_mpad2176']:.3f} ms, plain "
+              f"{row['plain_ms_mpad2176']:.3f} ms, bound {bw:.4f} ms ({byw})")
+    del q16w, phiw, tw
+    torch.cuda.empty_cache()
+    print(f"[9] dense sampling grids: {time.perf_counter() - t9:.1f} s")
+
+    # launches: the count of each row's own path (the dense 1 MP run for
+    # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the
+    # rows [9] adds); every path's count rides beside it.
+    paths = {"dense_1mp": main_counts, "guard_frame": guard_counts,
+             "factored_32mp": cap_counts, "streaming_4mp": stream_counts,
+             "dense_grid_16mp": grid_counts, "dense_p1200_1mp": p1200_counts,
+             "dense_grid_streaming_4mp": gs_counts,
+             "dense_grid_dense_4mp": gd_counts}
     for row in rows:
-        name = row["name"]
-        row["launches"] = (cap_counts if name in STREAMING_KERNELS
-                           else main_counts)[name]
-        row["launches_dense_1mp"] = main_counts[name]
-        row["launches_guard_frame"] = guard_counts[name]
-        row["launches_factored_32mp"] = cap_counts[name]
-        row["launches_streaming_4mp"] = stream_counts[name]
-        if name in cap_errs:
+        path, key = row.pop("_launch")
+        row["launches"] = paths[path][key]
+        for pname, counts in paths.items():
+            row[f"launches_{pname}"] = counts[key]
+        if path == "factored_32mp" and key in cap_errs:
             row["max_abs_err_32mp"], row["err_over_bound_32mp"] = (
-                cap_errs[name])
+                cap_errs[key])
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,17 @@
 // same entry K1 stores in phi, so no (N, m) array ever exists.
 //
 // K8 replaces nle_tpu/ops/pallas/streaming_kernel.py:105 `_halfstep_kernel`
-// (call :163):  x = mask * safe_recip(K^T u, eps),  ap = K x   (one sweep);
-// with unit_x, x = mask (the s0 = phi^T 1 pass).
+// (call :163):  x = mask * safe_recip(K^T u, eps),  ap = K x   (one sweep,
+// ppad <= 1792); with unit_x, x = mask (the s0 = phi^T 1 pass).
+// K9 replaces :189 `_halfstep_ptiled_kernel` (call :263): K8's function at
+// any ppad, in two passes (below).
 // K10 replaces :299 `_ap_kernel` (call :345):  ap (R, ppad) = K x, x (R, qpad).
 // K11 replaces :369 `_atb_kernel` (call :411):  out (R, qpad) = K^T b.
-// K12 replaces :453 `_gram_kernel` (call :492):
+// K12 replaces :453 `_gram_kernel` (call :492), and past the TPU's VMEM
+// limit `streaming_scaled_gram_xla` (:512):
 //   Sb = (c phi_rest)^T (c phi_rest),  phi_rest = K^T Uinv.
-// Here K is (qpad pixels, ppad samples), stored nowhere.
+// Here K is (qpad pixels, ppad samples), stored nowhere. K9-K12 take any
+// ppad (a dense sampling grid: p = 48 x 44 = 2112 samples gives ppad 2176).
 //
 // Bound on the H100: K8, K10 and K11 do O(1) work per affinity entry — the
 // IEEE expf and a dozen rounded adds and multiplies — against 16 B of
@@ -21,7 +25,15 @@
 // entry exactly once per pass. K12 is fp32 FMA work (the phi build,
 // 2 q p mpad, plus the gram, q mpad^2), compute-bound like K1 and K6.
 //
-// Cross-block sums (K8's and K10's ap, K12's Sb) never use float atomics:
+// K9, dense sampling grids: K8 holds a thread's ST_MAXC sample columns in
+// registers and a (tr, ppad) affinity tile in shared memory, both bounded
+// by ppad. K9 builds each entry twice instead (2 expf per entry, as the
+// TPU's two-pass kernel): pass 1 is K11's kernel with b = u, one thread
+// per pixel row summing w over the samples staged through shared memory in
+// chunks, with x = mask * safe_recip(w) as its epilogue; pass 2 is K10 on
+// that x. Neither pass holds more than a chunk of samples on chip.
+//
+// Cross-block sums (K8's, K9's and K10's ap, K12's Sb) never use float atomics:
 // a bounded number of blocks each own a fixed contiguous row range and
 // write a partial, and a second kernel sums the partials in block order,
 // so training stays bitwise repeatable. The TPU carries these sums across
@@ -33,7 +45,10 @@ namespace {
 
 constexpr int ST_THREADS = 256;
 constexpr int ST_MAXC = 7;                          // sample columns per thread
-constexpr int ST_MAX_PPAD = ST_THREADS * ST_MAXC;   // 1792: the single-pass regime
+constexpr int ST_MAX_PPAD = ST_THREADS * ST_MAXC;   // 1792: K8's regime, K10's p-tile
+// K9-pass-1/K11 samples staged in shared memory at a time: (3 + R) * 2048
+// floats is 48 KB at R = 3.
+constexpr int ST_ATB_CHUNK = 2048;
 constexpr int ST_MAX_TR = 32;                       // K8 rows per shared tile
 // K8's shared tile: ~44 KB and at least 128 threads a block were the
 // fastest of the tile sizes and block widths tried on the H100 at p = 600:
@@ -57,16 +72,17 @@ inline int ap_blocks(int qpad) {
   return (qpad + per - 1) / per;
 }
 
-// The thread's sample columns j = tid + c * blockDim.x, c < ST_MAXC, with
-// their features in registers (zero beyond ppad; those columns are never
-// read back).
+// The thread's sample columns j = j0 + tid + c * blockDim.x, c < ST_MAXC,
+// with their features in registers (zero from jend on; those columns are
+// never read back).
 struct SampleCols {
   float r[ST_MAXC], c[ST_MAXC], y[ST_MAXC];
-  __device__ __forceinline__ void load(const float* fa, int ppad) {
+  __device__ __forceinline__ void load(const float* fa, int ppad, int j0,
+                                       int jend) {
 #pragma unroll
     for (int k = 0; k < ST_MAXC; ++k) {
-      const int j = threadIdx.x + k * blockDim.x;
-      const bool in = j < ppad;
+      const int j = j0 + threadIdx.x + k * blockDim.x;
+      const bool in = j < jend;
       r[k] = in ? fa[j] : 0.0f;
       c[k] = in ? fa[ppad + j] : 0.0f;
       y[k] = in ? fa[2 * ppad + j] : 0.0f;
@@ -74,20 +90,26 @@ struct SampleCols {
   }
 };
 
-// K10, and K8's unit_x pass (R = 1, x = mask): ap[k, j] = sum_i x[k, i] K[i, j]
-// over this block's rows, into partial[blockIdx.x, k, j]. Each thread owns
-// its sample columns and walks the rows in increasing order; a row whose x
-// entries are all zero (the pad rows) adds exact zeros and is skipped. The
-// sum is two-level, each 32-row group's sum added to the block's: at 32 MP
-// a block owns ~30,000 rows, and one fp32 chain that long would round ~6x
-// more than ~950 group sums do.
+// K10, K8's unit_x pass (R = 1, x = mask) and K9's pass 2 (R = 1):
+// ap[k, j] = sum_i x[k, i] K[i, j] over this block's rows, into
+// partial[blockIdx.x, k, j]. Block (x, y) owns a row range and the p-tile
+// of ptile samples from y * ptile (one tile, the whole ppad, up to 1792).
+// Each thread owns its sample columns and walks the rows in increasing
+// order; a row whose x entries are all zero (the pad rows) adds exact zeros
+// and is skipped. The sum is two-level, each 32-row group's sum added to
+// the block's: at 32 MP a block owns ~30,000 rows, and one fp32 chain that
+// long would round ~6x more than ~950 group sums do. A column's sum does
+// not depend on the tiling of the samples.
 template <int R>
 __global__ void __launch_bounds__(ST_THREADS)
     stream_ap_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
                      const float* __restrict__ X, float* __restrict__ partial,
-                     int qpad, int ppad, int per_block, float sw, float pw) {
+                     int qpad, int ppad, int ptile, int per_block, float sw,
+                     float pw) {
+  const int j0 = blockIdx.y * ptile;
+  const int jend = min(j0 + ptile, ppad);
   SampleCols s;
-  s.load(fa, ppad);
+  s.load(fa, ppad, j0, jend);
   float acc[R][ST_MAXC];
 #pragma unroll
   for (int k = 0; k < R; ++k)
@@ -113,7 +135,7 @@ __global__ void __launch_bounds__(ST_THREADS)
       const float br = fb[i], bc = fb[qpad + i], by = fb[2 * qpad + i];
 #pragma unroll
       for (int c = 0; c < ST_MAXC; ++c) {
-        if (threadIdx.x + c * blockDim.x < ppad) {
+        if (j0 + threadIdx.x + c * blockDim.x < jend) {
           const float a =
               nle::affinity(br, bc, by, s.r[c], s.c[c], s.y[c], sw, pw);
 #pragma unroll
@@ -129,8 +151,8 @@ __global__ void __launch_bounds__(ST_THREADS)
   float* dst = partial + static_cast<size_t>(blockIdx.x) * R * ppad;
 #pragma unroll
   for (int c = 0; c < ST_MAXC; ++c) {
-    const int j = threadIdx.x + c * blockDim.x;
-    if (j < ppad) {
+    const int j = j0 + threadIdx.x + c * blockDim.x;
+    if (j < jend) {
 #pragma unroll
       for (int k = 0; k < R; ++k) dst[k * ppad + j] = acc[k][c];
     }
@@ -159,7 +181,7 @@ __global__ void __launch_bounds__(ST_THREADS)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   SampleCols s;
-  s.load(fa, ppad);
+  s.load(fa, ppad, 0, ppad);
   const int nthreads = blockDim.x;
   for (int j = tid; j < ppad; j += nthreads) u_s[j] = u[j];
   float acc[ST_MAXC];
@@ -222,35 +244,56 @@ __global__ void __launch_bounds__(ST_THREADS)
   }
 }
 
-// K11: out[k, i] = sum_j K[i, j] b[k, j]. One thread per pixel row, the
-// sample features and the b rows in shared memory (read as broadcasts),
-// the sum over samples in increasing j. Rows are independent: no
-// cross-block pass. Blocks stride over 256-row groups.
-template <int R>
+// K11, and K9's pass 1 (kRecip, R = 1, b = u): out[k, i] = sum_j K[i, j]
+// b[k, j]. One thread per pixel row, the sample features and the b rows
+// staged in shared memory pchunk samples at a time (read as broadcasts),
+// the sum over samples in increasing j: one fp32 chain per row, carried
+// across chunks through out, so it does not depend on pchunk. kRecip ends
+// the chain with x = mask * safe_recip(w, eps) instead. Rows are
+// independent: no cross-block pass. Blocks stride over 256-row groups.
+template <int R, bool kRecip>
 __global__ void __launch_bounds__(ST_THREADS)
     stream_atb_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
-                      const float* __restrict__ b, float* __restrict__ out,
-                      int qpad, int ppad, float sw, float pw) {
+                      const float* __restrict__ b,
+                      const float* __restrict__ mask, float* __restrict__ out,
+                      int qpad, int ppad, int pchunk, float sw, float pw,
+                      float eps) {
   extern __shared__ float smem[];
-  float* fa_s = smem;            // (3, ppad)
-  float* b_s = smem + 3 * ppad;  // (R, ppad)
-  for (int e = threadIdx.x; e < 3 * ppad; e += ST_THREADS) fa_s[e] = fa[e];
-  for (int e = threadIdx.x; e < R * ppad; e += ST_THREADS) b_s[e] = b[e];
-  __syncthreads();
-  for (int i = blockIdx.x * ST_THREADS + threadIdx.x; i < qpad;
-       i += gridDim.x * ST_THREADS) {
-    const float br = fb[i], bc = fb[qpad + i], by = fb[2 * qpad + i];
-    float acc[R];
+  float* fa_s = smem;                // (3, pchunk)
+  float* b_s = smem + 3 * pchunk;    // (R, pchunk)
+  for (int j0 = 0; j0 < ppad; j0 += pchunk) {
+    const int nj = min(pchunk, ppad - j0);
+    __syncthreads();  // the previous chunk's readers are done
+    for (int e = threadIdx.x; e < nj; e += ST_THREADS) {
 #pragma unroll
-    for (int k = 0; k < R; ++k) acc[k] = 0.0f;
-    for (int j = 0; j < ppad; ++j) {
-      const float a = nle::affinity(br, bc, by, fa_s[j], fa_s[ppad + j],
-                                    fa_s[2 * ppad + j], sw, pw);
+      for (int d = 0; d < 3; ++d) fa_s[d * pchunk + e] = fa[d * ppad + j0 + e];
 #pragma unroll
-      for (int k = 0; k < R; ++k) acc[k] = fmaf(a, b_s[k * ppad + j], acc[k]);
+      for (int k = 0; k < R; ++k) b_s[k * pchunk + e] = b[k * ppad + j0 + e];
     }
+    __syncthreads();
+    const bool last = j0 + nj >= ppad;
+    for (int i = blockIdx.x * ST_THREADS + threadIdx.x; i < qpad;
+         i += gridDim.x * ST_THREADS) {
+      const float br = fb[i], bc = fb[qpad + i], by = fb[2 * qpad + i];
+      float acc[R];
 #pragma unroll
-    for (int k = 0; k < R; ++k) out[static_cast<size_t>(k) * qpad + i] = acc[k];
+      for (int k = 0; k < R; ++k) {
+        acc[k] = j0 == 0 ? 0.0f : out[static_cast<size_t>(k) * qpad + i];
+      }
+      for (int j = 0; j < nj; ++j) {
+        const float a = nle::affinity(br, bc, by, fa_s[j], fa_s[pchunk + j],
+                                      fa_s[2 * pchunk + j], sw, pw);
+#pragma unroll
+        for (int k = 0; k < R; ++k) acc[k] = fmaf(a, b_s[k * pchunk + j], acc[k]);
+      }
+      if (kRecip && last) {
+        // Pad rows have real affinities: the mask kills them here.
+        out[i] = (fabsf(acc[0]) >= eps ? 1.0f / acc[0] : 0.0f) * mask[i];
+      } else {
+#pragma unroll
+        for (int k = 0; k < R; ++k) out[static_cast<size_t>(k) * qpad + i] = acc[k];
+      }
+    }
   }
 }
 
@@ -303,14 +346,23 @@ __global__ void __launch_bounds__(nle::GEMM_THREADS)
 
 bool bad_stream_shape(int qpad, int ppad) {
   return qpad < ST_ROW_GRAIN || qpad % ST_ROW_GRAIN || ppad < 1 ||
-         ppad > ST_MAX_PPAD || ppad % nle::BK;
+         ppad % nle::BK;
 }
 
-// Threads of a K10 block: just enough warps that each thread owns close to
-// ST_MAXC sample columns, so the per-row loads and checks are shared by as
-// many entries as the registers allow.
-inline int ap_threads(int ppad) {
-  const int per = (ppad + ST_MAXC - 1) / ST_MAXC;
+// Even split of n into the fewest pieces of at most `most`, each a
+// multiple of 32 (the last may be shorter): n itself when n <= most and a
+// multiple of 32, as every Ppad of pad_stream_operands is up to 1792.
+inline int even_piece(int n, int most) {
+  const int pieces = (n + most - 1) / most;
+  const int per = (n + pieces - 1) / pieces;
+  return (per + 31) / 32 * 32;
+}
+
+// Threads of a K10 block for a p-tile of ptile samples: just enough warps
+// that each thread owns close to ST_MAXC sample columns, so the per-row
+// loads and checks are shared by as many entries as the registers allow.
+inline int ap_threads(int ptile) {
+  const int per = (ptile + ST_MAXC - 1) / ST_MAXC;
   return (per + 31) / 32 * 32;
 }
 
@@ -319,25 +371,29 @@ cudaError_t launch_ap(const float* fb, const float* fa, const float* X,
                       float* partial, float* ap, int qpad, int ppad, float sw,
                       float pw, cudaStream_t st) {
   const int nblocks = ap_blocks(qpad);
-  stream_ap_kernel<R><<<nblocks, ap_threads(ppad), 0, st>>>(
-      fb, fa, X, partial, qpad, ppad, rows_per_block(qpad), sw, pw);
+  const int ptile = even_piece(ppad, ST_MAX_PPAD);
+  const dim3 grid(nblocks, (ppad + ptile - 1) / ptile);
+  stream_ap_kernel<R><<<grid, ap_threads(ptile), 0, st>>>(
+      fb, fa, X, partial, qpad, ppad, ptile, rows_per_block(qpad), sw, pw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return nle::launch_reduce_partials(partial, ap, nblocks, R * ppad, st);
 }
 
-template <int R>
+template <int R, bool kRecip>
 cudaError_t launch_atb(const float* fb, const float* fa, const float* b,
-                       float* out, int qpad, int ppad, float sw, float pw,
-                       cudaStream_t st) {
-  const int smem = static_cast<int>(sizeof(float)) * (3 + R) * ppad;
+                       const float* mask, float* out, int qpad, int ppad,
+                       float sw, float pw, float eps, cudaStream_t st) {
+  const int pchunk = even_piece(ppad, ST_ATB_CHUNK);
+  const int smem = static_cast<int>(sizeof(float)) * (3 + R) * pchunk;
   cudaError_t err = cudaFuncSetAttribute(
-      stream_atb_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      stream_atb_kernel<R, kRecip>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   int groups = (qpad + ST_THREADS - 1) / ST_THREADS;
   groups = groups > ST_MAX_BLOCKS ? ST_MAX_BLOCKS : groups;
-  stream_atb_kernel<R><<<groups, ST_THREADS, smem, st>>>(fb, fa, b, out, qpad,
-                                                          ppad, sw, pw);
+  stream_atb_kernel<R, kRecip><<<groups, ST_THREADS, smem, st>>>(
+      fb, fa, b, mask, out, qpad, ppad, pchunk, sw, pw, eps);
   return cudaGetLastError();
 }
 
@@ -349,12 +405,13 @@ extern "C" int nle_stream_nblocks(int qpad) { return ap_blocks(qpad); }
 // K8. fb (3, qpad), fa (3, ppad), mask (qpad,), u (ppad,) -> x (qpad,),
 // ap (ppad,); partial is scratch of nle_stream_nblocks(qpad) * ppad floats.
 // unit_x != 0: x is not written (it is the mask) and u is not read.
+// ppad <= 1792 (past it: K9, or K10 with x = mask for unit_x).
 extern "C" int nle_stream_halfstep(const float* fb, const float* fa,
                                    const float* mask, const float* u, float* x,
                                    float* partial, float* ap, int qpad,
                                    int ppad, float sw, float pw, float eps,
                                    int unit_x, void* stream) {
-  if (bad_stream_shape(qpad, ppad)) {
+  if (bad_stream_shape(qpad, ppad) || ppad > ST_MAX_PPAD) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -380,6 +437,24 @@ extern "C" int nle_stream_halfstep(const float* fb, const float* fa,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       nle::launch_reduce_partials(partial, ap, nblocks, ppad, st));
+}
+
+// K9. K8's contract without unit_x, at any ppad: pass 1 writes x, pass 2
+// is K10 on it; partial as for K8.
+extern "C" int nle_stream_halfstep_ptiled(const float* fb, const float* fa,
+                                          const float* mask, const float* u,
+                                          float* x, float* partial, float* ap,
+                                          int qpad, int ppad, float sw,
+                                          float pw, float eps, void* stream) {
+  if (bad_stream_shape(qpad, ppad)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_atb<1, true>(fb, fa, u, mask, x, qpad, ppad, sw, pw,
+                                        eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      launch_ap<1>(fb, fa, x, partial, ap, qpad, ppad, sw, pw, st));
 }
 
 // K10. X (R, qpad) -> ap (R, ppad), 1 <= R <= 3 (one channel, or the three
@@ -412,9 +487,9 @@ extern "C" int nle_stream_atb(const float* fb, const float* fa, const float* b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (R) {
-    case 1: err = launch_atb<1>(fb, fa, b, out, qpad, ppad, sw, pw, st); break;
-    case 2: err = launch_atb<2>(fb, fa, b, out, qpad, ppad, sw, pw, st); break;
-    case 3: err = launch_atb<3>(fb, fa, b, out, qpad, ppad, sw, pw, st); break;
+    case 1: err = launch_atb<1, false>(fb, fa, b, nullptr, out, qpad, ppad, sw, pw, 0.0f, st); break;
+    case 2: err = launch_atb<2, false>(fb, fa, b, nullptr, out, qpad, ppad, sw, pw, 0.0f, st); break;
+    case 3: err = launch_atb<3, false>(fb, fa, b, nullptr, out, qpad, ppad, sw, pw, 0.0f, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -429,8 +504,7 @@ extern "C" int nle_stream_gram(const float* fb, const float* fa, const float* c,
                                float* partial, float* out, int qpad, int ppad,
                                int mpad, int chunk, int nsplit, float sw,
                                float pw, void* stream) {
-  if (qpad < nle::BM || qpad % nle::BM || ppad < 1 || ppad > ST_MAX_PPAD ||
-      ppad % nle::BK || mpad % nle::BN || chunk < nle::BM ||
+  if (qpad < nle::BM || qpad % nle::BM || ppad < 1 || ppad % nle::BK || mpad % nle::BN || chunk < nle::BM ||
       chunk % nle::BM || nsplit < 1 || (chunk / nsplit) % nle::BK ||
       chunk % nsplit) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -6,7 +6,8 @@ But V's tail rows are V_rest = diag(c_rest) K W with W = Uinv GrT (p, k),
 so applying the filter needs only the (p, k) head/W pair, the Sinkhorn
 vector c, and the training features: ~17 B/pixel. The tail rows are
 regenerated at apply time by two streaming passes (K10, K11), and training
-runs the phi-free stage 2a (K8, K12) and stops before V.
+runs the phi-free stage 2a (K8, or K9 past 1792 samples, and K12) and
+stops before V. Every piece takes any sampling density.
 
 `FactoredFilter.save/load` use the JAX package's npz format (y_train, c,
 v_head, w, eigvals, shape, bandwidths, perm, factored), so a factored filter
@@ -157,7 +158,7 @@ def train_filter_factored(channel, n_row_samples: int, n_col_samples: int,
                           n_eig_vectors: int = 5, *, device,
                           eps: float | None = None) -> FactoredFilter:
     """Train a V-free factored filter on one channel (H, W) on `device`:
-    the phi-free stage 2a (K8 Sinkhorn, K12 gram), the host f64 chain, and
+    the phi-free stage 2a (K8/K9 Sinkhorn, K12 gram), the host f64 chain, and
     the (p, k) head pieces; the (N, k) V is never built."""
     dev = resolve_device(device)
     channel_np = np.asarray(channel)

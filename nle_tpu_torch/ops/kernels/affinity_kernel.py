@@ -1,7 +1,8 @@
 """K1: fused Gaussian-affinity x matrix product (CUDA, csrc/affinity.cu).
 
 Replaces nle_tpu/ops/pallas/affinity_kernel.py:113 `_kernel` (via
-`affinity_matmul_pallas`, call at :226):
+`affinity_matmul_pallas`, call at :226) and its p > 1024 variant
+`_kernel_ptiled` (K2, :128, call at :252):
     out (q, m) = exp(-(sw (dr^2 + dc^2) + pw dy^2)) @ B
 with dr, dc, dy raw integer feature differences, squared before scaling.
 The (rows, p) affinity block lives only in shared memory; K_AB never
@@ -11,10 +12,12 @@ On the H100 the product is compute-bound (0.77 TFLOP fp32 FMA + 0.6 G expf
 at the 1 MP main path, ~41 MB of traffic). The first version is a plain
 register-tiled fp32 SGEMM with the affinity generated in the operand load;
 accuracy rules (IEEE expf, no FMA contraction in the argument, fp32 FMA
-contraction, no TF32) are in the source. The p > 1024 tiled variant of the
-TPU (`_kernel_ptiled`, K2) is not ported yet: this kernel already loops
-over p inside the block, so it meets K2's contract, which a later change
-proves at p > 1024.
+contraction, no TF32) are in the source. The TPU needs K2 once a whole
+(p, m) B block no longer fits its VMEM; this kernel streams B through
+shared memory 16 samples at a time at any p, so one kernel serves both
+contracts: the dense phi_b at p > 1024 and the streaming stage 2b's
+V tail (B = W = Uinv GrT) on dense sampling grids. Each output sums its p
+terms in one increasing chain, whatever p is.
 
 Dispatch rule (the same for every kernel of the port): a CPU tensor goes
 to the plain PyTorch version; a CUDA tensor goes to the kernel or raises.

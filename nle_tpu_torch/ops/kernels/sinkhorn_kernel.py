@@ -22,6 +22,10 @@ TPU-only machinery left behind: the int32 pair-packing of the int16 copy
 (npad_b, mpad) int16 tensor in natural row order — and the VMEM-driven
 tile shrinking. Still to port (ROADMAP): the block-pipelined K13
 (`sinkhorn_halfstep_pallas`) and the bf16 preview branch.
+
+Width: the kernel takes mpad <= MAX_MPAD factor columns (a dense sampling
+grid's nearly full rank reaches mpad 2176 at p = 2112); the plain version
+takes any width.
 """
 
 from __future__ import annotations
@@ -33,6 +37,10 @@ import torch
 from nle_tpu_torch.ops.kernels import _build
 from nle_tpu_torch.ops.kernels._common import cuda_or_cpu, round_up
 from nle_tpu_torch.ops.linalg import safe_reciprocal
+
+# Widest factor K3/K4 take (csrc/sinkhorn.cu SK_MAX_MPAD): a one-row f32
+# tile plus the t and s rows still fit the kernel's shared memory.
+MAX_MPAD = 16384
 
 # Row alignment of every N-scale buffer of stage 2: a multiple of every
 # kernel's row tile, and the JAX package's padded_shape rule (2 x 1024), so
@@ -166,8 +174,11 @@ def sinkhorn_halfstep(Q: torch.Tensor, t: torch.Tensor, eps: float):
         return sinkhorn_halfstep_plain(Q, t, eps)
     if t.dtype != torch.float32:
         raise TypeError(f"t dtype {t.dtype}, expected float32")
-    lib = _build.load()
     npad, mpad = Q.shape
+    if mpad > MAX_MPAD:
+        raise ValueError(f"half-step factor of {mpad} columns: the kernel "
+                         f"takes at most MAX_MPAD = {MAX_MPAD}")
+    lib = _build.load()
     x = torch.empty((npad,), dtype=torch.float32, device=Q.device)
     s = torch.empty((mpad,), dtype=torch.float32, device=Q.device)
     partial = torch.empty((lib.nle_sinkhorn_nblocks(npad), mpad),

@@ -1,4 +1,4 @@
-"""K8, K10, K11, K12: the phi-free (streaming) stage-2 kernels (CUDA,
+"""K8-K12: the phi-free (streaming) stage-2 kernels (CUDA,
 csrc/streaming.cu), their plain PyTorch twins, and the streaming Sinkhorn
 loop (port of nle_tpu/ops/pallas/streaming_kernel.py).
 
@@ -18,15 +18,19 @@ values differ from the dense ones only by the association of the
 contractions (~1e-7 relative).
 
 - K8 replaces `_halfstep_kernel` (:105, call :163):
-  x = mask * safe_recip(K u, eps), ap = K^T x in one sweep; unit_x gives
-  x = mask (the s0 = phi^T 1 pass).
+  x = mask * safe_recip(K u, eps), ap = K^T x in one sweep, Ppad <= 1792;
+  unit_x gives x = mask (the s0 = phi^T 1 pass).
+- K9 replaces `_halfstep_ptiled_kernel` (:189, call :263): K8's x and ap
+  at any Ppad, in two passes (each entry built twice).
 - K10 replaces `_ap_kernel` (:299, call :345): ap (R, Ppad) = K^T x.
 - K11 replaces `_atb_kernel` (:369, call :411): out (R, Qpad) = K b.
-- K12 replaces `_gram_kernel` (:453, call :492).
+- K12 replaces `_gram_kernel` (:453, call :492) and, where the TPU's VMEM
+  no longer holds the gram (dense sampling grids), the XLA scan
+  `streaming_scaled_gram_xla` (:512).
 (K is written (pixels, samples) here; the JAX docstrings call the same
 products K_AB^T u and K_AB x.)
 
-On the H100, K8, K10 and K11 are bound by instruction issue (the IEEE
+On the H100, K8-K11 are bound by instruction issue (the IEEE
 expf and the rounded argument of every entry), not by bytes; K12 is fp32
 FMA work like K1 and K6. Cross-block sums are fixed-order partials, never
 float atomics: training stays bitwise repeatable.
@@ -36,9 +40,10 @@ Layout: the public functions keep the JAX argument layout, features as
 TPU's lane-padding reason for it does not apply on the card; the layout
 still gives coalesced loads.
 
-Only the single-pass regime (Ppad <= 1792, p <= 1792 samples) is ported:
-every entry point raises NotImplementedError beyond it. Dense sampling
-grids are the next slice (K9, K2, the plain-torch XLA-gram fallback).
+Every entry point takes any Ppad (dense sampling grids: 48 x 44 = 2112
+samples). The JAX package pads Ppad to 1024 multiples past 1792, a TPU
+tile reason; the port pads to 128 at every p (pad_stream_operands), and x
+and ap[:p] do not depend on the padding.
 
 Dispatch rule (the same for every kernel of the port): a CPU tensor goes
 to the plain PyTorch version; a CUDA tensor goes to the kernel or raises.
@@ -53,43 +58,29 @@ from nle_tpu_torch.ops.kernels._common import cuda_or_cpu, round_up
 from nle_tpu_torch.ops.linalg import safe_reciprocal
 
 TILE_Q = 512                 # Qpad alignment (the JAX package's row tile)
-PTILE = 1024                 # Ppad alignment past the single-pass regime
-MAX_STREAM_P_FUSED = 1792    # single-pass regime: Ppad <= this
+P_ALIGN = 128                # Ppad alignment (every kernel's sample step)
+MAX_STREAM_P_FUSED = 1792    # K8's regime (Ppad <= this); K9 past it
 MAX_ROWS = 3                 # K10/K11 rows: one channel, or a colour frame's
 GRAM_CHUNK_ROWS = 32768      # K12 phi scratch rows (84 MB at mpad = 640)
 GRAM_NSPLIT = 16             # K12 partial grams per chunk
 PLAIN_CHUNK_ROWS = 8192      # rows of one affinity block in the plain twins
-
-
-def stream_p_alignment(p: int) -> int:
-    """Sample padding rule shared by the streaming kernels: 128 while the
-    single-pass half-step applies, PTILE beyond."""
-    return 128 if round_up(p, 128) <= MAX_STREAM_P_FUSED else PTILE
+PLAIN_CPU_ENTRIES = 1 << 18  # on the CPU, entries of one: cache-sized blocks
 
 
 def pad_stream_operands(fa: torch.Tensor, fb: torch.Tensor):
     """The ONE padding rule of the streaming kernels: sample features
     (p, 3) -> (3, Ppad), rest features (q, 3) -> (3, Qpad), and the (1, Qpad)
-    validity mask. Qpad is a TILE_Q multiple, Ppad a stream_p_alignment
-    multiple; pad entries are zero."""
+    validity mask. Qpad is a TILE_Q multiple, Ppad a P_ALIGN multiple;
+    pad entries are zero."""
     p, q = fa.shape[0], fb.shape[0]
     qpad = round_up(max(q, 1), TILE_Q)
-    ppad = round_up(p, stream_p_alignment(p))
+    ppad = round_up(p, P_ALIGN)
     fa_rows = fa.new_zeros((3, ppad))
     fa_rows[:, :p] = fa.T
     fb_cols = fb.new_zeros((3, qpad))
     fb_cols[:, :q] = fb.T
     mask = (torch.arange(qpad, device=fb.device) < q).to(torch.float32)[None]
     return fa_rows, fb_cols, mask
-
-
-def _single_pass(ppad: int) -> None:
-    if ppad > MAX_STREAM_P_FUSED:
-        raise NotImplementedError(
-            f"streaming stage 2 at Ppad = {ppad} > {MAX_STREAM_P_FUSED} "
-            "(a dense sampling grid) is not ported yet: it needs the "
-            "two-pass half-step K9, the p-tiled affinity K2 and the plain "
-            "streaming_scaled_gram_xla fallback (ROADMAP Queue 2).")
 
 
 # -- plain PyTorch twins (row chunks: one (chunk, Ppad) block at a time) ----
@@ -103,9 +94,12 @@ def _affinity_rows(fa_rows, fb_cols, lo: int, hi: int, sw, pw):
     return torch.exp(-(sw * (dr * dr + dc * dc) + pw * (dy * dy)))
 
 
-def _chunks(qpad: int):
-    for lo in range(0, qpad, PLAIN_CHUNK_ROWS):
-        yield lo, min(lo + PLAIN_CHUNK_ROWS, qpad)
+def _chunks(fa_rows, fb_cols):
+    qpad = fb_cols.shape[1]
+    step = (PLAIN_CHUNK_ROWS if fb_cols.is_cuda
+            else max(64, PLAIN_CPU_ENTRIES // fa_rows.shape[1]))
+    for lo in range(0, qpad, step):
+        yield lo, min(lo + step, qpad)
 
 
 def streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
@@ -116,7 +110,7 @@ def streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
     else:
         x = fb_cols.new_empty((qpad,))
     ap = fa_rows.new_zeros((ppad,))
-    for lo, hi in _chunks(qpad):
+    for lo, hi in _chunks(fa_rows, fb_cols):
         A = _affinity_rows(fa_rows, fb_cols, lo, hi, sw, pw)
         if not unit_x:
             x[lo:hi] = safe_reciprocal(A @ u_pad, eps) * mask[0, lo:hi]
@@ -124,9 +118,18 @@ def streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
     return x, ap
 
 
+def streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad, sw, pw,
+                                    eps):
+    """K9's plain twin, its two passes: x from each row's full w = K u,
+    then ap = K^T x over every row."""
+    w = streaming_atb_plain(fa_rows, fb_cols, u_pad, sw, pw)[0]
+    x = safe_reciprocal(w, eps) * mask[0]
+    return x, streaming_ap_plain(fa_rows, fb_cols, x[None], sw, pw)[0]
+
+
 def streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw):
     ap = fa_rows.new_zeros((x_rows.shape[0], fa_rows.shape[1]))
-    for lo, hi in _chunks(fb_cols.shape[1]):
+    for lo, hi in _chunks(fa_rows, fb_cols):
         ap += x_rows[:, lo:hi] @ _affinity_rows(fa_rows, fb_cols, lo, hi,
                                                 sw, pw)
     return ap
@@ -135,7 +138,7 @@ def streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw):
 def streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw):
     b_rows = b_rows[None] if b_rows.ndim == 1 else b_rows
     out = fb_cols.new_empty((b_rows.shape[0], fb_cols.shape[1]))
-    for lo, hi in _chunks(fb_cols.shape[1]):
+    for lo, hi in _chunks(fa_rows, fb_cols):
         out[:, lo:hi] = b_rows @ _affinity_rows(fa_rows, fb_cols, lo, hi,
                                                 sw, pw).T
     return out
@@ -144,7 +147,7 @@ def streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw):
 def streaming_scaled_gram_plain(fa_rows, fb_cols, c_row, uinv_pad, sw, pw):
     mpad = uinv_pad.shape[1]
     Sb = fa_rows.new_zeros((mpad, mpad))
-    for lo, hi in _chunks(fb_cols.shape[1]):
+    for lo, hi in _chunks(fa_rows, fb_cols):
         cphi = c_row[0, lo:hi, None] * (
             _affinity_rows(fa_rows, fb_cols, lo, hi, sw, pw) @ uinv_pad)
         Sb += cphi.T @ cphi
@@ -156,11 +159,10 @@ def streaming_scaled_gram_plain(fa_rows, fb_cols, c_row, uinv_pad, sw, pw):
 def _check_layout(fa_rows, fb_cols) -> None:
     if fa_rows.shape[0] != 3 or fb_cols.shape[0] != 3:
         raise ValueError("features must be (3, Ppad) and (3, Qpad) rows")
-    if fb_cols.shape[1] % TILE_Q or fa_rows.shape[1] % 128:
+    if fb_cols.shape[1] % TILE_Q or fa_rows.shape[1] % P_ALIGN:
         raise ValueError(
             f"Qpad {fb_cols.shape[1]} must be a {TILE_Q} multiple and Ppad "
-            f"{fa_rows.shape[1]} a 128 multiple (pad_stream_operands)")
-    _single_pass(fa_rows.shape[1])
+            f"{fa_rows.shape[1]} a {P_ALIGN} multiple (pad_stream_operands)")
 
 
 def _check_rows(rows) -> None:
@@ -170,14 +172,20 @@ def _check_rows(rows) -> None:
 
 def streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
                        unit_x: bool = False):
-    """One phi-free Sinkhorn half-step over the rest pixels (K8), the
+    """One phi-free Sinkhorn half-step over the rest pixels, the
     streaming_halfstep dispatch of the JAX package: Ppad <= 1792 runs the
-    single-pass kernel; beyond it raises (the p-tiled K9 is not ported).
+    single-pass K8; past it unit_x runs K10 with x = mask, and a real
+    half-step the two-pass K9.
 
     fa_rows (3, Ppad), fb_cols (3, Qpad), mask (1, Qpad), u_pad (Ppad,) =
     Uinv t zero-padded. Returns (x (Qpad,), ap (Ppad,)); pad columns of ap
     are garbage the caller slices off. unit_x: x = mask, u unused."""
     _check_layout(fa_rows, fb_cols)
+    if fa_rows.shape[1] > MAX_STREAM_P_FUSED:
+        if unit_x:
+            return mask[0], streaming_ap(fa_rows, fb_cols, mask, sw, pw)[0]
+        return streaming_halfstep_ptiled(fa_rows, fb_cols, mask, u_pad, sw,
+                                         pw, eps)
     if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
         return streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw,
                                         pw, eps, unit_x)
@@ -197,6 +205,31 @@ def streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
             float(pw), float(eps), int(unit_x), _build.stream_ptr(fb_cols))
     _build.check(status, "streaming_halfstep")
     _build.count_launch("streaming_halfstep")
+    return x, ap
+
+
+def streaming_halfstep_ptiled(fa_rows, fb_cols, mask, u_pad, sw, pw, eps):
+    """K8's contract (unit_x excluded) at any Ppad (K9): x (Qpad,) =
+    mask * safe_recip(K u, eps), then ap (Ppad,) = K^T x."""
+    _check_layout(fa_rows, fb_cols)
+    if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
+        return streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad,
+                                               sw, pw, eps)
+    lib = _build.load()
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    dev = fb_cols.device
+    x = torch.empty((qpad,), dtype=torch.float32, device=dev)
+    ap = torch.empty((ppad,), dtype=torch.float32, device=dev)
+    partial = torch.empty((lib.nle_stream_nblocks(qpad), ppad),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.nle_stream_halfstep_ptiled(
+            fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
+            u_pad.data_ptr(), x.data_ptr(), partial.data_ptr(), ap.data_ptr(),
+            qpad, ppad, float(sw), float(pw), float(eps),
+            _build.stream_ptr(fb_cols))
+    _build.check(status, "streaming_halfstep_ptiled")
+    _build.count_launch("streaming_halfstep_ptiled")
     return x, ap
 
 
@@ -286,7 +319,8 @@ def streaming_sinkhorn_vectors(fa, fb, Um, lam_m, Uinv, max_iter: int,
     """Sinkhorn balancing without phi: (r, c), each (N,) in packed
     [selected; rest] order for N = p + q. The p sampled rows of phi are Um
     (exact f32 matvecs); the rest rows are recomputed every half-step by
-    K8, after one unit_x pass for s0 = phi^T 1: 1 + 2 max_iter launches."""
+    K8 (K9 past Ppad 1792), after one unit_x pass for s0 = phi^T 1 (K10
+    past 1792): 1 + 2 max_iter launches."""
     p = Um.shape[0]
     q = fb.shape[0]
     fa_rows, fb_cols, mask = pad_stream_operands(fa, fb)

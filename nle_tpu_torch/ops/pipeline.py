@@ -25,10 +25,11 @@ layout; its reasons (VMEM, the c*phi HBM buffer) are TPU reasons, so the
 port runs the split layout at every size and the small layout is not
 ported (ROADMAP).
 
-The streaming stage 2 (K8 Sinkhorn, K12 gram, then K1 with the small
-right factor W = Uinv GrT for V) keeps O(N) device state; the V-free
-factored filter (models/factored.py) stops before V and edits through
-factored_apply (K10, K11).
+The streaming stage 2 (K8 Sinkhorn, or K9 past 1792 samples; K12 gram;
+then K1 with the small right factor W = Uinv GrT for V) keeps O(N) device
+state at any sampling density; the V-free factored filter
+(models/factored.py) stops before V and edits through factored_apply
+(K10, K11).
 
 m (the kept Nystrom rank) travels as a plain int; columns m..mb of the
 rank bucket are exact zeros, as in the JAX package (tests/test_bucketing.py).
@@ -53,6 +54,7 @@ from nle_tpu_torch.ops.kernels.scaled_matmul_kernel import (
     scaled_matmul,
 )
 from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
+    MAX_MPAD,
     carrier_guard_decision,
     padded_shape,
     resolve_int16,
@@ -234,10 +236,11 @@ def train_filter_stage2a_streaming(y, rr, cc, stage1, sw, pw, *, p: int,
                                    m: int, mb: int, n_sinkhorn_iter: int,
                                    eps: float):
     """phi-free device half 1 (port of nle_tpu train_filter_stage2a_
-    streaming): Sinkhorn through K8 and the rest-block Sb gram through
-    K12, both recomputing the affinity from the features, so the (N, m)
-    phi never exists. Returns (rc (2, mb) = [r; c], Sb (mb, mb), c (N,)).
-    Only the single-pass regime (p <= 1792 samples) is ported."""
+    streaming): Sinkhorn through K8 (K9 past 1792 samples) and the
+    rest-block Sb gram through K12 (which also stands in for the JAX
+    package's XLA gram on dense grids), all recomputing the affinity from
+    the features, so the (N, m) phi never exists. Returns (rc (2, mb) =
+    [r; c], Sb (mb, mb), c (N,))."""
     Um, lam_m, Uinv = _unpack_stage1(stage1, p)
     f = features(rr, cc, y)
     fa, fb = f[:p], f[p:]
@@ -557,16 +560,26 @@ def stream_bytes_limit(device: torch.device) -> int:
 
 def resolve_streaming(streaming: bool | None, device: torch.device, n: int,
                       mb: int) -> bool:
-    """Whether stage 2 runs phi-free. An explicit True/False wins. Auto:
-    on the card, when the padded f32 phi (4 npad mpad bytes) exceeds
-    stream_bytes_limit; on the CPU never (as the JAX package streams only
-    where its Pallas kernels run). The JAX rule's second half (VMEM fit of
-    the scaled kernels) is a TPU reason and is not ported."""
-    if streaming is not None:
+    """Whether stage 2 runs phi-free. Auto: on the card, when the padded
+    f32 phi (4 npad mpad bytes) exceeds stream_bytes_limit, or when its
+    mpad exceeds the widest factor K3/K4 take (MAX_MPAD); on the CPU never
+    (as the JAX package streams only where its Pallas kernels run). An
+    explicit True wins; an explicit False on the card past MAX_MPAD raises
+    ValueError. The JAX rule's second half (VMEM fit of the scaled
+    kernels) is a TPU reason and is not ported."""
+    if streaming is True or device.type != "cuda":
         return bool(streaming)
-    if device.type != "cuda":
-        return False
     npad, mpad = padded_shape(n, mb)
+    if mpad > MAX_MPAD:
+        if streaming is False:
+            raise ValueError(
+                f"the dense stage 2 on the card takes at most MAX_MPAD = "
+                f"{MAX_MPAD} factor columns (the K3/K4 Sinkhorn kernel's "
+                f"shared-memory tile); this frame's rank bucket mb = {mb} "
+                f"pads to {mpad}: train with streaming=True or None")
+        return True
+    if streaming is False:
+        return False
     return 4 * npad * mpad > stream_bytes_limit(device)
 
 

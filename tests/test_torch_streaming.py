@@ -150,23 +150,42 @@ def test_cpu_wrappers_are_the_plain_versions(operands):
 
 
 def test_dense_sampling_grids_raise():
-    """Ppad > 1792 is the next slice (K9, K2, the XLA-gram fallback): every
-    entry point raises rather than run something else."""
+    """Ppad > 1792 (a dense sampling grid) once raised; now the same four
+    entry points, on the same Ppad = 2048 operands (the JAX package's
+    padding of p = 1800), return the JAX package's answers: K9 through the
+    dispatcher, K10, K11, and K12 against streaming_scaled_gram_xla, the
+    JAX route for such grids."""
     rng = np.random.default_rng(1)
-    fa_rows, fb_cols, mask = tsk.pad_stream_operands(
-        torch.from_numpy(_features(rng, 1800)),
-        torch.from_numpy(_features(rng, 600)))
+    fa, fb = _features(rng, 1800), _features(rng, 600)
+    jrows = jsk.pad_stream_operands(jnp.asarray(fa), jnp.asarray(fb))
+    fa_rows, fb_cols, mask = (torch.from_numpy(np.array(a)) for a in jrows)
     assert fa_rows.shape[1] == 2048
-    u = torch.zeros(2048)
-    with pytest.raises(NotImplementedError, match="K9"):
-        tsk.streaming_halfstep(fa_rows, fb_cols, mask, u, SW, PW, EPS)
-    with pytest.raises(NotImplementedError, match="K9"):
-        tsk.streaming_ap(fa_rows, fb_cols, mask, SW, PW)
-    with pytest.raises(NotImplementedError, match="K9"):
-        tsk.streaming_atb(fa_rows, fb_cols, u, SW, PW)
-    with pytest.raises(NotImplementedError, match="K9"):
-        tsk.streaming_scaled_gram(fa_rows, fb_cols, mask,
-                                  torch.zeros((2048, 128)), SW, PW)
+    u = np.zeros(2048, np.float32)
+    u[:1800] = rng.uniform(0.5, 1.5, 1800) * 1e-3
+    u = torch.from_numpy(u)
+    x, ap = tsk.streaming_halfstep(fa_rows, fb_cols, mask, u, SW, PW, EPS)
+    xj, apj = jsk.streaming_halfstep(*jrows, _j(u), SW, PW, EPS,
+                                     interpret=True)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=RTOL)
+    np.testing.assert_allclose(ap.numpy()[:1800], np.asarray(apj)[:1800],
+                               rtol=RTOL)
+    got = tsk.streaming_ap(fa_rows, fb_cols, mask, SW, PW)
+    want = jsk.streaming_ap_pallas(*jrows[:2], jrows[2], SW, PW,
+                                   interpret=True)
+    np.testing.assert_allclose(got.numpy()[:, :1800],
+                               np.asarray(want)[:, :1800], rtol=RTOL)
+    got = tsk.streaming_atb(fa_rows, fb_cols, u, SW, PW)
+    want = jsk.streaming_atb_pallas(*jrows[:2], _j(u), SW, PW, interpret=True)
+    np.testing.assert_allclose(got.numpy()[:, :600], np.asarray(want)[:, :600],
+                               rtol=RTOL)
+    uinv = np.zeros((2048, 128), np.float32)
+    uinv[:1800, :90] = rng.random((1800, 90)) * 0.05
+    got = tsk.streaming_scaled_gram(fa_rows, fb_cols, mask,
+                                    torch.from_numpy(uinv), SW, PW).numpy()
+    want = np.asarray(jsk.streaming_scaled_gram_xla(
+        jnp.asarray(fa), jrows[1], jrows[2], jnp.asarray(uinv[:1800, :90]),
+        SW, PW))
+    np.testing.assert_allclose(got[:90, :90], want, rtol=RTOL)
 
 
 # -- the Sinkhorn loop and the streaming train ------------------------------
