@@ -58,14 +58,19 @@
    256 B/pixel; K9, K10, K11 and K12 held against their float64 plain
    versions on that frame's own operands and timed there (rows for K9 and
    for K10-K12 at that Ppad); (b) NLEFilter(device="cuda") at 1 MP with
-   40 30 500 10 50 50 (p = 1200): K1 at K2's contract, K3, K6, K7, and K1
-   held and timed at p = 1200 (the K2 row); (c) train_filter(streaming=
-   True) against streaming=False, on the default int16 route and on the
-   f32 route (K4), on the 2000x2000 frame with 48 44 500 10 50 50:
-   streaming vs dense f32 >= 45 dB or, as this rank cut (eigenvalues down
-   to 1e-10) puts out of reach, inside both routes' measured 1e-3
-   perturbation cones less 6 dB (streaming_vs_dense); then K1 at p = 2112
-   and K3/K4 at mpad 2176 on 2^20 of its rest pixels.
+   40 30 500 10 50 50 (p = 1200): K1 at K2's contract, K3, K6, K7, its
+   edit >= 45 dB from the assembled f32 route's (K4), and K1 held and
+   timed at p = 1200 (the K2 row); (c) train_filter(streaming=True), the
+   default dense route (K3) and the f32 dense route (K4) on the 2000x2000
+   frame with 48 44 500 10 50 50, whose rank is cut at eigenvalues of
+   1e-10, and the streaming route's float64 plain twin on the same frame,
+   each pair >= 45 dB: streaming vs dense f32, dense vs dense f32, the
+   twin vs dense f32 (the streaming algebra without its rounding lands on
+   the dense route), and the streaming kernels vs the twin; (d) the dense
+   route past 2048 factor columns on a real train: the same frame with
+   48 44 500 5 50 50 (m = 2078, mb 2112, mpad 2176) through the auto rule
+   on the int16 route (K3) and the f32 route (K4), >= 45 dB apart, then K1
+   at p = 2112 and K3/K4 at mpad 2176 held on 2^20 of its rest pixels.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -74,7 +79,9 @@ Frames are made with numpy from fixed seeds; no file is read.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -111,7 +118,10 @@ GRID_CAP_SHAPE = (4000, 4000)                 # 16 MP
 GRID_CAP_ARGS = (48, 44, 5000.0, 30.0, 50, 50)
 GRID_ARGS = (48, 44, 500.0, 10.0, 50, 50)     # on STREAM_SHAPE
 P1200_ARGS = (40, 30, 500.0, 10.0, 50, 50)    # p = 1200 on MAIN_SHAPE
-WIDE_MPAD = 2176                              # K3/K4 past 2048 columns
+# [9d] a rank of 2078 of 2112 on STREAM_SHAPE: mb 2112, mpad 2176, so the
+# dense route's K3/K4 run past 2048 factor columns.
+WIDE_ARGS = (48, 44, 500.0, 5.0, 50, 50)
+WIDE_MPAD = 2176
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and fp32
 # FLOP/s outside the tensor cores (TF32 is barred by the fidelity contract).
 PEAK_BYTES = 3.35e12
@@ -119,6 +129,24 @@ PEAK_FP32 = 67e12
 # fp32 operations of one affinity entry's argument: three differences, five
 # multiplies, two adds (the IEEE expf is not counted, so the bound is low).
 ENTRY_FLOPS = 10
+
+
+@contextlib.contextmanager
+def int16_carrier(env):
+    """NLE_SINKHORN_INT16 set to env for the block (None: unset; "off":
+    the dense route's assembled f32 layout on K4)."""
+    saved = os.environ.get("NLE_SINKHORN_INT16")
+    if env is None:
+        os.environ.pop("NLE_SINKHORN_INT16", None)
+    else:
+        os.environ["NLE_SINKHORN_INT16"] = env
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("NLE_SINKHORN_INT16", None)
+        else:
+            os.environ["NLE_SINKHORN_INT16"] = saved
 
 
 def structured_frame(h: int, w: int, seed: int = 0) -> np.ndarray:
@@ -399,7 +427,6 @@ def sass_per_entry(lib_path: str) -> dict:
     kernel's inner loop: the SASS instructions of the innermost loop that
     holds the exp (MUFU.EX2), over the number of exps in it. Returns
     {kernel: (instructions, exps)}; empty when cuobjdump is missing."""
-    import os
     import re
     import shutil
 
@@ -574,29 +601,24 @@ def cross_paths(torch, NLEFilter, _build, img, dense_out) -> dict:
     if not db >= 45.0:
         raise AssertionError(f"factored vs dense {db:.2f} dB < 45")
 
-    return streaming_vs_dense(torch, _build, "[8c]", STREAM_SHAPE, MAIN_ARGS,
-                              seed=9)[0]
+    outs, counts, _ = train_routes(
+        torch, _build, "[8c]", structured_frame(*STREAM_SHAPE, seed=9),
+        MAIN_ARGS, (("streaming", True, None), ("dense", False, None)))
+    db = psnr(outs["streaming"], outs["dense"])
+    print(f"  streaming vs dense edit: {db:.2f} dB")
+    if not db >= 45.0:
+        raise AssertionError(f"[8c] streaming vs dense {db:.2f} dB < 45")
+    return counts["streaming"]
 
 
-def streaming_vs_dense(torch, _build, tag: str, shape, args, seed: int,
-                       f32_dense: bool = False):
-    """train_filter(streaming=True) against streaming=False on a structured
-    frame, each with its own launch counts: the streaming run takes the
-    half-step (K8, or K9 past Ppad 1792), K12 and K1 and no dense kernel;
-    the dense run (the default split int16 route, K3) no streaming kernel.
-    f32_dense adds the dense route's f32 trajectory (NLE_SINKHORN_INT16=off:
-    the assembled layout on K4), and the gate then holds the two f32
-    trajectories, streaming and dense, to each other, while the int16
-    carrier's own distance from both is printed. The gated edits must
-    agree to >= 45 dB, or, where a rank cut at tiny eigenvalues puts that
-    out of reach, sit inside the configuration's own cone: each route is
-    run again on the frame with one luminance value moved by 1e-3, and the
-    PSNR between a route's two edits is its cone; the bound is the smaller
-    cone less 6 dB (a factor 2 in RMS: the two routes' rounding errors
-    need not be independent, and each cone is one perturbation's sample).
-    Returns (streaming counts, dense counts)."""
-    import os
-
+def train_routes(torch, _build, tag: str, frame: np.ndarray, args, routes):
+    """train_filter on the card along each route (label, streaming,
+    NLE_SINKHORN_INT16), each with the first edit fused and its own launch
+    counts, which must show the route: a streaming run the half-step (K8,
+    or K9 past Ppad 1792), K12 and K1 and no dense kernel; a dense run
+    (streaming False, or None: the auto rule) K3 on the default int16
+    carrier or K4 under NLE_SINKHORN_INT16=off, and no streaming kernel.
+    Returns ({label: BGR output}, {label: counts}, (lab, L, grid))."""
     from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
     from nle_tpu_torch.ops.kernels.streaming_kernel import (
         MAX_STREAM_P_FUSED,
@@ -605,82 +627,45 @@ def streaming_vs_dense(torch, _build, tag: str, shape, args, seed: int,
     from nle_tpu_torch.ops.pipeline import pack_channel, train_filter
     from nle_tpu_torch.ops.sampling import sample_grid
 
-    h, w = shape
-    frame = structured_frame(h, w, seed=seed)
+    h, w = frame.shape[:2]
     lab = bgr_to_lab_u8_np(frame)
     L = lab[..., 0].astype(np.float32)
     grid = sample_grid(h, w, args[0], args[1])
     wide = -(-grid.n_samples // P_ALIGN) * P_ALIGN > MAX_STREAM_P_FUSED
     half = "streaming_halfstep_ptiled" if wide else "streaming_halfstep"
-
-    def run(mode, chan, int16_env=None):
+    iters = args[4]
+    outs, counts = {}, {}
+    for label, mode, env in routes:
         packed = torch.from_numpy(np.ascontiguousarray(
-            pack_channel(chan, grid.perm)[0])).cuda()
-        saved = os.environ.get("NLE_SINKHORN_INT16")
-        if int16_env is not None:
-            os.environ["NLE_SINKHORN_INT16"] = int16_env
-        try:
-            _build.reset_launches()
-            t0 = time.perf_counter()
-            _, _, edit = train_filter(chan, *args, device="cuda", grid=grid,
+            pack_channel(L, grid.perm)[0])).cuda()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with int16_carrier(env):
+            _, _, edit = train_filter(L, *args, device="cuda", grid=grid,
                                       packed_y=packed, edit_weights=WEIGHTS,
                                       streaming=mode)
-            out = recompose(lab, edit, grid.perm)
-            torch.cuda.synchronize()
-        finally:
-            if saved is None:
-                os.environ.pop("NLE_SINKHORN_INT16", None)
-            else:
-                os.environ["NLE_SINKHORN_INT16"] = saved
-        return out, dict(_build.LAUNCHES), time.perf_counter() - t0
-
-    routes = [("streaming", True, None), ("dense", False, None)]
-    if f32_dense:
-        routes.append(("dense f32", False, "off"))
-    outs, counts = {}, {}
-    for name, mode, env in routes:
-        outs[name], counts[name], secs = run(mode, L, env)
+        outs[label] = recompose(lab, edit, grid.perm)
+        torch.cuda.synchronize()
+        st = counts[label] = dict(_build.LAUNCHES)
         print(f"{tag} {h}x{w} {' '.join(map(str, args))} (p="
-              f"{grid.n_samples}) {name} train_filter(streaming={mode}): "
-              f"{secs:.3f} s; launches {counts[name]}")
-    ref = "dense f32" if f32_dense else "dense"
-    env = "off" if f32_dense else None
-    db = psnr(outs["streaming"], outs[ref])
-    print(f"  streaming vs {ref} edit: {db:.2f} dB")
-    if f32_dense:
-        print(f"  the int16 carrier (K3) vs the f32 trajectories: dense vs "
-              f"dense f32 {psnr(outs['dense'], outs['dense f32']):.2f} dB, "
-              f"dense vs streaming "
-              f"{psnr(outs['dense'], outs['streaming']):.2f} dB")
-    if not db >= 45.0:
-        moved = L.copy()
-        moved[h // 2, w // 2] += 1e-3
-        cones = {name: psnr(run(mode, moved, e)[0], outs[name])
-                 for name, mode, e in (("streaming", True, None),
-                                       (ref, False, env))}
-        bound = min(cones.values()) - 6.0
-        print(f"  below 45 dB: with one luminance value moved by 1e-3 the "
-              f"edits move to {cones['streaming']:.2f} dB (streaming) and "
-              f"{cones[ref]:.2f} dB ({ref}); bound {bound:.2f} dB")
-        if not db >= bound:
-            raise AssertionError(f"{tag} streaming vs {ref} {db:.2f} dB, "
-                                 f"outside the cone ({bound:.2f} dB)")
-    st = counts["streaming"]
-    if (st[half] < 2 * args[4] + (0 if wide else 1) or st["streaming_gram"] < 1
-            or st["affinity_matmul"] < 1):
-        raise AssertionError(f"{tag}: the streaming branch did not run: {st}")
-    if any(st[name] for name in DENSE_KERNELS):
-        raise AssertionError(f"{tag}: dense kernels ran on the streaming "
-                             f"train: {st}")
-    for name, kernel in (("dense", "sinkhorn_halfstep_int16"),
-                         ("dense f32", "sinkhorn_halfstep_f32")):
-        if name not in counts:
-            continue
-        if (counts[name][kernel] < 2 * args[4]
-                or any(counts[name][k] for k in STREAMING_KERNELS)):
-            raise AssertionError(f"{tag}: the {name} train did not take its "
-                                 f"route: {counts[name]}")
-    return counts["streaming"], counts["dense"]
+              f"{grid.n_samples}) {label} train_filter(streaming={mode}): "
+              f"{time.perf_counter() - t0:.3f} s; launches {st}")
+        del edit, packed
+        torch.cuda.empty_cache()
+        if mode:
+            took = (st[half] >= 2 * iters + (0 if wide else 1)
+                    and st["streaming_gram"] >= 1
+                    and st["affinity_matmul"] >= 1
+                    and not any(st[k] for k in DENSE_KERNELS))
+        else:
+            kernel = ("sinkhorn_halfstep_f32" if env == "off"
+                      else "sinkhorn_halfstep_int16")
+            took = (st[kernel] >= 2 * iters
+                    and not any(st[k] for k in STREAMING_KERNELS))
+        if not took:
+            raise AssertionError(f"{tag}: the {label} train did not take its "
+                                 f"route: {st}")
+    return outs, counts, (lab, L, grid)
 
 
 class PeakMeter:
@@ -720,8 +705,6 @@ def near_threshold(torch, NLEFilter, _build) -> None:
     and the assembled f32 layout of the carrier guard's fallback, forced
     with NLE_SINKHORN_INT16=off), without running out of memory and within
     DENSE_PEAK_PER_PHI_BYTE x phi; a frame 15% larger would stream."""
-    import os
-
     from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
     from nle_tpu_torch.ops.pipeline import (
         bucket_m,
@@ -764,35 +747,25 @@ def near_threshold(torch, NLEFilter, _build) -> None:
         raise AssertionError("the auto rule does not switch near its limit")
     routes = (("split int16", None, "sinkhorn_halfstep_int16"),
               ("assembled f32", "off", "sinkhorn_halfstep_f32"))
-    saved = os.environ.get("NLE_SINKHORN_INT16")
-    try:
-        for label, env, kernel in routes:
-            if env is None:
-                os.environ.pop("NLE_SINKHORN_INT16", None)
-            else:
-                os.environ["NLE_SINKHORN_INT16"] = env
-            peak = PeakMeter(torch)
-            _build.reset_launches()
-            t0 = time.perf_counter()
+    for label, env, kernel in routes:
+        peak = PeakMeter(torch)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with int16_carrier(env):
             out = NLEFilter(device="cuda").train_and_enhance(
                 frame, *MAIN_ARGS, weights=WEIGHTS)
-            torch.cuda.synchronize()
-            counts = dict(_build.LAUNCHES)
-            print(f"  {label}: dense train_and_enhance "
-                  f"{time.perf_counter() - t0:.3f} s; launches {counts}")
-            if (counts[kernel] < 2 * MAIN_ARGS[4]
-                    or any(counts[k] for k in STREAMING_KERNELS)):
-                raise AssertionError(f"{label}: the frame under the limit "
-                                     f"did not run that dense route: {counts}")
-            if out.shape != frame.shape or out.dtype != np.uint8:
-                raise AssertionError(f"output {out.shape} {out.dtype}")
-            peak.dense_ratio(f"  {label} near the limit", n, mb)
-            del out
-    finally:
-        if saved is None:
-            os.environ.pop("NLE_SINKHORN_INT16", None)
-        else:
-            os.environ["NLE_SINKHORN_INT16"] = saved
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        print(f"  {label}: dense train_and_enhance "
+              f"{time.perf_counter() - t0:.3f} s; launches {counts}")
+        if (counts[kernel] < 2 * MAIN_ARGS[4]
+                or any(counts[k] for k in STREAMING_KERNELS)):
+            raise AssertionError(f"{label}: the frame under the limit did "
+                                 f"not run that dense route: {counts}")
+        if out.shape != frame.shape or out.dtype != np.uint8:
+            raise AssertionError(f"output {out.shape} {out.dtype}")
+        peak.dense_ratio(f"  {label} near the limit", n, mb)
+        del out
     del frame
     torch.cuda.empty_cache()
 
@@ -837,6 +810,7 @@ def main() -> int:
         streaming_scaled_gram,
         streaming_scaled_gram_plain,
     )
+    from nle_tpu_torch.tools.stream_precision import streaming_edit_f64
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1210,6 +1184,16 @@ def main() -> int:
           f"{psnr(out, img):.2f} dB")
     if out.shape != img.shape or out.dtype != np.uint8:
         raise AssertionError(f"[9b] output {out.shape} {out.dtype}")
+    _build.reset_launches()
+    with int16_carrier("off"):
+        out32 = NLEFilter(device="cuda").train_and_enhance(img, *P1200_ARGS,
+                                                           weights=WEIGHTS)
+    db = psnr(out, out32)
+    print(f"  vs the assembled f32 route (K4 x "
+          f"{_build.LAUNCHES['sinkhorn_halfstep_f32']}): {db:.2f} dB")
+    if not db >= 45.0 or _build.LAUNCHES["sinkhorn_halfstep_f32"] < 100:
+        raise AssertionError(f"[9b] int16 vs f32 route {db:.2f} dB < 45")
+    del out32
     if (p1200_counts["affinity_matmul"] < 1
             or p1200_counts["sinkhorn_halfstep_int16"] < 2 * P1200_ARGS[4]
             or p1200_counts["scaled_gram"] < 1
@@ -1257,37 +1241,72 @@ def main() -> int:
     del op, out
     torch.cuda.empty_cache()
 
-    # [9c] streaming vs dense at p = 2112; then K1 at p = 2112 and K3/K4 at
-    # mpad 2176 on 2^20 of that frame's rest pixels.
-    gs_counts, gd_counts = streaming_vs_dense(
-        torch, _build, "[9c]", STREAM_SHAPE, GRID_ARGS, seed=9,
-        f32_dense=True)
+    # [9c] streaming vs dense at p = 2112, the rank cut at eigenvalues of
+    # 1e-10: each kernel route against the streaming route's float64 twin.
+    outs, c9, (lab, Lg, grid) = train_routes(
+        torch, _build, "[9c]", structured_frame(*STREAM_SHAPE, seed=9),
+        GRID_ARGS, (("streaming", True, None), ("dense", False, None),
+                    ("dense f32", False, "off")))
+    gs_counts, gd_counts = c9["streaming"], c9["dense"]
+    t0 = time.perf_counter()
+    edit64, _ = streaming_edit_f64(torch, Lg, grid, GRID_ARGS, WEIGHTS,
+                                   dev)
+    outs["float64 twin"] = recompose(lab, edit64, grid.perm)
+    del edit64, lab, Lg, grid
     torch.cuda.empty_cache()
-    frame = structured_frame(*STREAM_SHAPE, seed=9)
-    op = path_operands(torch, bgr_to_lab_u8_np(frame)[..., 0].astype(
-        np.float32), GRID_ARGS, dev)
-    del frame
+    print(f"  the streaming route's float64 plain twin: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for a, b, what in (
+            ("streaming", "dense f32", "the two f32 routes"),
+            ("dense", "dense f32", "the int16 carrier, K3 vs K4"),
+            ("float64 twin", "dense f32",
+             "the streaming algebra without its rounding"),
+            ("streaming", "float64 twin",
+             "the streaming kernels against their float64 twin")):
+        db = psnr(outs[a], outs[b])
+        print(f"  {a} vs {b}: {db:.2f} dB ({what})")
+        if not db >= 45.0:
+            raise AssertionError(f"[9c] {a} vs {b} {db:.2f} dB < 45")
+    del outs
+
+    # [9d] the dense route past 2048 factor columns on a real train (the
+    # Queue 3 input: mb 2112, mpad 2176, the auto rule): the split int16
+    # route (K3) against the assembled f32 route (K4). Then K1 at p = 2112
+    # and K3/K4 held on 2^20 of this frame's rest pixels.
+    outs, c9d, (_, Lw, _) = train_routes(
+        torch, _build, "[9d]", structured_frame(*STREAM_SHAPE, seed=9),
+        WIDE_ARGS, (("dense", None, None), ("dense f32", None, "off")))
+    wd_counts = c9d["dense"]
+    db = psnr(outs["dense"], outs["dense f32"])
+    print(f"  dense vs dense f32: {db:.2f} dB (guard tripped: "
+          f"{'yes' if wd_counts['sinkhorn_halfstep_f32'] else 'no'})")
+    if not db >= 45.0:
+        raise AssertionError(f"[9d] dense vs dense f32 {db:.2f} dB < 45")
+    del outs
+    torch.cuda.empty_cache()
+    op = path_operands(torch, Lw, WIDE_ARGS, dev)
+    if op.mpad != WIDE_MPAD:
+        raise AssertionError(f"[9d] mpad {op.mpad}, not {WIDE_MPAD}")
     rows_b = op.fb[:1 << 20]
     nb2 = rows_b.shape[0]
-    print(f"  K1 at p={op.p} (m={op.m}, mb={op.mb}) on {nb2} rest pixels; "
-          f"K3/K4 at mpad {WIDE_MPAD}")
-    err2112 = hold_k1("K1 at p=2112", op, rows_b, nb2, op.Uinv)[1]
+    print(f"  K1 at p={op.p} (m={op.m}, mb={op.mb}, mpad={op.mpad}) and "
+          f"K3/K4 on {nb2} rest pixels")
+    phiw, err2112 = hold_k1("K1 at p=2112", op, rows_b, nb2, op.Uinv)
     k2_row = next(r for r in rows if r["name"] == "affinity_matmul_ptiled")
     k2_row["max_abs_err_p2112"], k2_row["err_over_bound_p2112"] = err2112
-    rng = np.random.default_rng(6)
-    Bw = torch.from_numpy(np.abs(rng.standard_normal(
-        (op.p, WIDE_MPAD))).astype(np.float32) * 1e-3).to(dev)
-    phiw = affinity_matmul_kernel(op.fa, rows_b, Bw, op.sw, op.pw,
-                                  out_rows=nb2)
-    del Bw, op, rows_b
+    # t as the split route's first half-step takes it: scale * lam s0.
+    s0w = (op.Um.T @ torch.ones(op.p, device=dev)
+           + phiw[:, :op.mb].sum(dim=0))
+    lamw = torch.nn.functional.pad(op.lam * s0w, (0, op.mpad - op.mb))
+    del op, rows_b, s0w
     torch.cuda.empty_cache()
     q16w, scalew, _ = quantize_int16(phiw)
     torch.cuda.empty_cache()
-    tw = (1.0 / phiw.sum(dim=0)).contiguous()
     for label, Q, tq_w, row_name in (
-            ("K3 int16 at mpad 2176", q16w, (scalew * tw).contiguous(),
+            ("K3 int16 at mpad 2176", q16w, (scalew * lamw).contiguous(),
              "sinkhorn_halfstep_int16"),
-            ("K4 f32 at mpad 2176", phiw, tw, "sinkhorn_halfstep_f32")):
+            ("K4 f32 at mpad 2176", phiw, lamw.contiguous(),
+             "sinkhorn_halfstep_f32")):
         _, errw = halfstep_check(label, Q, tq_w)
         row = next(r for r in rows if r["name"] == row_name)
         nbytes = Q.element_size() * nb2 * WIDE_MPAD + 4 * (nb2 + 2 * WIDE_MPAD)
@@ -1301,7 +1320,7 @@ def main() -> int:
             "bound_ms_mpad2176": bw, "bound_by_mpad2176": byw})
         print(f"  {label}: kernel {row['ms_mpad2176']:.3f} ms, plain "
               f"{row['plain_ms_mpad2176']:.3f} ms, bound {bw:.4f} ms ({byw})")
-    del q16w, phiw, tw
+    del q16w, phiw, lamw
     torch.cuda.empty_cache()
     print(f"[9] dense sampling grids: {time.perf_counter() - t9:.1f} s")
 
@@ -1312,7 +1331,8 @@ def main() -> int:
              "factored_32mp": cap_counts, "streaming_4mp": stream_counts,
              "dense_grid_16mp": grid_counts, "dense_p1200_1mp": p1200_counts,
              "dense_grid_streaming_4mp": gs_counts,
-             "dense_grid_dense_4mp": gd_counts}
+             "dense_grid_dense_4mp": gd_counts,
+             "dense_mpad2176_4mp": wd_counts}
     for row in rows:
         path, key = row.pop("_launch")
         row["launches"] = paths[path][key]

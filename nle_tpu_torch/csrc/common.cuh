@@ -134,17 +134,33 @@ struct ScaledRows {
   }
 };
 
+// sum += v with Kahan's compensation: comp carries the low part the last
+// add rounded away, so a chain of n adds rounds like O(1) adds, not O(n).
+// Explicitly rounded ops: nothing may fuse or reassociate them. A zero v
+// returns at once, so zero terms (pad samples, pad rows) change nothing.
+__device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
+  if (v == 0.0f) return;
+  const float y = __fsub_rn(v, comp);
+  const float t = __fadd_rn(sum, y);
+  comp = __fsub_rn(__fsub_rn(t, sum), y);
+  sum = t;
+}
+
 namespace {
 
-// out[j] = sum_{b < nparts} partial[b * len + j], summed in increasing b.
+// out[j] = sum_{b < nparts} partial[b * len + j], summed in increasing b
+// with compensation: ~1000 block partials of one sign would otherwise
+// round like a ~1000-term chain, which the streaming route amplifies.
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ out, int nparts,
                                        int len) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= len) return;
-  float s = 0.0f;
-  for (int b = 0; b < nparts; ++b) s += partial[static_cast<size_t>(b) * len + j];
-  out[j] = s;
+  float s = 0.0f, comp = 0.0f;
+  for (int b = 0; b < nparts; ++b) {
+    kahan_add(s, comp, partial[static_cast<size_t>(b) * len + j]);
+  }
+  out[j] = __fsub_rn(s, comp);
 }
 
 inline cudaError_t launch_reduce_partials(const float* partial, float* out,

@@ -16,14 +16,17 @@
 // in shared memory tr rows at a time. One warp per row forms w (lanes stride
 // the columns, a fixed shuffle tree sums them), x goes to device memory and
 // shared memory, then each thread adds x_r * Q[r, j] for the columns it owns
-// (j = tid + c * SK_THREADS) while the tile is still on chip: into registers
-// up to mpad = SK_THREADS * SK_MAXC = 2048, into a shared-memory row past it
-// (kWide; a dense sampling grid's nearly full rank reaches mpad 2176 at
-// p = 2112), in the same order either way. The per-block partial s goes to
-// an (nblocks, mpad) scratch and a second kernel sums it in block order: the
-// TPU accumulates s across its sequential grid in VMEM, CUDA blocks run in
-// no order, and float atomics would make training non-repeatable. The widest
-// factor is SK_MAX_MPAD (a one-row f32 tile still fits the shared memory).
+// (j = tid + k * SK_THREADS) into the block's s partial, a shared-memory row
+// of mpad floats, while the tile is still on chip. The row takes any width
+// (a dense sampling grid's nearly full rank reaches mpad 2176 at p = 2112);
+// at the 1 MP main path's mpad 640 it also ran ~9% faster on the H100 than
+// 8 register columns a thread did (PERF.md). The per-block partial s
+// goes to an (nblocks, mpad) scratch and a second kernel sums it in block
+// order: the TPU accumulates s across its sequential grid in VMEM, CUDA
+// blocks run in no order, and float atomics would make training
+// non-repeatable. A width
+// whose one-row tile no longer fits the shared memory (past ~17,000 f32
+// columns) is refused; the wrapper's MAX_MPAD is the port's one limit.
 //
 // Bound on the H100: at the 1 MP main path (npad ~ 1.0 M, mpad = 640) each
 // half-step streams 1.3 GB (int16) or 2.6 GB (f32) for 2.6 GFLOP: memory-
@@ -38,31 +41,25 @@ namespace {
 constexpr int SK_THREADS = 256;
 constexpr int SK_ROWS_PER_BLOCK = 1024;
 constexpr int SK_MAX_TR = 32;         // rows staged per tile
-constexpr int SK_MAXC = 8;            // register columns per thread
-constexpr int SK_REG_MPAD = SK_THREADS * SK_MAXC;   // 2048
-constexpr int SK_MAX_MPAD = 16384;    // ops/kernels/sinkhorn_kernel.py MAX_MPAD
 constexpr int SK_SMEM_LIMIT = 200 * 1024;
 
-template <typename T, bool kWide>
+template <typename T>
 __global__ void __launch_bounds__(SK_THREADS)
     halfstep_kernel(const T* __restrict__ Q, const float* __restrict__ t,
                     float* __restrict__ x, float* __restrict__ partial,
                     int npad, int mpad, int tr, float eps) {
   extern __shared__ float smem[];
   float* t_s = smem;                                   // (mpad,)
-  float* s_s = smem + mpad;                            // (mpad,) if kWide
-  float* x_s = s_s + (kWide ? mpad : 0);               // (SK_MAX_TR,)
+  float* s_s = smem + mpad;                            // (mpad,)
+  float* x_s = s_s + mpad;                             // (SK_MAX_TR,)
   T* tile = reinterpret_cast<T*>(x_s + SK_MAX_TR);     // (tr, mpad)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   for (int j = tid; j < mpad; j += SK_THREADS) {
     t_s[j] = t[j];
-    if (kWide) s_s[j] = 0.0f;
+    s_s[j] = 0.0f;
   }
-  float acc[SK_MAXC];
-#pragma unroll
-  for (int c = 0; c < SK_MAXC; ++c) acc[c] = 0.0f;
   const int rbeg = blockIdx.x * SK_ROWS_PER_BLOCK;
   const int rend = min(rbeg + SK_ROWS_PER_BLOCK, npad);
   __syncthreads();
@@ -88,76 +85,45 @@ __global__ void __launch_bounds__(SK_THREADS)
       }
     }
     __syncthreads();
-    if (kWide) {
-      // Each column is read and written by its one owning thread.
-      for (int j = tid; j < mpad; j += SK_THREADS) {
-        float a = s_s[j];
-        for (int r = 0; r < nr; ++r) {
-          a = fmaf(x_s[r], static_cast<float>(tile[r * mpad + j]), a);
-        }
-        s_s[j] = a;
+    // Each column is read and written by its one owning thread.
+    for (int j = tid; j < mpad; j += SK_THREADS) {
+      float a = s_s[j];
+      for (int r = 0; r < nr; ++r) {
+        a = fmaf(x_s[r], static_cast<float>(tile[r * mpad + j]), a);
       }
-    } else {
-#pragma unroll
-      for (int c = 0; c < SK_MAXC; ++c) {
-        const int j = tid + c * SK_THREADS;
-        if (j < mpad) {
-          float a = acc[c];
-          for (int r = 0; r < nr; ++r) {
-            a = fmaf(x_s[r], static_cast<float>(tile[r * mpad + j]), a);
-          }
-          acc[c] = a;
-        }
-      }
+      s_s[j] = a;
     }
     __syncthreads();
   }
   float* dst = partial + static_cast<size_t>(blockIdx.x) * mpad;
-  if (kWide) {
-    for (int j = tid; j < mpad; j += SK_THREADS) dst[j] = s_s[j];
-  } else {
-#pragma unroll
-    for (int c = 0; c < SK_MAXC; ++c) {
-      const int j = tid + c * SK_THREADS;
-      if (j < mpad) dst[j] = acc[c];
-    }
-  }
-}
-
-template <typename T, bool kWide>
-int launch_tiles(const T* Q, const float* t, float* x, float* partial,
-                 float* s, int npad, int mpad, float eps, void* stream) {
-  const size_t fixed = sizeof(float) * ((kWide ? 2 : 1) * mpad + SK_MAX_TR);
-  int tr = static_cast<int>((SK_SMEM_LIMIT - fixed) / (sizeof(T) * mpad));
-  tr = tr > SK_MAX_TR ? SK_MAX_TR : tr;
-  if (tr < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fixed + sizeof(T) * static_cast<size_t>(tr) * mpad;
-  cudaError_t err = cudaFuncSetAttribute(
-      halfstep_kernel<T, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblocks = (npad + SK_ROWS_PER_BLOCK - 1) / SK_ROWS_PER_BLOCK;
-  halfstep_kernel<T, kWide><<<nblocks, SK_THREADS, smem, st>>>(
-      Q, t, x, partial, npad, mpad, tr, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      nle::launch_reduce_partials(partial, s, nblocks, mpad, st));
+  for (int j = tid; j < mpad; j += SK_THREADS) dst[j] = s_s[j];
 }
 
 template <typename T>
 int launch_halfstep(const T* Q, const float* t, float* x, float* partial,
                     float* s, int npad, int mpad, float eps, void* stream) {
-  if (mpad < 1 || mpad > SK_MAX_MPAD || npad < 1) {
+  if (mpad < 1 || npad < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (mpad > SK_REG_MPAD) {
-    return launch_tiles<T, true>(Q, t, x, partial, s, npad, mpad, eps,
-                                 stream);
+  const size_t fixed = sizeof(float) * (2 * mpad + SK_MAX_TR);
+  if (fixed + sizeof(T) * mpad > SK_SMEM_LIMIT) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_tiles<T, false>(Q, t, x, partial, s, npad, mpad, eps,
-                                stream);
+  int tr = static_cast<int>((SK_SMEM_LIMIT - fixed) / (sizeof(T) * mpad));
+  tr = tr > SK_MAX_TR ? SK_MAX_TR : tr;
+  const size_t smem = fixed + sizeof(T) * static_cast<size_t>(tr) * mpad;
+  cudaError_t err = cudaFuncSetAttribute(
+      halfstep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nblocks = (npad + SK_ROWS_PER_BLOCK - 1) / SK_ROWS_PER_BLOCK;
+  halfstep_kernel<T><<<nblocks, SK_THREADS, smem, st>>>(Q, t, x, partial,
+                                                       npad, mpad, tr, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      nle::launch_reduce_partials(partial, s, nblocks, mpad, st));
 }
 
 }  // namespace

@@ -38,6 +38,14 @@
 // write a partial, and a second kernel sums the partials in block order,
 // so training stays bitwise repeatable. The TPU carries these sums across
 // its sequential grid in VMEM, which CUDA blocks cannot do.
+//
+// Long fp32 chains are compensated (nle::kahan_add): the sums over rows
+// (K10's group partials, every kernel's block partials) and over samples
+// (K9 pass 1, K11). The streaming route turns ap into
+// u = Uinv (lambda * Uinv^T ap) with eigenvalues down to 1e-10, so a
+// chain's rounding reaches the Sinkhorn vectors amplified: plain chains
+// put the card's c 3x further from float64 than the plain version's cuBLAS
+// sums do, compensated ones 5.6x closer (PERF.md).
 
 #include "common.cuh"
 
@@ -96,10 +104,11 @@ struct SampleCols {
 // of ptile samples from y * ptile (one tile, the whole ppad, up to 1792).
 // Each thread owns its sample columns and walks the rows in increasing
 // order; a row whose x entries are all zero (the pad rows) adds exact zeros
-// and is skipped. The sum is two-level, each 32-row group's sum added to
-// the block's: at 32 MP a block owns ~30,000 rows, and one fp32 chain that
-// long would round ~6x more than ~950 group sums do. A column's sum does
-// not depend on the tiling of the samples.
+// and is skipped. The sum is two-level, each 32-row group's fp32 chain
+// added to the block's with compensation (kahan_add): a block owns ~4,000
+// rows at 4 MP and ~30,000 at 32 MP, and the streaming route divides ap's
+// rounding by eigenvalues down to 1e-10 (PERF.md). A column's sum
+// does not depend on the tiling of the samples.
 template <int R>
 __global__ void __launch_bounds__(ST_THREADS)
     stream_ap_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
@@ -107,14 +116,16 @@ __global__ void __launch_bounds__(ST_THREADS)
                      int qpad, int ppad, int ptile, int per_block, float sw,
                      float pw) {
   const int j0 = blockIdx.y * ptile;
-  const int jend = min(j0 + ptile, ppad);
+  // Columns of this tile: the thread's column c is live while
+  // tid + c * blockDim.x < ntile, the same test as with one tile.
+  const int ntile = min(ptile, ppad - j0);
   SampleCols s;
-  s.load(fa, ppad, j0, jend);
-  float acc[R][ST_MAXC];
+  s.load(fa, ppad, j0, j0 + ntile);
+  float acc[R][ST_MAXC], comp[R][ST_MAXC];
 #pragma unroll
   for (int k = 0; k < R; ++k)
 #pragma unroll
-    for (int c = 0; c < ST_MAXC; ++c) acc[k][c] = 0.0f;
+    for (int c = 0; c < ST_MAXC; ++c) acc[k][c] = comp[k][c] = 0.0f;
   const int rbeg = blockIdx.x * per_block;
   const int rend = min(rbeg + per_block, qpad);
   for (int g = rbeg; g < rend; g += ST_ROW_GRAIN) {
@@ -135,7 +146,7 @@ __global__ void __launch_bounds__(ST_THREADS)
       const float br = fb[i], bc = fb[qpad + i], by = fb[2 * qpad + i];
 #pragma unroll
       for (int c = 0; c < ST_MAXC; ++c) {
-        if (j0 + threadIdx.x + c * blockDim.x < jend) {
+        if (threadIdx.x + c * blockDim.x < ntile) {
           const float a =
               nle::affinity(br, bc, by, s.r[c], s.c[c], s.y[c], sw, pw);
 #pragma unroll
@@ -146,15 +157,15 @@ __global__ void __launch_bounds__(ST_THREADS)
 #pragma unroll
     for (int k = 0; k < R; ++k)
 #pragma unroll
-      for (int c = 0; c < ST_MAXC; ++c) acc[k][c] += part[k][c];
+      for (int c = 0; c < ST_MAXC; ++c) nle::kahan_add(acc[k][c], comp[k][c], part[k][c]);
   }
-  float* dst = partial + static_cast<size_t>(blockIdx.x) * R * ppad;
+  float* dst = partial + static_cast<size_t>(blockIdx.x) * R * ppad + j0;
 #pragma unroll
   for (int c = 0; c < ST_MAXC; ++c) {
-    const int j = j0 + threadIdx.x + c * blockDim.x;
-    if (j < jend) {
+    const int j = threadIdx.x + c * blockDim.x;
+    if (j < ntile) {
 #pragma unroll
-      for (int k = 0; k < R; ++k) dst[k * ppad + j] = acc[k][c];
+      for (int k = 0; k < R; ++k) dst[k * ppad + j] = __fsub_rn(acc[k][c], comp[k][c]);
     }
   }
 }
@@ -164,7 +175,10 @@ __global__ void __launch_bounds__(ST_THREADS)
 // (one expf per entry per half-step, as on the TPU), then read twice:
 // one warp per row forms w (lanes stride the samples, a fixed shuffle tree
 // sums them), and each thread adds x_i K_ij into its own columns: the
-// tile's sum first, then that into the block's (two-level, as in K10).
+// tile's sum first, then that into the block's (two-level). Compensating
+// that add, as K10 does, made K8 11% slower on the H100 (PERF.md);
+// K8 serves p <= 1792, where chip_smoke [8c] holds streaming vs dense at
+// 71 dB.
 __global__ void __launch_bounds__(ST_THREADS)
     stream_halfstep_kernel(const float* __restrict__ fb,
                            const float* __restrict__ fa,
@@ -246,11 +260,17 @@ __global__ void __launch_bounds__(ST_THREADS)
 
 // K11, and K9's pass 1 (kRecip, R = 1, b = u): out[k, i] = sum_j K[i, j]
 // b[k, j]. One thread per pixel row, the sample features and the b rows
-// staged in shared memory pchunk samples at a time (read as broadcasts),
-// the sum over samples in increasing j: one fp32 chain per row, carried
-// across chunks through out, so it does not depend on pchunk. kRecip ends
-// the chain with x = mask * safe_recip(w, eps) instead. Rows are
-// independent: no cross-block pass. Blocks stride over 256-row groups.
+// staged in shared memory pchunk samples at a time (read as broadcasts).
+// Each row sums its samples in increasing j, two-level: a group of
+// ST_ROW_GRAIN samples as one fp32 chain, each group's sum added to the
+// row's with compensation (kahan_add). On the streaming route u = Uinv t
+// carries 1/lambda up to 1e10 and w = K u cancels, so the rounding of a
+// 2176-term chain would reach x at full weight. The row's sums stay in
+// registers across chunks (pchunk does not change them) and a zero group
+// sum is a no-op (pad samples do not change them), so they depend on
+// neither pchunk nor ppad. kRecip ends with x = mask * safe_recip(w, eps).
+// Rows are independent: no cross-block pass. Blocks stride over 256-row
+// groups, restaging the chunks for each when there is more than one.
 template <int R, bool kRecip>
 __global__ void __launch_bounds__(ST_THREADS)
     stream_atb_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
@@ -261,37 +281,54 @@ __global__ void __launch_bounds__(ST_THREADS)
   extern __shared__ float smem[];
   float* fa_s = smem;                // (3, pchunk)
   float* b_s = smem + 3 * pchunk;    // (R, pchunk)
-  for (int j0 = 0; j0 < ppad; j0 += pchunk) {
-    const int nj = min(pchunk, ppad - j0);
-    __syncthreads();  // the previous chunk's readers are done
-    for (int e = threadIdx.x; e < nj; e += ST_THREADS) {
+  const bool restage = pchunk < ppad;
+  for (int i0 = blockIdx.x * ST_THREADS; i0 < qpad;
+       i0 += gridDim.x * ST_THREADS) {
+    const int i = i0 + threadIdx.x;
+    const bool row = i < qpad;
+    const float br = row ? fb[i] : 0.0f;
+    const float bc = row ? fb[qpad + i] : 0.0f;
+    const float by = row ? fb[2 * qpad + i] : 0.0f;
+    float acc[R], comp[R];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) fa_s[d * pchunk + e] = fa[d * ppad + j0 + e];
+    for (int k = 0; k < R; ++k) acc[k] = comp[k] = 0.0f;
+    for (int j0 = 0; j0 < ppad; j0 += pchunk) {
+      const int nj = min(pchunk, ppad - j0);
+      if (restage || i0 == blockIdx.x * ST_THREADS) {  // block-uniform
+        __syncthreads();  // the previous chunk's readers are done
+        for (int e = threadIdx.x; e < nj; e += ST_THREADS) {
 #pragma unroll
-      for (int k = 0; k < R; ++k) b_s[k * pchunk + e] = b[k * ppad + j0 + e];
+          for (int d = 0; d < 3; ++d) fa_s[d * pchunk + e] = fa[d * ppad + j0 + e];
+#pragma unroll
+          for (int k = 0; k < R; ++k) b_s[k * pchunk + e] = b[k * ppad + j0 + e];
+        }
+        __syncthreads();
+      }
+      if (!row) continue;
+      for (int g = 0; g < nj; g += ST_ROW_GRAIN) {
+        const int gend = min(g + ST_ROW_GRAIN, nj);
+        float part[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) part[k] = 0.0f;
+        for (int j = g; j < gend; ++j) {
+          const float a = nle::affinity(br, bc, by, fa_s[j], fa_s[pchunk + j],
+                                        fa_s[2 * pchunk + j], sw, pw);
+#pragma unroll
+          for (int k = 0; k < R; ++k) part[k] = fmaf(a, b_s[k * pchunk + j], part[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) nle::kahan_add(acc[k], comp[k], part[k]);
+      }
     }
-    __syncthreads();
-    const bool last = j0 + nj >= ppad;
-    for (int i = blockIdx.x * ST_THREADS + threadIdx.x; i < qpad;
-         i += gridDim.x * ST_THREADS) {
-      const float br = fb[i], bc = fb[qpad + i], by = fb[2 * qpad + i];
-      float acc[R];
+    if (!row) continue;
+    if (kRecip) {
+      // Pad rows have real affinities: the mask kills them here.
+      const float w = __fsub_rn(acc[0], comp[0]);
+      out[i] = (fabsf(w) >= eps ? 1.0f / w : 0.0f) * mask[i];
+    } else {
 #pragma unroll
       for (int k = 0; k < R; ++k) {
-        acc[k] = j0 == 0 ? 0.0f : out[static_cast<size_t>(k) * qpad + i];
-      }
-      for (int j = 0; j < nj; ++j) {
-        const float a = nle::affinity(br, bc, by, fa_s[j], fa_s[pchunk + j],
-                                      fa_s[2 * pchunk + j], sw, pw);
-#pragma unroll
-        for (int k = 0; k < R; ++k) acc[k] = fmaf(a, b_s[k * pchunk + j], acc[k]);
-      }
-      if (kRecip && last) {
-        // Pad rows have real affinities: the mask kills them here.
-        out[i] = (fabsf(acc[0]) >= eps ? 1.0f / acc[0] : 0.0f) * mask[i];
-      } else {
-#pragma unroll
-        for (int k = 0; k < R; ++k) out[static_cast<size_t>(k) * qpad + i] = acc[k];
+        out[static_cast<size_t>(k) * qpad + i] = __fsub_rn(acc[k], comp[k]);
       }
     }
   }

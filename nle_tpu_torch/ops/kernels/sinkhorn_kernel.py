@@ -38,8 +38,9 @@ from nle_tpu_torch.ops.kernels import _build
 from nle_tpu_torch.ops.kernels._common import cuda_or_cpu, round_up
 from nle_tpu_torch.ops.linalg import safe_reciprocal
 
-# Widest factor K3/K4 take (csrc/sinkhorn.cu SK_MAX_MPAD): a one-row f32
-# tile plus the t and s rows still fit the kernel's shared memory.
+# Widest factor K3/K4 take, the port's one width limit of the dense route
+# (the wrapper refuses wider, resolve_streaming streams past it): a one-row
+# f32 tile plus the t and s rows still fit the kernel's shared memory.
 MAX_MPAD = 16384
 
 # Row alignment of every N-scale buffer of stage 2: a multiple of every

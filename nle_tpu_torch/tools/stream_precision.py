@@ -1,0 +1,377 @@
+"""Where the streaming route's fp32 error comes from on a dense sampling
+grid, on one NVIDIA GPU.
+
+    python -m nle_tpu_torch.tools.stream_precision [--base-csrc DIR]
+
+The frame is chip_smoke.py's [9c] frame (structured 2000x2000, seed 9)
+with 48 44 500 10 50 50: p = 2112 samples, and a rank cut at eigenvalues
+of 1e-10 (m = 1768), so the streaming route's u = Uinv t carries 1/lambda
+up to 1e10. The streaming Sinkhorn loop of train_filter(streaming=True)
+runs once per variant of its half-step, and each run's balancing vector c
+is held against the same loop in float64 on the plain PyTorch twins
+(c64); the dense f32 route's c (K1, then K4) is held too. Printed per
+variant: the median, 99th percentile and max over the rest pixels of
+|c - c64| / c64, and seconds. Variants:
+
+- kernel: K9 (pass 1 K11's chain + reciprocal, pass 2 K10), K10 for s0;
+- plain f32: the plain twins (cuBLAS sums);
+- kernel w + plain ap / plain w + kernel ap: one pass each (which pass
+  carries the kernel's extra error);
+
+each kernel variant once per kernel library: the package's own csrc and,
+with --base-csrc, another checkout's (an A/B of two kernel versions in
+one call). Then, for each library in turn, twice (A, B, A, B), CUDA-event
+times of K9, K10 and K11 (R = 1) on this frame's operands (p = 2112) and
+at the 1 MP main path's sizes (1,011,200 rest pixels against 640
+samples), and of K3/K4 at the 1 MP main path's shape (1,011,712 x 640).
+Prints one JSON line last. Imports no JAX."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PKG = os.path.dirname(HERE)
+ROOT = os.path.dirname(PKG)
+ARGS = (48, 44, 500.0, 10.0, 50, 50)
+EPS = 1e-10
+
+
+def build(csrc: str, out: str):
+    """The kernel library built from csrc into out (ctypes handle)."""
+    from nle_tpu_torch.ops.kernels import _build
+
+    saved = (_build.CSRC_DIR, _build.BUILD_DIR, _build._lib)
+    _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = csrc, out, None
+    try:
+        return _build.load()
+    finally:
+        _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = saved
+
+
+def use(lib) -> None:
+    from nle_tpu_torch.ops.kernels import _build
+
+    _build._lib = lib
+
+
+def frame_operands(torch, dev):
+    """f32 operands as train_filter builds them, and their float64 twins
+    (stage 1 straight from the host eigensystem)."""
+    from types import SimpleNamespace
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import structured_frame
+
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.affinity import bandwidth_weights, features
+    from nle_tpu_torch.ops.kernels.streaming_kernel import pad_stream_operands
+    from nle_tpu_torch.ops.pipeline import (
+        _unpack_stage1,
+        bucket_m,
+        ka_eigh_host64,
+        pack_stage1,
+    )
+    from nle_tpu_torch.ops.sampling import sample_grid
+
+    img = structured_frame(2000, 2000, seed=9)
+    L = bgr_to_lab_u8_np(img)[..., 0].astype(np.float32)
+    h, w = L.shape
+    rows_s, cols_s, hx, hy = ARGS[:4]
+    grid = sample_grid(h, w, rows_s, cols_s)
+    p, n = grid.n_samples, grid.n_pixels
+    Um64, lam64, _ = ka_eigh_host64(
+        L[grid.sel_rows, grid.sel_cols].astype(np.float64), grid.sel_rows,
+        grid.sel_cols, hx, hy, EPS)
+    m = lam64.shape[0]
+    mb = bucket_m(m, p)
+    Um, lam, Uinv = _unpack_stage1(
+        torch.from_numpy(pack_stage1(Um64, lam64, mb=mb)).to(dev), p)
+    perm = torch.from_numpy(grid.perm).to(dev)
+    y = torch.from_numpy(L.reshape(-1)[grid.perm]).to(dev)
+    f = features((perm // w).float(), (perm % w).float(), y)
+    sw, pw = bandwidth_weights(hx, hy)
+    fa_rows, fb_cols, mask = pad_stream_operands(f[:p], f[p:])
+    f64 = torch.float64
+    Um64_t = torch.from_numpy(np.ascontiguousarray(Um64)).to(dev)
+    lam64_t = torch.from_numpy(np.ascontiguousarray(lam64)).to(dev)
+    return SimpleNamespace(
+        L=L, w=w, grid=grid, p=p, n=n, q=n - p, m=m, mb=mb, sw=sw, pw=pw, y=y,
+        perm=perm, Um=Um, lam=lam, Uinv=Uinv, fa_rows=fa_rows,
+        fb_cols=fb_cols, mask=mask,
+        Um64=Um64_t, lam64=lam64_t, Uinv64=Um64_t / lam64_t[None],
+        fa64=fa_rows.to(f64), fb64=fb_cols.to(f64), mask64=mask.to(f64))
+
+
+def sinkhorn_loop(torch, halfstep, s0_ap, Um, lam, Uinv, q, ppad, iters,
+                  eps=EPS):
+    """streaming_sinkhorn_vectors' loop with a given half-step
+    (u_pad -> (x_rest, ap)) and s0 pass (-> ap); returns (r_top (p,),
+    c (N,)) in packed order."""
+    from nle_tpu_torch.ops.linalg import safe_reciprocal
+
+    p = Um.shape[0]
+
+    def half(t):
+        u = torch.nn.functional.pad(Uinv @ t, (0, ppad - p)).contiguous()
+        x_top = safe_reciprocal(Um @ t, eps)
+        x_rest, ap = halfstep(u)
+        return x_top, x_rest, Um.T @ x_top + Uinv.T @ ap[:p]
+
+    s = Um.sum(dim=0) + Uinv.T @ s0_ap()[:p]
+    for _ in range(iters):
+        c_top, c_rest, s = half(lam * s)
+        r_top, _, s = half(lam * s)
+    return r_top, torch.cat([c_top, c_rest[:q]])
+
+
+def streaming_edit_f64(torch, L: np.ndarray, grid, args, weights, device,
+                       eps: float = EPS):
+    """The float64 plain twin of train_filter(streaming=True)'s first
+    edit: the same streaming Sinkhorn loop, Sb gram, host chain and
+    V = [V_head; c K W] on the plain PyTorch twins, every step in float64
+    (stage 1 straight from the host eigensystem, no f32 packing): what the
+    streaming route computes with its fp32 rounding taken away. L (H, W)
+    float channel, args (rows, cols, hx, hy, iters, k). Returns (the packed
+    u8 edit, c (N,) float64)."""
+    from nle_tpu_torch.ops.affinity import bandwidth_weights
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        pad_stream_operands,
+        streaming_ap_plain,
+        streaming_atb_plain,
+        streaming_halfstep_ptiled_plain,
+        streaming_scaled_gram_plain,
+    )
+    from nle_tpu_torch.ops.pipeline import (
+        _apply_u8_body,
+        _masked_top,
+        host_orthogonalize,
+        ka_eigh_host64,
+    )
+    from nle_tpu_torch.ops.transform import transform_eigenvalues
+
+    f64 = torch.float64
+    _, _, hx, hy, iters, k = args
+    p, n, w = grid.n_samples, grid.n_pixels, L.shape[1]
+    q = n - p
+    Um64, lam64, _ = ka_eigh_host64(
+        L[grid.sel_rows, grid.sel_cols].astype(np.float64), grid.sel_rows,
+        grid.sel_cols, hx, hy, eps)
+    m = lam64.shape[0]
+    k = min(k, m)
+    Um = torch.from_numpy(np.ascontiguousarray(Um64)).to(device)
+    lam = torch.from_numpy(np.ascontiguousarray(lam64)).to(device)
+    Uinv = Um / lam[None]
+    perm = torch.from_numpy(grid.perm).to(device)
+    y = torch.from_numpy(np.asarray(L, np.float64).reshape(-1)[grid.perm]).to(
+        device)
+    f = torch.stack([(perm // w).to(f64), (perm % w).to(f64), y], dim=-1)
+    sw, pw = bandwidth_weights(hx, hy)
+    fa_rows, fb_cols, mask = pad_stream_operands(f[:p], f[p:])
+    mask = mask.to(f64)
+    ppad = fa_rows.shape[1]
+    r_top, c = sinkhorn_loop(
+        torch, lambda u: streaming_halfstep_ptiled_plain(
+            fa_rows, fb_cols, mask, u, sw, pw, eps),
+        lambda: streaming_ap_plain(fa_rows, fb_cols, mask, sw, pw)[0],
+        Um, lam, Uinv, q, ppad, iters, eps)
+    cu = _masked_top(c, Um, p, m)
+    uinv_pad = torch.nn.functional.pad(Uinv, (0, 0, 0, ppad - p))
+    c_row = torch.nn.functional.pad(c[p:], (0, fb_cols.shape[1] - q))[None]
+    Sb = cu.T @ cu + streaming_scaled_gram_plain(fa_rows, fb_cols, c_row,
+                                                 uinv_pad, sw, pw)
+    rc = torch.stack([r_top[:m], c[:m]]).cpu().numpy()
+    va, Sq = host_orthogonalize(rc, Sb.cpu().numpy(), Um64, lam64, m, m, k,
+                                eps)
+    kk = va.shape[1] // 2
+    va = torch.from_numpy(va).to(device)
+    V_head = cu @ va[:, kk:]
+    V_head[:m] += va[:, :kk]
+    W = torch.nn.functional.pad(Uinv @ va[:, kk:], (0, 0, 0, ppad - p))
+    tail = streaming_atb_plain(fa_rows, fb_cols, W.T.contiguous(), sw,
+                               pw)[:, :q].T
+    V = torch.cat([V_head, c[p:, None] * tail])
+    fs = transform_eigenvalues(torch.from_numpy(Sq).to(device), weights)
+    return _apply_u8_body(V, fs, y), c
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--base-csrc", default=None,
+                        help="csrc of another checkout to A/B against")
+    opts = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stream_precision: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    import nle_tpu_torch  # noqa: F401  (pins fp32 precision)
+    from nle_tpu_torch.ops.kernels import _build
+    from nle_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from nle_tpu_torch.ops.kernels import streaming_kernel as stk
+    from nle_tpu_torch.ops.linalg import safe_reciprocal
+    from nle_tpu_torch.ops.pipeline import train_filter_stage2a
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card)
+    out_dir = os.path.join(PKG, "_build", "stream_precision")
+    os.makedirs(out_dir, exist_ok=True)
+    libs = {"this": build(os.path.join(PKG, "csrc"),
+                          os.path.join(out_dir, "this"))}
+    if opts.base_csrc:
+        libs["base"] = build(opts.base_csrc, os.path.join(out_dir, "base"))
+    use(libs["this"])
+
+    op = frame_operands(torch, dev)
+    p, q, iters = op.p, op.q, ARGS[4]
+    ppad = op.fa_rows.shape[1]
+    sw, pw = op.sw, op.pw
+    print(f"p={p} m={op.m} mb={op.mb} q={q} Ppad={ppad}; lam min "
+          f"{float(op.lam64.min()):.3e}")
+    result = {"card": card, "p": p, "m": op.m, "q": q, "ppad": ppad}
+
+    # Dense f32 route (K1 then K4): its c over the rest rows.
+    rr = (op.perm // op.w).float()
+    cc = (op.perm % op.w).float()
+    stage1 = torch.cat([op.Um, op.lam[None]])
+    t0 = time.perf_counter()
+    _, _, phi, c_rest = train_filter_stage2a(
+        op.y, rr, cc, stage1, sw, pw, p=p, m=op.m, mb=op.mb,
+        n_sinkhorn_iter=iters, eps=EPS, split=False, int16=False)
+    c_dense = c_rest[p:op.n, 0].clone()
+    del phi, c_rest
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"dense f32 route: {time.perf_counter() - t0:.1f} s")
+
+    fa, fb, mask = op.fa_rows, op.fb_cols, op.mask
+    fa64, fb64, mask64 = op.fa64, op.fb64, op.mask64
+
+    def run(halfstep, s0_ap, dtype=torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if dtype == torch.float64:
+            _, c = sinkhorn_loop(torch, halfstep, s0_ap, op.Um64, op.lam64,
+                                 op.Uinv64, q, ppad, iters)
+        else:
+            _, c = sinkhorn_loop(torch, halfstep, s0_ap, op.Um, op.lam,
+                                 op.Uinv, q, ppad, iters)
+        torch.cuda.synchronize()
+        return c[p:], time.perf_counter() - t0
+
+    c64, secs = run(lambda u: stk.streaming_halfstep_ptiled_plain(
+        fa64, fb64, mask64, u, sw, pw, EPS),
+        lambda: stk.streaming_ap_plain(fa64, fb64, mask64, sw, pw)[0],
+        torch.float64)
+    print(f"float64 plain twin: {secs:.1f} s")
+
+    def stats(label, c, secs):
+        rel = ((c.double() - c64) / c64).abs()
+        qs = torch.quantile(rel.float(), torch.tensor(
+            [0.5, 0.99], device=rel.device)).tolist()
+        row = {"median": qs[0], "p99": qs[1], "max": float(rel.max()),
+               "seconds": secs}
+        result[label] = row
+        print(f"{label:34s} vs float64: median {qs[0]:.3e} p99 {qs[1]:.3e} "
+              f"max {row['max']:.3e} ({secs:.1f} s)", flush=True)
+
+    stats("dense f32 (K1, K4)", c_dense, float("nan"))
+    del c_dense
+
+    def plain_w(u):
+        return safe_reciprocal(stk.streaming_atb_plain(fa, fb, u, sw, pw)[0],
+                               EPS) * mask[0]
+
+    def kernel_w(u):
+        return safe_reciprocal(stk.streaming_atb(fa, fb, u, sw, pw)[0],
+                               EPS) * mask[0]
+
+    def plain_ap(x):
+        return stk.streaming_ap_plain(fa, fb, x[None], sw, pw)[0]
+
+    def kernel_ap(x):
+        return stk.streaming_ap(fa, fb, x[None].contiguous(), sw, pw)[0]
+
+    plain_s0 = lambda: stk.streaming_ap_plain(fa, fb, mask, sw, pw)[0]  # noqa: E731
+    kernel_s0 = lambda: stk.streaming_ap(fa, fb, mask, sw, pw)[0]  # noqa: E731
+    stats("plain f32", *run(lambda u: stk.streaming_halfstep_ptiled_plain(
+        fa, fb, mask, u, sw, pw, EPS), plain_s0))
+    for name, lib in libs.items():
+        use(lib)
+        stats(f"kernel [{name}]", *run(lambda u: stk.streaming_halfstep(
+            fa, fb, mask, u, sw, pw, EPS), kernel_s0))
+        stats(f"kernel w + plain ap [{name}]", *run(
+            lambda u: (lambda x: (x, plain_ap(x)))(kernel_w(u)),
+            plain_s0))
+        stats(f"plain w + kernel ap [{name}]", *run(
+            lambda u: (lambda x: (x, kernel_ap(x)))(plain_w(u)),
+            kernel_s0))
+    del fa64, fb64, mask64, c64
+    op.fa64 = op.fb64 = op.mask64 = None
+    torch.cuda.empty_cache()
+
+    def ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    # Times on this frame's operands (p = 2112) and at the 1 MP main path's
+    # sizes: its first 1,011,200 rest pixels against 640 of its samples
+    # (the entry count, not the data, sets these kernels' time).
+    x1 = torch.rand((1, fb.shape[1]), device=dev) * mask
+    b1 = torch.zeros((1, ppad), device=dev)
+    b1[0, :p] = torch.rand(p, device=dev) * 1e-3
+    qs1, p1 = 1011200, 640
+    fa1 = fa[:, :p1].contiguous()
+    fb1 = fb[:, :qs1].contiguous()
+    x1s = x1[:, :qs1].contiguous()
+    b1s = b1[:, :p1].contiguous()
+    npad, mpad = 1011712, 640
+    Q16 = torch.randint(-32767, 32768, (npad, mpad), device=dev,
+                        dtype=torch.int16)
+    Q32 = torch.rand((npad, mpad), device=dev)
+    t = torch.rand(mpad, device=dev) * 1e-6
+    times = {}
+    for rep in range(2):   # A, B, A, B
+        for name, lib in libs.items():
+            use(lib)
+            row = times.setdefault(name, {})
+            for key, fn in (
+                    ("K10 R=1 p=2112", lambda: stk.streaming_ap(fa, fb, x1, sw, pw)),
+                    ("K11 R=1 p=2112", lambda: stk.streaming_atb(fa, fb, b1, sw, pw)),
+                    ("K9 p=2112", lambda: stk.streaming_halfstep(
+                        fa, fb, mask, b1[0].contiguous(), sw, pw, EPS)),
+                    ("K10 R=1 1MP", lambda: stk.streaming_ap(fa1, fb1, x1s, sw, pw)),
+                    ("K11 R=1 1MP", lambda: stk.streaming_atb(fa1, fb1, b1s, sw, pw)),
+                    ("K3 1MP", lambda: sk.sinkhorn_halfstep(Q16, t, EPS)),
+                    ("K4 1MP", lambda: sk.sinkhorn_halfstep(Q32, t, EPS))):
+                row.setdefault(key, []).append(ms(fn))
+    use(libs["this"])
+    for name, row in times.items():
+        for key, vals in row.items():
+            print(f"[{name}] {key}: " + ", ".join(f"{v:.3f}" for v in vals)
+                  + " ms")
+    result["ms"] = times
+    _build.reset_launches()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

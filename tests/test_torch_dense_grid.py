@@ -308,6 +308,66 @@ def test_streaming_train_matches_jax_on_a_dense_grid(dense_grid):
     assert np.abs(got - want).max() < 0.01
 
 
+def _psnr(a, b):
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _edits(L, grid, eps, routes):
+    """The first edit (u8, packed order) of the streaming route's float64
+    plain twin and of the port's f32 trains along routes ((label,
+    streaming), ...)."""
+    from nle_tpu_torch.tools.stream_precision import streaming_edit_f64
+
+    args = (48, 44, KW["hx"], KW["hy"], KW["n_sinkhorn_iter"],
+            KW["n_eig_vectors"])
+    out = {"float64 twin": streaming_edit_f64(
+        torch, L, grid, args, WEIGHTS, torch.device("cpu"), eps=eps)[0]}
+    for label, mode in routes:
+        out[label] = train_filter(L, *args, device="cpu", eps=eps,
+                                  edit_weights=WEIGHTS, streaming=mode)[2]
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def test_float64_streaming_twin_is_the_f32_route_when_well_conditioned(
+        dense_grid):
+    """The float64 twin of the streaming route (chip_smoke [9c]'s
+    reference) computes what train_filter(streaming=True) computes: at
+    eps = 1e-3 (kept spectrum conditioned at 1e3) the u8 edits agree to
+    >= 60 dB (measured: bitwise)."""
+    L, grid = dense_grid
+    e = _edits(L, grid, 1e-3, (("streaming", True),))
+    assert _psnr(e["float64 twin"], e["streaming"]) >= 60.0
+
+
+def test_eps_1e10_exact_streaming_algebra_sides_with_the_dense_route(
+        dense_grid):
+    """The same grid at eps = 1e-10 keeps eigenvalues down to 1e-10
+    (m = 381 of 2112). The streaming route's float64 twin, its algebra with
+    the fp32 rounding taken away, lands on the dense route: >= 50 dB from
+    nle_tpu's dense edit and from the port's (measured 54.2 and 55.9 dB).
+    The fp32 streaming routes sit further off, nle_tpu's own included
+    (measured 50.9 dB for nle_tpu's, 42.9 dB for the port's plain
+    version): at this eps the streaming route's association amplifies its
+    rounding by 1/lambda, and the gap to the dense route is that rounding,
+    which chip_smoke [9c] bounds on the card against the same twin."""
+    L, grid = dense_grid
+    e = _edits(L, grid, 1e-10, (("streaming", True), ("dense", False)))
+    kw = dict(KW, eps=1e-10)
+    y = L.reshape(-1)[grid.perm]
+    for label, mode in (("nle_tpu streaming", True), ("nle_tpu dense", False)):
+        V, S = jtrain_filter(L, 48, 44, streaming=mode, pixel_order=False,
+                             **kw)
+        f = japply_filter(V, jtransform(S, jnp.asarray(WEIGHTS)),
+                          jnp.asarray(y))
+        e[label] = np.clip(np.rint(np.asarray(f)), 0, 255)
+    twin = e["float64 twin"]
+    assert _psnr(twin, e["nle_tpu dense"]) >= 50.0
+    assert _psnr(twin, e["dense"]) >= 50.0
+    assert _psnr(twin, e["nle_tpu streaming"]) >= 40.0
+    assert _psnr(twin, e["streaming"]) >= 40.0
+
+
 @pytest.fixture(scope="module")
 def factored_pair(dense_grid, tmp_path_factory):
     """The same channel trained into a factored filter by both packages,
