@@ -70,7 +70,25 @@
    route past 2048 factor columns on a real train: the same frame with
    48 44 500 5 50 50 (m = 2078, mb 2112, mpad 2176) through the auto rule
    on the int16 route (K3) and the f32 route (K4), >= 45 dB apart, then K1
-   at p = 2112 and K3/K4 at mpad 2176 held on 2^20 of its rest pixels.
+   at p = 2112 and K3/K4 (and K13/K14 for [10a]) at mpad 2176 held on 2^20
+   of its rest pixels;
+10. the Sinkhorn modes: (a) K13 (NLE_SINKHORN_KERNEL=auto), K14 (the bf16
+   preview branch) and K15's three probe variants held against their plain
+   versions and timed at the 1 MP assembled shape (npad 1,011,712, mpad
+   640), K13 and K14 also at mpad 2176 ([9d]); (b) the 1 MP main frame
+   through NLEFilter(device="cuda").train_and_enhance under each mode, cold
+   then warm (bitwise equal), with the counts and the stage-2a layouts that
+   prove the route: =auto K13 x 100 and no K3/K4; NLE_SINKHORN_BF16=auto
+   K14 x 96 and K4 x 4; NLE_STAGE2_SPLIT=off K3 x 100 on the assembled
+   layout; NLE_SINKHORN_INT16=off K4 x 100; NLE_SINKHORN_INT16=on K3 x 100,
+   and on the noise frame that trips the guard no re-dispatch. Gates: K13
+   vs K4 route and assembled int16 vs the split route >= 45 dB, card vs CPU
+   >= 45 dB per mode on a small frame, peak <= DENSE_PEAK_PER_PHI_BYTE x
+   phi; the bf16 route's PSNR against the K4 route is printed, ungated
+   (not golden-safe); (c) K15's table through the port's probe tool
+   (nle_tpu_torch/tools/bench_sk_dmaonly.py): dmaonly / wonly / wpart and
+   the half-step kernels' ms and GB/s at the same shape.
+
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -132,21 +150,23 @@ ENTRY_FLOPS = 10
 
 
 @contextlib.contextmanager
-def int16_carrier(env):
-    """NLE_SINKHORN_INT16 set to env for the block (None: unset; "off":
-    the dense route's assembled f32 layout on K4)."""
-    saved = os.environ.get("NLE_SINKHORN_INT16")
-    if env is None:
-        os.environ.pop("NLE_SINKHORN_INT16", None)
-    else:
-        os.environ["NLE_SINKHORN_INT16"] = env
+def knobs(**env):
+    """The named environment variables set for the block (None: unset),
+    restored after it."""
+    saved = {name: os.environ.get(name) for name in env}
+    for name, value in env.items():
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
     try:
         yield
     finally:
-        if saved is None:
-            os.environ.pop("NLE_SINKHORN_INT16", None)
-        else:
-            os.environ["NLE_SINKHORN_INT16"] = saved
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 def structured_frame(h: int, w: int, seed: int = 0) -> np.ndarray:
@@ -216,6 +236,27 @@ def check_parts(name: str, parts) -> tuple[float, float]:
     if not ratio <= 1.0:
         raise AssertionError(f"{name}: error exceeds its bound ({ratio})")
     return worst, ratio
+
+
+def hold_halfstep(torch, label: str, Q, t, eps: float, kernel=None,
+                  plain=None):
+    """A half-step kernel (K3/K4/K14 by Q's dtype unless `kernel` is given)
+    against its plain version on (Q, t). Returns (the kernel's x,
+    (max_abs_err, max err/bound))."""
+    from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
+        sinkhorn_halfstep,
+        sinkhorn_halfstep_plain,
+    )
+
+    xk, sk = (kernel or sinkhorn_halfstep)(Q, t, eps)
+    xp, sp = (plain or sinkhorn_halfstep_plain)(Q, t, eps)
+    Qa = Q.float().abs()
+    # x = 1/w: |dx| ~ |dw| x^2 with |dw| <= (2 mpad + 4) u (|Q| |t|) for the
+    # factor's own width; x2 for the two sides.
+    bx = 2 * (2 * Q.shape[1] + 4) * U * (Qa @ t.abs()) * xp * xp + 1e-30
+    ex = check(f"{label} x", xk - xp, bx)
+    es = check(f"{label} s", sk - sp, S_SUM_TOL * (Qa.T @ xp.abs()) + 1e-30)
+    return xk, (max(ex[0], es[0]), max(ex[1], es[1]))
 
 
 def path_operands(torch, L: np.ndarray, args, dev):
@@ -401,7 +442,10 @@ def profile_call(torch, label: str, fn, mp: float) -> None:
 STREAMING_KERNELS = ("streaming_halfstep", "streaming_halfstep_ptiled",
                      "streaming_ap", "streaming_atb", "streaming_gram")
 DENSE_KERNELS = ("sinkhorn_halfstep_int16", "sinkhorn_halfstep_f32",
+                 "sinkhorn_halfstep_bf16", "sinkhorn_halfstep_tiled",
                  "scaled_gram", "scaled_matmul")
+SINKHORN_KERNELS = ("sinkhorn_halfstep_int16", "sinkhorn_halfstep_f32",
+                    "sinkhorn_halfstep_bf16", "sinkhorn_halfstep_tiled")
 
 
 def recompose(lab, edit_packed, perm):
@@ -640,7 +684,7 @@ def train_routes(torch, _build, tag: str, frame: np.ndarray, args, routes):
             pack_channel(L, grid.perm)[0])).cuda()
         _build.reset_launches()
         t0 = time.perf_counter()
-        with int16_carrier(env):
+        with knobs(NLE_SINKHORN_INT16=env):
             _, _, edit = train_filter(L, *args, device="cuda", grid=grid,
                                       packed_y=packed, edit_weights=WEIGHTS,
                                       streaming=mode)
@@ -701,10 +745,12 @@ class PeakMeter:
 def near_threshold(torch, NLEFilter, _build) -> None:
     """[8d] the streaming auto rule on this card: a frame sized to ~92% of
     the phi limit the rule computes here runs dense through NLEFilter's
-    default streaming=None on both dense routes (the split int16 layout,
-    and the assembled f32 layout of the carrier guard's fallback, forced
-    with NLE_SINKHORN_INT16=off), without running out of memory and within
-    DENSE_PEAK_PER_PHI_BYTE x phi; a frame 15% larger would stream."""
+    default streaming=None on every dense route (the split int16 layout;
+    the assembled f32 layout of the carrier guard's fallback, forced with
+    NLE_SINKHORN_INT16=off; and the assembled int16, bf16-lead and K13
+    routes of the Sinkhorn knobs), without running out of memory and
+    within DENSE_PEAK_PER_PHI_BYTE x phi; a frame 15% larger would
+    stream."""
     from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
     from nle_tpu_torch.ops.pipeline import (
         bucket_m,
@@ -745,29 +791,266 @@ def near_threshold(torch, NLEFilter, _build) -> None:
           f"s); 15% more pixels would stream: {above}")
     if resolve_streaming(None, dev, n, mb) or not above:
         raise AssertionError("the auto rule does not switch near its limit")
-    routes = (("split int16", None, "sinkhorn_halfstep_int16"),
-              ("assembled f32", "off", "sinkhorn_halfstep_f32"))
-    for label, env, kernel in routes:
+    iters = MAIN_ARGS[4]
+    routes = (
+        ("split int16", {}, "sinkhorn_halfstep_int16", 2 * iters),
+        ("assembled f32", dict(NLE_SINKHORN_INT16="off"),
+         "sinkhorn_halfstep_f32", 2 * iters),
+        ("assembled int16", dict(NLE_STAGE2_SPLIT="off"),
+         "sinkhorn_halfstep_int16", 2 * iters),
+        ("bf16 lead", dict(NLE_SINKHORN_BF16="auto"),
+         "sinkhorn_halfstep_bf16", 2 * (iters - 2)),
+        ("K13", dict(NLE_SINKHORN_KERNEL="auto"), "sinkhorn_halfstep_tiled",
+         2 * iters))
+    ratios = {}
+    for label, env, kernel, least in routes:
         peak = PeakMeter(torch)
         _build.reset_launches()
         t0 = time.perf_counter()
-        with int16_carrier(env):
+        with knobs(**env):
             out = NLEFilter(device="cuda").train_and_enhance(
                 frame, *MAIN_ARGS, weights=WEIGHTS)
         torch.cuda.synchronize()
         counts = dict(_build.LAUNCHES)
         print(f"  {label}: dense train_and_enhance "
               f"{time.perf_counter() - t0:.3f} s; launches {counts}")
-        if (counts[kernel] < 2 * MAIN_ARGS[4]
+        if (counts[kernel] < least
                 or any(counts[k] for k in STREAMING_KERNELS)):
             raise AssertionError(f"{label}: the frame under the limit did "
                                  f"not run that dense route: {counts}")
         if out.shape != frame.shape or out.dtype != np.uint8:
             raise AssertionError(f"output {out.shape} {out.dtype}")
-        peak.dense_ratio(f"  {label} near the limit", n, mb)
+        ratios[label] = peak.dense_ratio(f"  {label} near the limit", n, mb)
         del out
     del frame
     torch.cuda.empty_cache()
+    return ratios
+
+
+@contextlib.contextmanager
+def stage2a_layouts(seen: list):
+    """Records, per stage-2a call of train_filter, (True for the split
+    layout, the crush statistic rc[2, 0])."""
+    from nle_tpu_torch.ops import pipeline
+
+    real = pipeline.train_filter_stage2a
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((isinstance(out[2], tuple), float(out[0][2, 0])))
+        return out
+
+    pipeline.train_filter_stage2a = spy
+    try:
+        yield seen
+    finally:
+        pipeline.train_filter_stage2a = real
+
+
+# [10b] the Sinkhorn modes on the 1 MP main frame: (label, knobs, the exact
+# launch counts that prove the route, the stage-2a layouts in call order).
+def mode_routes(iters: int):
+    return (
+        ("auto", dict(NLE_SINKHORN_KERNEL="auto"),
+         {"sinkhorn_halfstep_tiled": 2 * iters}, [False]),
+        ("bf16", dict(NLE_SINKHORN_BF16="auto"),
+         {"sinkhorn_halfstep_bf16": 2 * (iters - 2),
+          "sinkhorn_halfstep_f32": 4}, [False]),
+        ("split off", dict(NLE_STAGE2_SPLIT="off"),
+         {"sinkhorn_halfstep_int16": 2 * iters}, [False]),
+        ("int16 off", dict(NLE_SINKHORN_INT16="off"),
+         {"sinkhorn_halfstep_f32": 2 * iters}, [False]),
+        ("int16 on", dict(NLE_SINKHORN_INT16="on"),
+         {"sinkhorn_halfstep_int16": 2 * iters}, [True]))
+
+
+def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
+                   wide10) -> dict:
+    """[10] K13, K14 and K15 against their plain versions at the 1 MP
+    assembled shape; the main frame through every Sinkhorn mode; K15's
+    table through the probe tool. split_out is the default (split) route's
+    1 MP output; wide10 the mpad 2176 readings [9d] took for K13/K14.
+    Returns {path: launch counts} for the rows' `launches`."""
+    from nle_tpu_torch.ops.kernels.affinity_kernel import (
+        affinity_matmul_kernel,
+    )
+    from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
+        PROBE_TOUCH,
+        PROBE_VARIANTS,
+        colsum64,
+        k13_tile,
+        padded_shape,
+        sinkhorn_halfstep,
+        sinkhorn_halfstep_plain,
+        sinkhorn_halfstep_tiled,
+        sinkhorn_halfstep_tiled_plain,
+        sinkhorn_probe,
+        sinkhorn_probe_plain,
+        split_row_pad,
+    )
+    from nle_tpu_torch.ops.pipeline import DENSE_PEAK_PER_PHI_BYTE
+    from nle_tpu_torch.tools.bench_sk_dmaonly import format_rows, probe_table
+
+    t10 = time.perf_counter()
+    dev = torch.device("cuda")
+    eps = 1e-10
+    iters = MAIN_ARGS[4]
+    op = path_operands(torch, L, MAIN_ARGS, dev)
+    n, p, mb, mpad = op.n, op.p, op.mb, op.mpad
+    nb = n - p
+    npad, _ = padded_shape(n, mb)
+    tile = k13_tile(mpad)
+    # The assembled factor [Um; phi_b] and the first half-step's t.
+    phib = affinity_matmul_kernel(op.fa, op.fb, op.Uinv, op.sw, op.pw,
+                                  out_rows=split_row_pad(nb))
+    phi = torch.zeros((npad, mpad), device=dev)
+    phi[:p, :mb] = op.Um
+    phi[p:n] = phib[:nb]
+    lam_pad = torch.nn.functional.pad(op.lam, (0, mpad - mb))
+    del phib, op
+    t32 = (lam_pad * colsum64(phi, torch.ones(npad, device=dev))).contiguous()
+    print(f"[10a] K13, K14, K15 vs plain at the 1 MP assembled shape: npad "
+          f"{npad}, mpad {mpad}, K13 tile {tile} ({npad // tile} tiles)")
+    f32_bytes = 4 * (npad * mpad + npad + 2 * mpad)
+    bf16_bytes = 2 * npad * mpad + 4 * (npad + 2 * mpad)
+    src, sk_py = "nle_tpu_torch/csrc/sinkhorn.cu", "nle_tpu/ops/pallas/"
+
+    def tiled_plain(Q, t, e):
+        return sinkhorn_halfstep_tiled_plain(Q, t, e, tile)
+
+    _, err = hold_halfstep(torch, "K13 sinkhorn tiled f32", phi, t32, eps,
+                           sinkhorn_halfstep_tiled, tiled_plain)
+    record("sinkhorn_halfstep_tiled", src, sk_py + "sinkhorn_kernel.py:45",
+           err, cuda_ms(torch, lambda: sinkhorn_halfstep_tiled(phi, t32, eps),
+                        reps=10),
+           cuda_ms(torch, lambda: tiled_plain(phi, t32, eps)), f32_bytes,
+           4 * n * mb, launch=("mode_auto_1mp", "sinkhorn_halfstep_tiled"))
+    phi_bf = phi.to(torch.bfloat16)
+    _, err = hold_halfstep(torch, "K14 sinkhorn bf16", phi_bf, t32, eps)
+    record("sinkhorn_halfstep_bf16", src, sk_py + "sinkhorn_kernel.py:121",
+           err, cuda_ms(torch, lambda: sinkhorn_halfstep(phi_bf, t32, eps),
+                        reps=10),
+           cuda_ms(torch, lambda: sinkhorn_halfstep_plain(phi_bf, t32, eps)),
+           bf16_bytes, 4 * n * mb,
+           launch=("mode_bf16_1mp", "sinkhorn_halfstep_bf16"))
+    del phi_bf
+    phia = phi.abs()
+    for variant in PROBE_VARIANTS:
+        name = f"sinkhorn_probe_{variant}"
+        wk, sk = sinkhorn_probe(phi, t32, variant)
+        wp, sp = sinkhorn_probe_plain(phi, t32, variant)
+        parts = []
+        if wk is not None:
+            # w: mpad-term fp32 sums, (2 mpad + 4) u (|phi| |t|) both sides.
+            parts.append((wk - wp, (2 * mpad + 4) * U * (phia @ t32.abs())
+                          + 1e-30))
+        if sk is not None:
+            # s: a sum over rows, S_SUM_TOL of the sum of absolute terms.
+            ab = (phia[::PROBE_TOUCH].sum(dim=0) if variant == "dmaonly"
+                  else phia.T @ wp.abs())
+            parts.append((sk - sp, S_SUM_TOL * ab + 1e-30))
+        err = check_parts(f"K15 {variant}", parts)
+        nbytes = 4 * (npad * mpad + mpad + (npad if wk is not None else 0)
+                      + (mpad if variant == "wpart" else 0))
+        flops = {"dmaonly": npad // PROBE_TOUCH * mpad,
+                 "wonly": 2 * npad * mpad, "wpart": 4 * npad * mpad}[variant]
+        lib = (cuda_ms(torch, lambda: torch.mv(phi, t32), reps=10)
+               if variant == "wonly" else None)
+        record(name, src, "tools/bench_sk_dmaonly.py:68", err,
+               cuda_ms(torch, lambda: sinkhorn_probe(phi, t32, variant),
+                       reps=10),
+               cuda_ms(torch, lambda: sinkhorn_probe_plain(phi, t32,
+                                                           variant)),
+               nbytes, flops, library_ms=lib, launch=("probe_1mp", name))
+    del phi, phia, t32, wk, sk, wp, sp
+    torch.cuda.empty_cache()
+
+    # [10b] the modes on the main frame, then the noise frame under =on.
+    outs, paths, warm_s, ratio = {}, {}, {}, {}
+    for label, env, need, layouts in mode_routes(iters):
+        seen = []
+        peak = PeakMeter(torch)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with knobs(**env), stage2a_layouts(seen):
+            cold = NLEFilter(device="cuda").train_and_enhance(
+                img, *MAIN_ARGS, weights=WEIGHTS)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            counts = dict(_build.LAUNCHES)
+            seen = list(seen)          # the cold run's stage-2a calls
+            ratio[label] = peak.dense_ratio(f"  [10b] {label}", n, mb)
+            t0 = time.perf_counter()
+            warm = NLEFilter(device="cuda").train_and_enhance(
+                img, *MAIN_ARGS, weights=WEIGHTS)
+            torch.cuda.synchronize()
+            warm_s[label] = time.perf_counter() - t0
+        same = bool(np.array_equal(cold, warm))
+        print(f"[10b] {label} ({env}): cold {cold_s:.3f} s, warm "
+              f"{warm_s[label]:.3f} s, two trains bitwise equal: {same}; "
+              f"stage 2a (split, crush) {seen[:1]}; launches {counts}")
+        got = {k: counts[k] for k in SINKHORN_KERNELS if counts[k]}
+        if got != need or [sp for sp, _ in seen] != layouts:
+            raise AssertionError(f"[10b] {label}: not its route: Sinkhorn "
+                                 f"launches {got}, layouts {seen}")
+        if any(counts[k] for k in STREAMING_KERNELS) or not same:
+            raise AssertionError(f"[10b] {label}: streamed, or two trains "
+                                 "differ")
+        if cold.shape != img.shape or cold.dtype != np.uint8:
+            raise AssertionError(f"[10b] {label} output {cold.shape}")
+        outs[label], paths[f"mode_{label.replace(' ', '_')}_1mp"] = cold, counts
+    for a, b, gate in (("auto", "int16 off", True),
+                       ("split off", None, True),
+                       ("bf16", "int16 off", False)):
+        ref = split_out if b is None else outs[b]
+        db = psnr(outs[a], ref)
+        print(f"  {a} vs {b or 'the split route'}: {db:.2f} dB"
+              + ("" if gate else " (bf16 preview mode: no gate)"))
+        if gate and not db >= 45.0:
+            raise AssertionError(f"[10b] {a} vs {b} {db:.2f} dB < 45")
+    del outs
+    seen = []
+    _build.reset_launches()
+    with knobs(NLE_SINKHORN_INT16="on"), stage2a_layouts(seen):
+        noisy = NLEFilter(device="cuda").train_and_enhance(
+            noise_frame(), 10, 10, 5.0, 30.0, GUARD_ITERS, 5, weights=WEIGHTS)
+    torch.cuda.synchronize()
+    counts = paths["mode_int16_on_noise"] = dict(_build.LAUNCHES)
+    print(f"  int16 on, noise frame: stage 2a (split, crush) {seen}; "
+          f"launches {counts}")
+    if (len(seen) != 1 or not seen[0][1] > 0.2
+            or counts["sinkhorn_halfstep_f32"]
+            or counts["sinkhorn_halfstep_int16"] != 2 * GUARD_ITERS
+            or noisy.shape != (120, 120, 3)):
+        raise AssertionError("[10b] NLE_SINKHORN_INT16=on re-dispatched, or "
+                             "the noise frame no longer trips the guard")
+    small = structured_frame(128, 192, seed=5)
+    sargs = (10, 10, 100.0, 30.0, 10, 10)
+    for label, env, _, _ in mode_routes(sargs[4]):
+        with knobs(**env):
+            g = NLEFilter(device="cuda").train_and_enhance(small, *sargs,
+                                                           weights=WEIGHTS)
+            c = NLEFilter(device="cpu").train_and_enhance(small, *sargs,
+                                                          weights=WEIGHTS)
+        db = psnr(g, c)
+        print(f"  {label}, 128x192: cuda vs cpu {db:.2f} dB")
+        if not db >= 45.0:
+            raise AssertionError(f"[10b] {label} cuda vs cpu {db:.2f} dB < 45")
+    print(f"  peak / phi per mode {ratio} (rule {DENSE_PEAK_PER_PHI_BYTE}); "
+          f"warm s {warm_s}")
+
+    # [10c] K15's table through the probe tool.
+    _build.reset_launches()
+    table = probe_table(torch, npad, mpad)
+    torch.cuda.synchronize()
+    paths["probe_1mp"] = dict(_build.LAUNCHES)
+    floor = next(r["ms"] for r in table if r["what"] == "dmaonly")
+    print(f"[10c] the streaming probe at npad {npad}, mpad {mpad} "
+          f"(nle_tpu_torch/tools/bench_sk_dmaonly.py):")
+    for line, r in zip(format_rows(table), table):
+        print(f"  {line}  {r['ms'] / floor:6.2f} x dmaonly")
+    print(f"[10] Sinkhorn modes: {time.perf_counter() - t10:.1f} s")
+    return paths
 
 
 def main() -> int:
@@ -793,12 +1076,18 @@ def main() -> int:
     )
     from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
         carrier_crush_frac,
+        k13_tile,
         padded_shape,
         quantize_int16,
         sinkhorn_halfstep,
         sinkhorn_halfstep_plain,
+        sinkhorn_halfstep_tiled,
+        sinkhorn_halfstep_tiled_plain,
         split_row_pad,
     )
+
+    def tiled_plain(Q, t, e):
+        return sinkhorn_halfstep_tiled_plain(Q, t, e, k13_tile(Q.shape[1]))
     from nle_tpu_torch.ops.kernels.streaming_kernel import (
         streaming_ap,
         streaming_ap_plain,
@@ -923,15 +1212,7 @@ def main() -> int:
     tq = (scale * (lam_pad * s0)).contiguous()
 
     def halfstep_check(label, Q, t):
-        xk, sk = sinkhorn_halfstep(Q, t, eps)
-        xp, sp = sinkhorn_halfstep_plain(Q, t, eps)
-        Qa = Q.float().abs()
-        # x = 1/w: |dx| ~ |dw| x^2 with |dw| <= (2 mpad + 4) u (|Q| |t|)
-        # for the factor's own width; x2 for the two sides.
-        bx = 2 * (2 * Q.shape[1] + 4) * U * (Qa @ t.abs()) * xp * xp + 1e-30
-        ex = check(f"{label} x", xk - xp, bx)
-        es = check(f"{label} s", sk - sp, S_SUM_TOL * (Qa.T @ xp.abs()) + 1e-30)
-        return xk, (max(ex[0], es[0]), max(ex[1], es[1]))
+        return hold_halfstep(torch, label, Q, t, eps)
 
     xk, err = halfstep_check("K3 sinkhorn int16", q16, tq)
     record("sinkhorn_halfstep_int16", "nle_tpu_torch/csrc/sinkhorn.cu",
@@ -1185,7 +1466,7 @@ def main() -> int:
     if out.shape != img.shape or out.dtype != np.uint8:
         raise AssertionError(f"[9b] output {out.shape} {out.dtype}")
     _build.reset_launches()
-    with int16_carrier("off"):
+    with knobs(NLE_SINKHORN_INT16="off"):
         out32 = NLEFilter(device="cuda").train_and_enhance(img, *P1200_ARGS,
                                                            weights=WEIGHTS)
     db = psnr(out, out32)
@@ -1302,27 +1583,45 @@ def main() -> int:
     torch.cuda.empty_cache()
     q16w, scalew, _ = quantize_int16(phiw)
     torch.cuda.empty_cache()
-    for label, Q, tq_w, row_name in (
+    # K13 and K14 here too; their rows come in [10a], which takes these.
+    wide10 = {}
+    for label, Q, tq_w, row_name, kernel, plain in (
             ("K3 int16 at mpad 2176", q16w, (scalew * lamw).contiguous(),
-             "sinkhorn_halfstep_int16"),
+             "sinkhorn_halfstep_int16", sinkhorn_halfstep,
+             sinkhorn_halfstep_plain),
             ("K4 f32 at mpad 2176", phiw, lamw.contiguous(),
-             "sinkhorn_halfstep_f32")):
-        _, errw = halfstep_check(label, Q, tq_w)
-        row = next(r for r in rows if r["name"] == row_name)
+             "sinkhorn_halfstep_f32", sinkhorn_halfstep,
+             sinkhorn_halfstep_plain),
+            ("K13 f32 at mpad 2176", phiw, lamw.contiguous(),
+             "sinkhorn_halfstep_tiled", sinkhorn_halfstep_tiled,
+             tiled_plain),
+            ("K14 bf16 at mpad 2176", phiw.to(torch.bfloat16),
+             lamw.contiguous(), "sinkhorn_halfstep_bf16", sinkhorn_halfstep,
+             sinkhorn_halfstep_plain)):
+        _, errw = hold_halfstep(torch, label, Q, tq_w, eps, kernel, plain)
+        row = next((r for r in rows if r["name"] == row_name), None)
+        if row is None:
+            row = wide10.setdefault(row_name, {})
         nbytes = Q.element_size() * nb2 * WIDE_MPAD + 4 * (nb2 + 2 * WIDE_MPAD)
         bw, byw = bound_ms(nbytes, 4 * nb2 * WIDE_MPAD)
         row.update({
             "max_abs_err_mpad2176": errw[0], "err_over_bound_mpad2176": errw[1],
-            "ms_mpad2176": cuda_ms(torch, lambda: sinkhorn_halfstep(
-                Q, tq_w, eps), reps=10),
-            "plain_ms_mpad2176": cuda_ms(torch, lambda: sinkhorn_halfstep_plain(
-                Q, tq_w, eps)),
+            "ms_mpad2176": cuda_ms(torch, lambda: kernel(Q, tq_w, eps),
+                                   reps=10),
+            "plain_ms_mpad2176": cuda_ms(torch, lambda: plain(Q, tq_w, eps)),
             "bound_ms_mpad2176": bw, "bound_by_mpad2176": byw})
         print(f"  {label}: kernel {row['ms_mpad2176']:.3f} ms, plain "
               f"{row['plain_ms_mpad2176']:.3f} ms, bound {bw:.4f} ms ({byw})")
+        del Q
     del q16w, phiw, lamw
     torch.cuda.empty_cache()
     print(f"[9] dense sampling grids: {time.perf_counter() - t9:.1f} s")
+
+    # -- [10] the Sinkhorn modes ------------------------------------------
+    mode_paths = sinkhorn_modes(torch, NLEFilter, _build, record, img, L,
+                                warm, wide10)
+    for name, extra in wide10.items():
+        next(r for r in rows if r["name"] == name).update(extra)
 
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the
@@ -1332,7 +1631,7 @@ def main() -> int:
              "dense_grid_16mp": grid_counts, "dense_p1200_1mp": p1200_counts,
              "dense_grid_streaming_4mp": gs_counts,
              "dense_grid_dense_4mp": gd_counts,
-             "dense_mpad2176_4mp": wd_counts}
+             "dense_mpad2176_4mp": wd_counts, **mode_paths}
     for row in rows:
         path, key = row.pop("_launch")
         row["launches"] = paths[path][key]

@@ -35,7 +35,9 @@ def pin_fp32_precision() -> None:
     """Every float32 contraction on the card must be full IEEE fp32: TF32
     keeps ~3 decimal digits, and a bf16-class phi product costs ~8 dB of
     golden PSNR (nle_tpu DESIGN.md §2). Sets and asserts both TF32
-    switches and the matmul precision."""
+    switches and the matmul precision. The one sanctioned bf16 arithmetic
+    is the opt-in NLE_SINKHORN_BF16 preview mode (kernel K14, documented
+    as not golden-safe); nothing else reads or computes in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if torch.get_float32_matmul_precision() != "highest":

@@ -5,7 +5,10 @@
 // per-block partial sums.
 //
 // Every contraction here is plain IEEE fp32 FMA on the CUDA cores: no
-// TF32, no bf16, no fast-math intrinsics. Every output element is summed
+// TF32, no fast-math intrinsics, and no bf16 except in the one sanctioned
+// preview kernel, K14 (csrc/sinkhorn.cu, opt-in through NLE_SINKHORN_BF16,
+// documented as not golden-safe), whose bf16 products are exact in fp32
+// and summed in fp32. Every output element is summed
 // by one thread in increasing k, and cross-block sums go through an
 // (nparts, len) scratch reduced in a fixed order, never through float
 // atomics, so a result is a function of its inputs alone (training must be

@@ -33,12 +33,17 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel name -> launch count. K3 and K4 (one CUDA template, two dtypes)
-# are counted apart.
+# Kernel name -> launch count. K3, K4 and K14 (one CUDA template, three
+# dtypes) are counted apart, and so are K15's three probe variants.
 LAUNCHES = {
     "affinity_matmul": 0,          # K1
     "sinkhorn_halfstep_int16": 0,  # K3
     "sinkhorn_halfstep_f32": 0,    # K4
+    "sinkhorn_halfstep_bf16": 0,   # K14
+    "sinkhorn_halfstep_tiled": 0,  # K13
+    "sinkhorn_probe_dmaonly": 0,   # K15
+    "sinkhorn_probe_wonly": 0,     # K15
+    "sinkhorn_probe_wpart": 0,     # K15
     "scaled_gram": 0,              # K6
     "scaled_matmul": 0,            # K7
     "streaming_halfstep": 0,       # K8 (the unit_x s0 pass included)
@@ -145,6 +150,9 @@ def _declare(lib) -> None:
         "nle_affinity_matmul": [p, p, p, p, i, i, i, i, f, f, p],
         "nle_sinkhorn_halfstep_i16": [p, p, p, p, p, i, i, f, p],
         "nle_sinkhorn_halfstep_f32": [p, p, p, p, p, i, i, f, p],
+        "nle_sinkhorn_halfstep_bf16": [p, p, p, p, p, i, i, f, p],
+        "nle_sinkhorn_tiled_f32": [p, p, p, p, p, i, i, i, f, p],
+        "nle_sinkhorn_probe_f32": [p, p, p, p, p, i, i, i, p],
         "nle_sinkhorn_nblocks": [i],
         "nle_scaled_gram": [p, p, p, p, i, i, i, i, p],
         "nle_scaled_matmul": [p, p, p, p, i, i, i, p],

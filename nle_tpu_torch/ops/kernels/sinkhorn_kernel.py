@@ -1,31 +1,51 @@
-"""K3/K4: the fused Sinkhorn half-step (CUDA, csrc/sinkhorn.cu), the int16
-carrier around it, and the two Sinkhorn loops of stage 2a.
+"""The Sinkhorn half-step kernels (CUDA, csrc/sinkhorn.cu), the int16
+carrier around them, the Sinkhorn knobs, and the two Sinkhorn loops of
+stage 2a.
 
-Replaces nle_tpu/ops/pallas/sinkhorn_kernel.py:121 `_kernel_manual` (via
-`sinkhorn_halfstep_manual`, call at :312): K3 is its packed-int16 branch,
-K4 its f32 branch. One read of the factor per half-step computes
+Each half-step reads the factor once and computes
     x = safe_recip(Q t, eps),   s = Q^T x.
-K3 runs 2 x n_iter times per train inside `sinkhorn_vectors_split`; K4 runs
-only when the carrier guard trips, inside `sinkhorn_vectors_fused`.
+- K3 (int16) and K4 (f32) replace nle_tpu/ops/pallas/sinkhorn_kernel.py:121
+  `_kernel_manual` (via `sinkhorn_halfstep_manual`, call :312), its
+  packed-int16 and f32 branches; K14 is its bf16 branch, the
+  NLE_SINKHORN_BF16 preview mode (t and x rounded to bf16 before their
+  products, as the TPU casts them; not golden-safe).
+- K13 replaces `_kernel` (:45, via `sinkhorn_halfstep_pallas`, call :95),
+  the f32 half-step behind NLE_SINKHORN_KERNEL=auto: K4's function in the
+  TPU kernel's decomposition (TILE_N row tiles, s summed in 8 stripes).
+- K15 replaces the probe of tools/bench_sk_dmaonly.py:68: K4's sweep with
+  parts of its work dropped (dmaonly / wonly / wpart), the measured
+  streaming floor the half-steps are judged against
+  (nle_tpu_torch/tools/bench_sk_dmaonly.py).
 
-On the H100 the half-step is memory-bound (1.3 GB int16 / 2.6 GB f32 per
-call at the 1 MP main path, 2.6 GFLOP). The CUDA kernel stages row tiles
-in shared memory, forms w one warp per row, and adds the block's partial
-s while the tile is on chip; partial sums go to a scratch reduced in a
-fixed order (no float atomics, so training is bitwise repeatable). K3
+`sinkhorn_vectors_split` (the default split layout) runs K3 2 x n_iter
+times a train; `sinkhorn_vectors_fused` (the assembled layout) runs the
+bf16 lead on K14, the int16 carrier on K3, or f32 on K4 (K13 under
+NLE_SINKHORN_KERNEL=auto), as the JAX loop resolves its knobs.
+
+On the H100 the half-step is memory-bound (1.3 GB int16 or bf16 / 2.6 GB
+f32 per call at the 1 MP main path, 2.6 GFLOP). The CUDA kernel stages row
+tiles in shared memory, forms w one warp per row, and adds the block's
+partial s while the tile is on chip; partial sums go to a scratch reduced
+in a fixed order (no float atomics, so training is bitwise repeatable). K3
 takes exact fp32 products of the int16 values, where the TPU splits them
 into bf16 pieces and drops the lo*lo term (~2^-17 relative): the port is
 tight against its plain version and differs from the TPU by that class.
 
 TPU-only machinery left behind: the int32 pair-packing of the int16 copy
 (`pack_pairs_int32`, an (8,128)-tiling device) — the port stores a plain
-(npad_b, mpad) int16 tensor in natural row order — and the VMEM-driven
-tile shrinking. Still to port (ROADMAP): the block-pipelined K13
-(`sinkhorn_halfstep_pallas`) and the bf16 preview branch.
+(npad, mpad) int16 tensor in natural row order — the packed chunk sizing
+(`_packed_chunk`) and the doubled bf16 DMA chunk. The TILE_N halving rule
+stays: it is K13's decomposition.
 
-Width: the kernel takes mpad <= MAX_MPAD factor columns (a dense sampling
-grid's nearly full rank reaches mpad 2176 at p = 2112); the plain version
-takes any width.
+The knobs are read at call time (the port has no jit), with the JAX
+package's values and precedence: NLE_SINKHORN_KERNEL (manual|auto),
+NLE_SINKHORN_BF16 (resolve_bf16_iters), NLE_SINKHORN_INT16
+(resolve_int16, int16_forced_on), NLE_INT16_GUARD (resolve_int16_guard)
+and NLE_STAGE2_SPLIT (resolve_split_stage2).
+
+Width: the kernels take mpad <= MAX_MPAD factor columns (a dense sampling
+grid's nearly full rank reaches mpad 2176 at p = 2112); the plain versions
+take any width.
 """
 
 from __future__ import annotations
@@ -47,6 +67,19 @@ MAX_MPAD = 16384
 # kernel's row tile, and the JAX package's padded_shape rule (2 x 1024), so
 # the two packages lay out the same shapes.
 ROW_ALIGN = 2048
+
+
+# K13's row tile (the TPU kernel's TILE_N), halved for wide factors.
+TILE_N = 1024
+
+
+def k13_tile(mpad: int, tile: int = TILE_N) -> int:
+    """K13's row tile for an mpad-wide factor: the JAX loop's rule
+    (sinkhorn_vectors_fused), halved while two f32 tiles exceed 12 MiB,
+    down to 256 rows."""
+    while tile > 256 and 2 * tile * mpad * 4 > 12 * 2**20:
+        tile //= 2
+    return tile
 
 
 def padded_shape(n: int, m: int) -> tuple[int, int]:
@@ -113,88 +146,324 @@ def carrier_crush_frac(phi: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return num / torch.clamp(den, min=1.0)
 
 
+# -- the Sinkhorn knobs (read at call time) ---------------------------------
+
 # Crush-fraction threshold of the carrier guard: the geometric middle of
 # the measured gap (real images <= 0.09, uniform noise at small hx >= 0.32).
 INT16_GUARD = 0.2
 
 
-def resolve_int16_guard() -> float | None:
-    """The guard's threshold: INT16_GUARD, or None under
-    NLE_INT16_GUARD=off. (The JAX package's float override of the
-    threshold is not ported.)"""
-    raw = os.environ.get("NLE_INT16_GUARD")
+def resolve_sinkhorn_kernel() -> str:
+    """NLE_SINKHORN_KERNEL: "manual" (default; K3/K4/K14) or "auto" (K13,
+    f32 only). Any other value raises: a typo must not silently select the
+    manual kernel."""
+    kind = os.environ.get("NLE_SINKHORN_KERNEL", "manual").lower()
+    if kind not in ("manual", "auto"):
+        raise ValueError(
+            f"NLE_SINKHORN_KERNEL={kind!r}: expected manual|auto")
+    return kind
+
+
+def resolve_bf16_iters(max_iter: int, bf16_iters: int | None) -> int:
+    """How many leading iterations run on the bf16 factor copy (K14).
+
+    Off by default: the bf16 trajectory carries ~1e-3 relative error into
+    (r, c) that the f32 polish cannot erase within the fixed iteration
+    budget (nle_tpu measured rock2 62 -> 24 dB golden PSNR); a preview
+    mode only. An explicitly set env var wins over the argument:
+      - unset: the argument (None -> 0), clamped to [0, max_iter];
+      - off/0/false: 0;
+      - all: every iteration, no f32 polish;
+      - an integer: that count, clamped;
+      - auto/on/1/true: the argument if given, else all but the last 2
+        iterations (0 when that leaves fewer than 2).
+    Anything else raises ValueError."""
+    raw = os.environ.get("NLE_SINKHORN_BF16")
+    arg = 0 if bf16_iters is None else max(0, min(max_iter, bf16_iters))
     if raw is None:
-        return INT16_GUARD
-    if raw.lower() == "off":
-        return None
-    raise ValueError(f"NLE_INT16_GUARD={raw!r}: expected off (or unset)")
+        return arg
+    env = raw.lower()
+    if env in ("off", "0", "false"):
+        return 0
+    if env == "all":
+        return max_iter
+    if env not in ("auto", "on", "1", "true"):
+        try:
+            return max(0, min(max_iter, int(env)))
+        except ValueError:
+            raise ValueError(
+                f"NLE_SINKHORN_BF16={env!r}: expected off/auto/all or an "
+                "integer iteration count") from None
+    if bf16_iters is not None:
+        return arg
+    lead = max_iter - 2
+    return lead if lead >= 2 else 0
 
 
-def resolve_int16() -> bool:
-    """Whether stage 2a streams the int16 carrier (split layout): yes
-    unless NLE_SINKHORN_INT16=off. (The JAX package's forced-on mode, a
-    guard that warns and keeps the carrier, is not ported.)"""
+def resolve_int16(n_bf16: int = 0) -> bool:
+    """Whether the f32 iterations stream the per-column-scaled int16 copy
+    (K3): NLE_SINKHORN_INT16 auto (default) or on/1/true, and no bf16 lead
+    scheduled (the bf16 schedule's trailing iterations are an f32 polish);
+    off/0/false never. Anything else raises ValueError."""
     raw = os.environ.get("NLE_SINKHORN_INT16", "auto").lower()
-    if raw not in ("auto", "off"):
-        raise ValueError(f"NLE_SINKHORN_INT16={raw!r}: expected auto or off")
-    return raw == "auto"
+    if raw in ("off", "0", "false"):
+        return False
+    if raw not in ("auto", "on", "1", "true"):
+        raise ValueError(
+            f"NLE_SINKHORN_INT16={raw!r}: expected auto/on/off")
+    return n_bf16 == 0
+
+
+def int16_forced_on() -> bool:
+    """Whether the operator explicitly forced the int16 carrier on
+    (NLE_SINKHORN_INT16=on/1/true, not the default auto): the guard then
+    warns and keeps the carrier."""
+    return os.environ.get(
+        "NLE_SINKHORN_INT16", "auto").lower() in ("on", "1", "true")
+
+
+def resolve_int16_guard() -> float | None:
+    """The guard's crush-fraction threshold, or None when disabled.
+    NLE_INT16_GUARD: off/false/none disables, a float in (0, 1] overrides,
+    unset is INT16_GUARD. Anything else raises ValueError."""
+    raw = os.environ.get("NLE_INT16_GUARD", str(INT16_GUARD)).lower()
+    if raw in ("off", "false", "none"):
+        return None
+    try:
+        val = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"NLE_INT16_GUARD={raw!r}: expected off or a float threshold"
+        ) from None
+    if not 0.0 < val <= 1.0:
+        raise ValueError(
+            f"NLE_INT16_GUARD={val}: threshold must be in (0, 1]")
+    return val
 
 
 def carrier_guard_decision(crush: float, log, context: str,
                            action: str) -> bool:
-    """Over the guard's threshold -> warn + True (the caller retrains
-    through the f32 carrier)."""
+    """The guard policy: over the threshold -> warn + True (the caller
+    retrains through the f32 carrier), unless the operator forced the
+    carrier on (warn + False: the override wins)."""
     threshold = resolve_int16_guard()
     if threshold is None or not crush > threshold:
+        return False
+    if int16_forced_on():
+        log.warning(
+            "int16 Sinkhorn carrier out of its validity domain (%s %.3f "
+            "> %.3f) but NLE_SINKHORN_INT16 is forced on — continuing "
+            "with the quantized trajectory; expect degraded output on "
+            "this input.", context, crush, threshold)
         return False
     log.warning(
         "int16 Sinkhorn carrier out of its validity domain (%s %.3f > "
         "%.3f: this input packs more dynamic range into phi columns than "
         "int16's ~4.5 decades): %s through the f32 carrier. "
-        "NLE_INT16_GUARD=off disables this guard.",
+        "NLE_INT16_GUARD tunes/disables this guard.",
         context, crush, threshold, action)
     return True
 
 
-# -- K3/K4 ------------------------------------------------------------------
+def resolve_split_stage2(max_iter: int) -> bool:
+    """Whether dense stage 2a takes the split layout: exactly when the int16
+    carrier resolves (manual kernel, no bf16 lead, NLE_SINKHORN_INT16 not
+    off), under NLE_STAGE2_SPLIT auto (default). off forces the assembled
+    layout; on raises ValueError when the carrier does not resolve (the
+    split layout cannot run without it). Anything else raises."""
+    raw = os.environ.get("NLE_STAGE2_SPLIT", "auto").lower()
+    if raw in ("off", "0", "false"):
+        return False
+    if raw not in ("auto", "on", "1", "true"):
+        raise ValueError(
+            f"NLE_STAGE2_SPLIT={raw!r}: expected auto/on/off")
+    kernel_kind = os.environ.get("NLE_SINKHORN_KERNEL", "manual").lower()
+    carrier = (kernel_kind == "manual"
+               and resolve_int16(resolve_bf16_iters(max_iter, None)))
+    if raw in ("on", "1", "true") and not carrier:
+        raise ValueError(
+            "NLE_STAGE2_SPLIT=on but the int16 carrier does not resolve "
+            f"(NLE_SINKHORN_KERNEL={kernel_kind!r}, NLE_SINKHORN_INT16/"
+            "bf16-lead state): the split layout cannot run without the "
+            "carrier — fix the conflicting knob or use auto")
+    return carrier
+
+
+def colsum64(phi: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """phi^T x for a float32 phi (rows, cols) and x (rows,), accumulated in
+    float64 by row chunks (no float64 copy of phi) and rounded once to
+    float32: the plain versions' class of the kernels' compensated sums."""
+    acc = torch.zeros((phi.shape[1],), dtype=torch.float64, device=phi.device)
+    for lo, hi in _row_chunks(phi.shape[0]):
+        acc += phi[lo:hi].T.double() @ x[lo:hi].double()
+    return acc.float()
+
+
+# -- K3/K4/K14 ---------------------------------------------------------------
+
+_HALFSTEP = {
+    torch.int16: ("nle_sinkhorn_halfstep_i16", "sinkhorn_halfstep_int16"),
+    torch.float32: ("nle_sinkhorn_halfstep_f32", "sinkhorn_halfstep_f32"),
+    torch.bfloat16: ("nle_sinkhorn_halfstep_bf16", "sinkhorn_halfstep_bf16"),
+}
+
 
 def sinkhorn_halfstep_plain(Q: torch.Tensor, t: torch.Tensor, eps: float):
     """Plain PyTorch half-step: (x, s) = (safe_recip(Q t), Q^T x) with Q
-    cast to float32 (exact for int16)."""
+    cast to float32 (exact for int16 and bf16). For a bf16 Q, t and x are
+    rounded to bf16 before their products, as K14 (and the TPU) take them.
+    s is colsum64: the kernels compensate their long sums over rows, and a
+    plain fp32 matvec over ~10^4 rows on the CPU strayed 1.2e-4 from
+    float64 over ten iterations on the guard's noise frame (nle_tpu 6.6e-7)."""
     Qf = Q.float()
+    bf16 = Q.dtype == torch.bfloat16
+    if bf16:
+        t = t.to(torch.bfloat16).float()
     x = safe_reciprocal(Qf @ t, eps)
-    return x, Qf.T @ x
+    return x, colsum64(Qf, x.to(torch.bfloat16).float() if bf16 else x)
+
+
+def _launch(fn, Q, t, x, partial, s, *args):
+    with torch.cuda.device(Q.device):
+        return fn(Q.data_ptr(), t.data_ptr(), x.data_ptr(), partial.data_ptr(),
+                  s.data_ptr(), *args, _build.stream_ptr(Q))
+
+
+def _check_width(Q: torch.Tensor, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"t dtype {t.dtype}, expected float32")
+    if Q.shape[1] > MAX_MPAD:
+        raise ValueError(f"half-step factor of {Q.shape[1]} columns: the "
+                         f"kernel takes at most MAX_MPAD = {MAX_MPAD}")
 
 
 def sinkhorn_halfstep(Q: torch.Tensor, t: torch.Tensor, eps: float):
-    """One fused half-step. Q (npad, mpad) int16 (K3) or float32 (K4),
-    t (mpad,) float32. Returns (x (npad,), s (mpad,)), float32."""
-    if Q.dtype not in (torch.int16, torch.float32):
-        raise TypeError(f"half-step factor dtype {Q.dtype}: int16 or float32")
+    """One fused half-step. Q (npad, mpad) int16 (K3), float32 (K4) or
+    bfloat16 (K14), t (mpad,) float32. Returns (x (npad,), s (mpad,)),
+    float32."""
+    if Q.dtype not in _HALFSTEP:
+        raise TypeError(f"half-step factor dtype {Q.dtype}: int16, float32 "
+                        "or bfloat16")
     if not cuda_or_cpu(Q, t):
         return sinkhorn_halfstep_plain(Q, t, eps)
-    if t.dtype != torch.float32:
-        raise TypeError(f"t dtype {t.dtype}, expected float32")
+    _check_width(Q, t)
     npad, mpad = Q.shape
-    if mpad > MAX_MPAD:
-        raise ValueError(f"half-step factor of {mpad} columns: the kernel "
-                         f"takes at most MAX_MPAD = {MAX_MPAD}")
     lib = _build.load()
     x = torch.empty((npad,), dtype=torch.float32, device=Q.device)
     s = torch.empty((mpad,), dtype=torch.float32, device=Q.device)
     partial = torch.empty((lib.nle_sinkhorn_nblocks(npad), mpad),
                           dtype=torch.float32, device=Q.device)
-    if Q.dtype == torch.int16:
-        fn, name = lib.nle_sinkhorn_halfstep_i16, "sinkhorn_halfstep_int16"
-    else:
-        fn, name = lib.nle_sinkhorn_halfstep_f32, "sinkhorn_halfstep_f32"
-    with torch.cuda.device(Q.device):
-        status = fn(Q.data_ptr(), t.data_ptr(), x.data_ptr(),
-                    partial.data_ptr(), s.data_ptr(), npad, mpad, float(eps),
-                    _build.stream_ptr(Q))
-    _build.check(status, name)
+    fn, name = _HALFSTEP[Q.dtype]
+    _build.check(_launch(getattr(lib, fn), Q, t, x, partial, s, npad, mpad,
+                         float(eps)), name)
     _build.count_launch(name)
     return x, s
+
+
+# -- K13 ---------------------------------------------------------------------
+
+K13_STRIPES = 8   # the TPU kernel's (8, mpad) s accumulator
+
+
+def _check_tiles(phi: torch.Tensor, tile: int) -> None:
+    npad, mpad = phi.shape
+    if npad % tile or mpad % 128:
+        raise ValueError(
+            f"phi_pad {tuple(phi.shape)} must be (k*{tile}, j*128) — use "
+            "padded_shape()")
+
+
+def sinkhorn_halfstep_tiled_plain(phi: torch.Tensor, t: torch.Tensor,
+                                  eps: float, tile: int):
+    """K13's plain twin: x = safe_recip(phi t); each tile's partial
+    x_tile^T phi_tile, added to stripe i % 8 in increasing tile i, then
+    the 8 stripes summed in order (the TPU kernel's s order)."""
+    _check_tiles(phi, tile)
+    npad, mpad = phi.shape
+    x = safe_reciprocal(phi @ t, eps)
+    ntiles = npad // tile
+    parts = torch.bmm(x.view(ntiles, 1, tile),
+                      phi.view(ntiles, tile, mpad))[:, 0]
+    # Zero tiles pad the count to a stripe multiple: adding 0 is exact.
+    nk = -(-ntiles // K13_STRIPES)
+    parts = torch.nn.functional.pad(parts, (0, 0, 0, nk * K13_STRIPES
+                                            - ntiles))
+    parts = parts.view(nk, K13_STRIPES, mpad)
+    stripes = torch.zeros((K13_STRIPES, mpad), dtype=phi.dtype,
+                          device=phi.device)
+    for k in range(nk):
+        stripes += parts[k]
+    s = torch.zeros((mpad,), dtype=phi.dtype, device=phi.device)
+    for r in range(K13_STRIPES):
+        s += stripes[r]
+    return x, s
+
+
+def sinkhorn_halfstep_tiled(phi: torch.Tensor, t: torch.Tensor, eps: float,
+                            tile: int | None = None):
+    """K13: K4's function in the TPU kernel's decomposition. phi (npad,
+    mpad) float32 with npad a multiple of the row tile (default
+    k13_tile(mpad)) and mpad of 128, t (mpad,) float32. Returns (x (npad,),
+    s (mpad,))."""
+    if phi.dtype != torch.float32:
+        raise TypeError(f"K13 factor dtype {phi.dtype}: float32 only")
+    npad, mpad = phi.shape
+    tile = k13_tile(mpad) if tile is None else tile
+    if not cuda_or_cpu(phi, t):
+        return sinkhorn_halfstep_tiled_plain(phi, t, eps, tile)
+    _check_width(phi, t)
+    _check_tiles(phi, tile)
+    lib = _build.load()
+    x = torch.empty((npad,), dtype=torch.float32, device=phi.device)
+    s = torch.empty((mpad,), dtype=torch.float32, device=phi.device)
+    partial = torch.empty((npad // tile, mpad), dtype=torch.float32,
+                          device=phi.device)
+    _build.check(_launch(lib.nle_sinkhorn_tiled_f32, phi, t, x, partial, s,
+                         npad, mpad, tile, float(eps)),
+                 "sinkhorn_halfstep_tiled")
+    _build.count_launch("sinkhorn_halfstep_tiled")
+    return x, s
+
+
+# -- K15: the streaming probe ----------------------------------------------
+
+PROBE_VARIANTS = {"dmaonly": 1, "wonly": 2, "wpart": 3}
+PROBE_TOUCH = 32   # dmaonly keeps the rows r % 32 == 0 live
+
+
+def sinkhorn_probe_plain(phi: torch.Tensor, t: torch.Tensor, variant: str):
+    """K15's plain twin. Returns (w, s): dmaonly (None, the column sum of
+    the rows r % 32 == 0), wonly (phi t, None), wpart (w = phi t,
+    phi^T w)."""
+    if variant == "dmaonly":
+        return None, phi[::PROBE_TOUCH].sum(dim=0)
+    w = phi @ t
+    return w, (None if variant == "wonly" else phi.T @ w)
+
+
+def sinkhorn_probe(phi: torch.Tensor, t: torch.Tensor, variant: str):
+    """K15: K4's sweep over an f32 phi (npad, mpad) with parts of its work
+    dropped (PROBE_VARIANTS); returns what sinkhorn_probe_plain returns."""
+    if variant not in PROBE_VARIANTS:
+        raise ValueError(f"probe variant {variant!r}: expected one of "
+                         f"{sorted(PROBE_VARIANTS)}")
+    if phi.dtype != torch.float32:
+        raise TypeError(f"probe factor dtype {phi.dtype}: float32 only")
+    if not cuda_or_cpu(phi, t):
+        return sinkhorn_probe_plain(phi, t, variant)
+    _check_width(phi, t)
+    npad, mpad = phi.shape
+    lib = _build.load()
+    x = torch.empty((npad,), dtype=torch.float32, device=phi.device)
+    s = torch.empty((mpad,), dtype=torch.float32, device=phi.device)
+    partial = torch.empty((lib.nle_sinkhorn_nblocks(npad), mpad),
+                          dtype=torch.float32, device=phi.device)
+    name = f"sinkhorn_probe_{variant}"
+    _build.check(_launch(lib.nle_sinkhorn_probe_f32, phi, t, x, partial, s,
+                         npad, mpad, PROBE_VARIANTS[variant]), name)
+    _build.count_launch(name)
+    return (None if variant == "dmaonly" else x,
+            None if variant == "wonly" else s)
 
 
 # -- the Sinkhorn loops of stage 2a ----------------------------------------
@@ -236,18 +505,77 @@ def sinkhorn_vectors_split(Um_pad: torch.Tensor, lam_pad: torch.Tensor,
     return rp, cp, rb, cb, crush
 
 
-def sinkhorn_vectors_fused(phi_pad: torch.Tensor, lam_pad: torch.Tensor,
-                           max_iter: int, eps: float, n: int):
-    """Assembled-factor f32 Sinkhorn through K4 (port of nle_tpu
-    sinkhorn_vectors_fused with int16=False): the guard's fallback and the
-    NLE_SINKHORN_INT16=off trajectory. phi_pad (npad, mpad) f32 with zero
-    pad rows/columns, lam_pad (mpad,) masked. Returns (r (n,), c (n,))."""
-    npad = phi_pad.shape[0]
-    r = torch.ones((npad,), dtype=torch.float32, device=phi_pad.device)
+def sinkhorn_vectors_fused(phi: torch.Tensor, lam: torch.Tensor,
+                           max_iter: int, eps: float, tile: int = TILE_N,
+                           n: int | None = None,
+                           bf16_iters: int | None = None,
+                           with_stat: bool = False,
+                           int16: bool | None = None):
+    """Assembled-factor Sinkhorn (port of nle_tpu sinkhorn_vectors_fused):
+    returns (r, c), each (n,), for phi (rows, cols) — rows and columns
+    beyond the true extent zero; n the true row count — and lam masked.
+    With `with_stat`, also the carrier's crush fraction (-1.0 when no
+    carrier engaged). `int16` overrides the env resolve per call (the
+    guard's f32 re-dispatch passes False).
+
+    The schedule follows the knobs: n_bf16 = resolve_bf16_iters leading
+    iterations on a bf16 copy of phi (K14); the rest on the per-column
+    int16 copy of all rows (K3; lam_q = lam scale^2 and the running s in
+    Q-scale) when the carrier resolves, else on the f32 phi (K4, or K13
+    under NLE_SINKHORN_KERNEL=auto, which forces f32 throughout)."""
+    nrows, mcols = phi.shape
+    n = nrows if n is None else n
+    m = lam.shape[0]
+    mpad = round_up(max(mcols, 1), 128)
+    tile = k13_tile(mpad, tile)
+    npad = round_up(max(nrows, 1), tile)
+    phi_pad = phi.to(torch.float32)
+    if (npad, mpad) != (nrows, mcols):
+        phi_pad = torch.nn.functional.pad(phi_pad, (0, mpad - mcols,
+                                                    0, npad - nrows))
+    lam_pad = torch.nn.functional.pad(lam.to(torch.float32), (0, mpad - m))
+    dev = phi_pad.device
+
+    kernel_kind = resolve_sinkhorn_kernel()
+    if kernel_kind == "auto":
+        def halfstep(p, t):
+            return sinkhorn_halfstep_tiled(p, t, eps, tile)
+    else:
+        def halfstep(p, t):
+            return sinkhorn_halfstep(p, t, eps)
+    n_bf16 = resolve_bf16_iters(max_iter, bf16_iters)
+    if kernel_kind == "auto":
+        n_bf16 = 0  # K13 is f32-only
+    use_int16 = ((resolve_int16(n_bf16) if int16 is None else bool(int16))
+                 and kernel_kind == "manual")
+
+    r = torch.ones((npad,), dtype=torch.float32, device=dev)
     c = torch.zeros_like(r)
-    # s0 = phi^T 1 as the dot (the JAX package's order for this path).
-    s = phi_pad.T @ r
-    for _ in range(max_iter):
-        c, s = sinkhorn_halfstep(phi_pad, lam_pad * s, eps)
-        r, s = sinkhorn_halfstep(phi_pad, lam_pad * s, eps)
+    # s0 = phi^T 1, summed in float64 (colsum64) on every device.
+    s = colsum64(phi_pad, r)
+    if n_bf16 > 0:
+        phi_bf = phi_pad.to(torch.bfloat16)
+        for _ in range(n_bf16):
+            c, s = halfstep(phi_bf, lam_pad * s)
+            r, s = halfstep(phi_bf, lam_pad * s)
+        del phi_bf
+    stat = torch.tensor(-1.0, dtype=torch.float32, device=dev)
+    if use_int16:
+        q16, scale, colmax = quantize_int16(phi_pad)
+        if with_stat:
+            stat = carrier_crush_frac(phi_pad, scale)
+        live = colmax > 0
+        zero = torch.zeros_like(scale)
+        lam_q = lam_pad * torch.where(live, scale, zero) ** 2
+        # The running s in Q-scale (s_q = s / scale): K3 returns Q^T x and
+        # lam_q maps it back inside the next t.
+        s = torch.where(live, s / scale, zero)
+        phi_run, lam_run = q16, lam_q
+    else:
+        phi_run, lam_run = phi_pad, lam_pad
+    for _ in range(n_bf16, max_iter):
+        c, s = halfstep(phi_run, lam_run * s)
+        r, s = halfstep(phi_run, lam_run * s)
+    if with_stat:
+        return r[:n], c[:n], stat
     return r[:n], c[:n]

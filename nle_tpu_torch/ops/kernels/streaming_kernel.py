@@ -84,6 +84,15 @@ def pad_stream_operands(fa: torch.Tensor, fb: torch.Tensor):
 
 
 # -- plain PyTorch twins (row chunks: one (chunk, Ppad) block at a time) ----
+#
+# ap = K^T x sums every pixel row into each sample: thousands of terms, which
+# a plain fp32 matvec on the CPU adds one row after another (a relative error
+# of ~2e-6 at 4,000 rows, 18x the interpreted Pallas kernel's). The ap twins
+# therefore take the fp32 entries and accumulate in float64 within and
+# across chunks, rounding once at the end: the class of the CUDA kernels'
+# compensated sums (nle::kahan_add). w = K u (at most Ppad terms) and the
+# gram (as close to float64 as the interpreted kernel's) stay fp32.
+_ACC = torch.float64
 
 def _affinity_rows(fa_rows, fb_cols, lo: int, hi: int, sw, pw):
     """(hi - lo, Ppad) affinity of pixels lo..hi against every sample, in
@@ -109,13 +118,13 @@ def streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
         x = mask[0]
     else:
         x = fb_cols.new_empty((qpad,))
-    ap = fa_rows.new_zeros((ppad,))
+    ap = fa_rows.new_zeros((ppad,), dtype=_ACC)
     for lo, hi in _chunks(fa_rows, fb_cols):
         A = _affinity_rows(fa_rows, fb_cols, lo, hi, sw, pw)
         if not unit_x:
             x[lo:hi] = safe_reciprocal(A @ u_pad, eps) * mask[0, lo:hi]
-        ap += x[lo:hi] @ A
-    return x, ap
+        ap += x[lo:hi].to(_ACC) @ A.to(_ACC)
+    return x, ap.to(fa_rows.dtype)
 
 
 def streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad, sw, pw,
@@ -128,11 +137,11 @@ def streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad, sw, pw,
 
 
 def streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw):
-    ap = fa_rows.new_zeros((x_rows.shape[0], fa_rows.shape[1]))
+    ap = fa_rows.new_zeros((x_rows.shape[0], fa_rows.shape[1]), dtype=_ACC)
     for lo, hi in _chunks(fa_rows, fb_cols):
-        ap += x_rows[:, lo:hi] @ _affinity_rows(fa_rows, fb_cols, lo, hi,
-                                                sw, pw)
-    return ap
+        ap += x_rows[:, lo:hi].to(_ACC) @ _affinity_rows(
+            fa_rows, fb_cols, lo, hi, sw, pw).to(_ACC)
+    return ap.to(fa_rows.dtype)
 
 
 def streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw):

@@ -12,14 +12,17 @@ in full IEEE fp32 (no TF32 — nle_tpu_torch/config.py).
 
 Stage 2a has two dense layouts, plus the phi-free streaming stage 2 for
 frames whose phi would not fit (train_filter's `streaming`, below):
-- split (default): the affinity kernel K1 writes the zero-tailed rest
-  block phi_b directly, Sinkhorn carries the top block as exact f32
-  matvecs beside the int16 rest stream through K3, and the Sb gram is the
-  top term plus K6 on the rest block. Stage 2b is K7 over the rest block
-  plus a row concat with the host-computed top rows.
-- assembled f32: [Um; phi_b] padded, Sinkhorn through K4, K6 and K7 on the
-  unscaled factor with c masked below m. The carrier guard's fallback and
-  NLE_SINKHORN_INT16=off.
+- split (default, resolve_split_stage2): the affinity kernel K1 writes the
+  zero-tailed rest block phi_b directly, Sinkhorn carries the top block as
+  exact f32 matvecs beside the int16 rest stream through K3, and the Sb
+  gram is the top term plus K6 on the rest block. Stage 2b is K7 over the
+  rest block plus a row concat with the host-computed top rows.
+- assembled: [Um; phi_b] padded, Sinkhorn through sinkhorn_vectors_fused,
+  K6 and K7 on the unscaled factor with c masked below m. Its Sinkhorn
+  follows the knobs as the JAX loop does: the int16 carrier of all rows
+  on K3 (NLE_STAGE2_SPLIT=off), f32 on K4 (the carrier guard's fallback,
+  NLE_SINKHORN_INT16=off), K13 (NLE_SINKHORN_KERNEL=auto), or a bf16 lead
+  on K14 with an f32 polish on K4 (NLE_SINKHORN_BF16).
 The JAX package sends images below NLE_CPHI_BYTES to a third "small"
 layout; its reasons (VMEM, the c*phi HBM buffer) are TPU reasons, so the
 port runs the split layout at every size and the small layout is not
@@ -57,7 +60,7 @@ from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
     MAX_MPAD,
     carrier_guard_decision,
     padded_shape,
-    resolve_int16,
+    resolve_split_stage2,
     sinkhorn_vectors_fused,
     sinkhorn_vectors_split,
     split_row_pad,
@@ -159,8 +162,8 @@ def _unpack_stage1(stage1: torch.Tensor, p: int):
 
 def train_filter_stage2a(y, rows, cols, stage1, sw, pw, *, p: int, m: int,
                          mb: int, n_sinkhorn_iter: int, eps: float,
-                         small: bool = False, split: bool = True,
-                         int16: bool = True):
+                         small: bool = False, split: bool | None = None,
+                         int16: bool | None = None):
     """Device half 1: Nystrom extension, Sinkhorn, and the Sb gram.
 
     Returns (rc, Sb (mb, mb), factor, c_rest). rc rows 0/1 are [r; c]
@@ -170,19 +173,19 @@ def train_filter_stage2a(y, rows, cols, stage1, sw, pw, *, p: int, m: int,
     the assembled padded phi; c_rest is the matching (rows, 1) scaling
     with rows < m zero.
 
-    split/int16 select the layout: split needs the carrier (int16=False
-    forces the assembled f32 layout, the guard's fallback); the assembled
-    int16 layout and small=True (the JAX package's small-image layout) are
-    not ported."""
+    split: None resolves NLE_STAGE2_SPLIT (resolve_split_stage2). int16:
+    None lets the assembled Sinkhorn resolve the carrier from the env;
+    False (the guard's fallback) forces the assembled f32 layout, as the
+    JAX package's int16=False does. small=True (the JAX package's
+    small-image layout) is not ported."""
     if small:
         raise NotImplementedError(
             "the 'small' stage-2a layout is not ported (ROADMAP Queue 1)")
-    if not int16:
+    if split is None:
+        split = resolve_split_stage2(n_sinkhorn_iter)
+    if int16 is False:
+        # Guard fallback: the split layout cannot run without the carrier.
         split = False
-    elif not split:
-        raise NotImplementedError(
-            "the assembled int16 stage-2a layout is not ported; use "
-            "split=True, or int16=False for the assembled f32 layout")
     Um, lam_m, Uinv = _unpack_stage1(stage1, p)
     f = features(rows, cols, y)
     fa, fb = f[:p], f[p:]
@@ -213,14 +216,15 @@ def train_filter_stage2a(y, rows, cols, stage1, sw, pw, *, p: int, m: int,
     phi[:p, :mb] = Um
     phi[p:n, :mb] = phi_b
     del phi_b
-    lam_pad = torch.nn.functional.pad(lam_m, (0, mpad - mb))
-    r, c = sinkhorn_vectors_fused(phi, lam_pad, n_sinkhorn_iter, float(eps),
-                                  n=n)
+    r, c, crush = sinkhorn_vectors_fused(phi, lam_m, n_sinkhorn_iter,
+                                         float(eps), n=n, with_stat=True,
+                                         int16=int16)
     c_full = torch.nn.functional.pad(c, (0, npad - n))
     row_mask = torch.arange(npad, device=dev) >= m
     c_rest = torch.where(row_mask, c_full, torch.zeros_like(c_full))[:, None]
     Sb = scaled_gram(phi, c_rest)[:mb, :mb]
     stat = torch.full((mb,), -1.0, dtype=torch.float32, device=dev)
+    stat[0] = crush
     rc = torch.stack([r[:mb], c[:mb], stat])
     return rc, Sb, phi, c_rest
 
@@ -499,15 +503,14 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
                                 edit_weights=edit_weights)
 
     with stage("Nystrom approximation + Sinkhorn"):
-        int16 = resolve_int16()
         rc, sb, factor, c_rest = train_filter_stage2a(
             y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
-            n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps), split=int16,
-            int16=int16)
+            n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps),
+            split=resolve_split_stage2(n_sinkhorn_iter))
         rc_np = rc.cpu().double().numpy()
         if check_carrier_guard(rc_np):
             # Out-of-domain input for the int16 carrier: retrain through
-            # the assembled f32 trajectory (the split factor freed first).
+            # the assembled f32 trajectory (the first factor freed first).
             del factor, c_rest
             rc, sb, factor, c_rest = train_filter_stage2a(
                 y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
@@ -534,12 +537,15 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
 
 
 # Peak device bytes of the dense stage 2 per byte of the padded f32 phi, on
-# its worse route: the assembled f32 layout (the carrier guard's fallback,
-# NLE_SINKHORN_INT16=off) holds K1's phi_b and the assembled phi at once
-# (2 x phi); the split layout holds phi_b and its int16 copy (1.5 x phi);
-# both add the O(N) vectors. chip_smoke.py measures the ratio on the card
-# ([5] at 1 MP, [8d] on both routes just under the limit) and fails if a
-# run exceeds it; PERF.md records the readings.
+# its worse layout: the assembled layout holds K1's phi_b and the assembled
+# phi at once (2 x phi) on every one of its Sinkhorn routes — f32 (the
+# carrier guard's fallback, NLE_SINKHORN_INT16=off), K13, and the int16
+# (NLE_STAGE2_SPLIT=off) and bf16-lead (NLE_SINKHORN_BF16) routes, whose
+# half-size copies are made after phi_b is freed; the split layout holds
+# phi_b and its int16 copy (1.5 x phi); all add the O(N) vectors.
+# chip_smoke.py measures the ratio on the card ([5] and [10b] at 1 MP, [8d]
+# on every route just under the limit) and fails if a run exceeds it;
+# PERF.md records the readings.
 DENSE_PEAK_PER_PHI_BYTE = 2.1
 
 

@@ -160,6 +160,45 @@ def test_nle_filter_apply_on_both_kinds(jax_factored):
     np.testing.assert_allclose(out, want_d.reshape(L.shape), atol=1e-3)
 
 
+def _apply_f64(ff, channel, fs):
+    """A factored filter's apply, V diag(fs) V^T y, evaluated in float64
+    with numpy from its stored state: the tail rows of V regenerated from
+    the training features, entries and sums in float64."""
+    perm, p = ff.perm, np.asarray(ff.v_head).shape[0]
+    y = channel.reshape(-1).astype(np.float64)[perm]
+    rr = (perm // ff.ncols).astype(np.float64)
+    cc = (perm % ff.ncols).astype(np.float64)
+    yt = np.asarray(ff.y_train, np.float64)
+    # The affinity weights as both packages round them to float32.
+    sw = float(np.float32(1.0 / (ff.hx * ff.hx)))
+    pw = float(np.float32(1.0 / (ff.hy * ff.hy)))
+    K = np.exp(-(sw * ((rr[p:, None] - rr[None, :p]) ** 2
+                       + (cc[p:, None] - cc[None, :p]) ** 2)
+                 + pw * (yt[p:, None] - yt[None, :p]) ** 2))    # (q, p)
+    c, vh, w = (np.asarray(a, np.float64) for a in (ff.c, ff.v_head, ff.w))
+    t = (y[:p] @ vh + ((c[p:] * y[p:]) @ K) @ w) * np.asarray(fs, np.float64)
+    out = np.concatenate([vh @ t, c[p:] * (K @ (w @ t))])
+    unpacked = np.empty_like(out)
+    unpacked[perm] = out
+    return unpacked.reshape(channel.shape)
+
+
+def test_factored_apply_is_as_close_to_float64_as_nle_tpu(jax_factored):
+    """The stored filter applied by each package against its float64
+    evaluation: the port at most 2x nle_tpu's distance, a bound set by the
+    reference package. (The plain twin of K10 once summed ~4,000 rows per
+    sample in fp32 and sat 6x further than nle_tpu: 1.7e-3 gray levels.)"""
+    _, L, jf, path = jax_factored
+    port = FactoredFilter.load(path, "cpu")
+    fs_t = transform_eigenvalues(port.eigvals, WEIGHTS)
+    fs_j = jtransform(jnp.asarray(jf.eigvals), WEIGHTS)
+    ref = _apply_f64(port, L, fs_t.numpy())
+    d_jax = np.abs(np.asarray(jf.apply(L, fs_j), np.float64) - ref).max()
+    d_port = np.abs(port.apply(L, fs_t).astype(np.float64) - ref).max()
+    print(f"apply vs float64: nle_tpu {d_jax:.3e}, port {d_port:.3e}")
+    assert d_port <= 2 * d_jax, (d_port, d_jax)
+
+
 def test_factored_filter_moves_between_devices(jax_factored):
     _, _, _, path = jax_factored
     ff = FactoredFilter.load(path, "cpu")

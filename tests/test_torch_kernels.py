@@ -268,6 +268,6 @@ def test_cuda_kernels_match_plain_versions(cuda, affinity_inputs,
                         sinkhorn_halfstep_plain(Q, tt, EPS)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES == {
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
         "affinity_matmul": 1, "sinkhorn_halfstep_int16": 1,
         "sinkhorn_halfstep_f32": 1, "scaled_gram": 1, "scaled_matmul": 1}
