@@ -73,22 +73,33 @@
    at p = 2112 and K3/K4 (and K13/K14 for [10a]) at mpad 2176 held on 2^20
    of its rest pixels;
 10. the Sinkhorn modes: (a) K13 (NLE_SINKHORN_KERNEL=auto), K14 (the bf16
-   preview branch) and K15's three probe variants held against their plain
-   versions and timed at the 1 MP assembled shape (npad 1,011,712, mpad
-   640), K13 and K14 also at mpad 2176 ([9d]); (b) the 1 MP main frame
-   through NLEFilter(device="cuda").train_and_enhance under each mode, cold
-   then warm (bitwise equal), with the counts and the stage-2a layouts that
-   prove the route: =auto K13 x 100 and no K3/K4; NLE_SINKHORN_BF16=auto
-   K14 x 96 and K4 x 4; NLE_STAGE2_SPLIT=off K3 x 100 on the assembled
-   layout; NLE_SINKHORN_INT16=off K4 x 100; NLE_SINKHORN_INT16=on K3 x 100,
-   and on the noise frame that trips the guard no re-dispatch. Gates: K13
-   vs K4 route and assembled int16 vs the split route >= 45 dB, card vs CPU
-   >= 45 dB per mode on a small frame, peak <= DENSE_PEAK_PER_PHI_BYTE x
-   phi; the bf16 route's PSNR against the K4 route is printed, ungated
-   (not golden-safe); (c) K15's table through the port's probe tool
-   (nle_tpu_torch/tools/bench_sk_dmaonly.py): dmaonly / wonly / wpart and
-   the half-step kernels' ms and GB/s at the same shape.
-
+   preview branch) and K15's three probe variants (the TPU probe's (8,
+   max(mpad, chunk)) block at chunk 1024; dmaonly exact) held against
+   their plain versions and timed at the 1 MP assembled shape (npad
+   1,011,712, mpad 640), K13 and K14 also at mpad 2176 ([9d]); (b) the 1 MP
+   main frame through NLEFilter(device="cuda").train_and_enhance under
+   each mode, cold then warm (bitwise equal), with the counts and the
+   stage-2a layouts that prove the route: =auto K13 x 100 and no K3/K4;
+   NLE_SINKHORN_BF16=auto K14 x 96 and K4 x 4; NLE_STAGE2_SPLIT=off K3 x
+   100 on the assembled layout; NLE_SINKHORN_INT16=off K4 x 100;
+   NLE_SINKHORN_INT16=on K3 x 100, and on the noise frame that trips the
+   guard no re-dispatch. Gates: K13 vs K4 route and assembled int16 vs the
+   split route >= 45 dB, card vs CPU >= 45 dB per mode on a small frame,
+   peak <= DENSE_PEAK_PER_PHI_BYTE x phi; the bf16 route's PSNR against
+   the K4 route is printed, ungated (not golden-safe); (c) K15's table
+   through the port's probe tool (nle_tpu_torch/tools/bench_sk_dmaonly.py):
+   dmaonly / wonly / wpart at chunks 512 and 1024 and the half-step
+   kernels' ms and GB/s at the same shape, against dmaonly at chunk 1024;
+11. the A/B staging probes of tools/ at [10c]'s shape (npad 1,011,712,
+   mpad 640, phi normal x 0.05 + 0.1 from seed 0): K16 (bench_sk_unroll,
+   chunks 512 and 1024), K17 (parts3d, mxu_row0), K18 (vpu, xonly) and
+   K13 as the mxu variant (bench_sk_variants, tiles 1024 and 2048), K19
+   (bench_sk_2stream, 1/2/4 streams at chunks 1024 and 2048): one cold
+   call each, whose own launch counts must be exactly one per
+   configuration, held against the plain twins (x and s bounds as K3/K4's,
+   K19 exact), timed beside their bounds and torch.mv on the same factor;
+   then each tool's table through its own table function, whose launch
+   counts are the rows' `launches`.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -875,8 +886,8 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
         affinity_matmul_kernel,
     )
     from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
-        PROBE_TOUCH,
         PROBE_VARIANTS,
+        PROBE_WONLY_COLS,
         colsum64,
         k13_tile,
         padded_shape,
@@ -889,6 +900,7 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
         split_row_pad,
     )
     from nle_tpu_torch.ops.pipeline import DENSE_PEAK_PER_PHI_BYTE
+    from nle_tpu_torch.tools._sk_bench import FLOOR_CHUNK
     from nle_tpu_torch.tools.bench_sk_dmaonly import format_rows, probe_table
 
     t10 = time.perf_counter()
@@ -935,34 +947,41 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
            launch=("mode_bf16_1mp", "sinkhorn_halfstep_bf16"))
     del phi_bf
     phia = phi.abs()
+    chunk = FLOOR_CHUNK
+    nchunks = npad // chunk
+    fold = min(PROBE_WONLY_COLS, chunk)
     for variant in PROBE_VARIANTS:
         name = f"sinkhorn_probe_{variant}"
-        wk, sk = sinkhorn_probe(phi, t32, variant)
-        wp, sp = sinkhorn_probe_plain(phi, t32, variant)
-        parts = []
-        if wk is not None:
-            # w: mpad-term fp32 sums, (2 mpad + 4) u (|phi| |t|) both sides.
-            parts.append((wk - wp, (2 * mpad + 4) * U * (phia @ t32.abs())
-                          + 1e-30))
-        if sk is not None:
-            # s: a sum over rows, S_SUM_TOL of the sum of absolute terms.
-            ab = (phia[::PROBE_TOUCH].sum(dim=0) if variant == "dmaonly"
-                  else phia.T @ wp.abs())
-            parts.append((sk - sp, S_SUM_TOL * ab + 1e-30))
-        err = check_parts(f"K15 {variant}", parts)
-        nbytes = 4 * (npad * mpad + mpad + (npad if wk is not None else 0)
-                      + (mpad if variant == "wpart" else 0))
-        flops = {"dmaonly": npad // PROBE_TOUCH * mpad,
-                 "wonly": 2 * npad * mpad, "wpart": 4 * npad * mpad}[variant]
+        got = sinkhorn_probe(phi, t32, variant, chunk)
+        want = sinkhorn_probe_plain(phi, t32, variant, chunk)
+        # dmaonly adds the same rows in the same order: exact. wonly folds
+        # w: its mpad-term sums, (2 mpad + 4) u (|phi| |t|) both sides,
+        # plus nchunks rounded adds. wpart: a sum over rows, S_SUM_TOL of
+        # the sum of absolute terms.
+        bound = torch.zeros_like(want)
+        if variant == "wonly":
+            w_abs = phia @ t32.abs()
+            bound[0, :fold] = ((2 * mpad + 4) * U * w_abs + 2 * nchunks * U
+                               * w_abs).view(nchunks, chunk)[:, :fold].sum(0)
+        elif variant == "wpart":
+            bound[0, :mpad] = S_SUM_TOL * (phia.T @ (phi @ t32).abs())
+        err = check(f"K15 {variant} chunk {chunk}", got - want, bound + 1e-30)
+        width = want.shape[1]
+        nbytes = 4 * (npad * mpad + 8 * width
+                      + (0 if variant == "dmaonly" else mpad))
+        flops = {"dmaonly": nchunks * mpad,
+                 "wonly": 2 * npad * mpad + nchunks * fold,
+                 "wpart": 4 * npad * mpad + nchunks * mpad}[variant]
         lib = (cuda_ms(torch, lambda: torch.mv(phi, t32), reps=10)
                if variant == "wonly" else None)
         record(name, src, "tools/bench_sk_dmaonly.py:68", err,
-               cuda_ms(torch, lambda: sinkhorn_probe(phi, t32, variant),
-                       reps=10),
-               cuda_ms(torch, lambda: sinkhorn_probe_plain(phi, t32,
-                                                           variant)),
-               nbytes, flops, library_ms=lib, launch=("probe_1mp", name))
-    del phi, phia, t32, wk, sk, wp, sp
+               cuda_ms(torch, lambda: sinkhorn_probe(phi, t32, variant,
+                                                     chunk), reps=10),
+               cuda_ms(torch, lambda: sinkhorn_probe_plain(phi, t32, variant,
+                                                           chunk)),
+               nbytes, flops, library_ms=lib,
+               launch=("probe_1mp", name))["chunk"] = chunk
+    del phi, phia, t32, got, want, bound
     torch.cuda.empty_cache()
 
     # [10b] the modes on the main frame, then the noise frame under =on.
@@ -1044,13 +1063,169 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
     table = probe_table(torch, npad, mpad)
     torch.cuda.synchronize()
     paths["probe_1mp"] = dict(_build.LAUNCHES)
-    floor = next(r["ms"] for r in table if r["what"] == "dmaonly")
+    floor = next(r["ms"] for r in table
+                 if r["what"] == f"dmaonly chunk={FLOOR_CHUNK}")
     print(f"[10c] the streaming probe at npad {npad}, mpad {mpad} "
           f"(nle_tpu_torch/tools/bench_sk_dmaonly.py):")
     for line, r in zip(format_rows(table), table):
-        print(f"  {line}  {r['ms'] / floor:6.2f} x dmaonly")
+        ratio = "" if r["ms"] is None else f"  {r['ms'] / floor:6.2f} x dmaonly"
+        print(f"  {line}{ratio}")
     print(f"[10] Sinkhorn modes: {time.perf_counter() - t10:.1f} s")
     return paths
+
+
+def ab_probes(torch, _build, record, npad: int, mpad: int) -> dict:
+    """[11] K16-K19 (and K13 as the mxu variant) against their plain twins
+    at [10c]'s shape, each cold call counted; then each tool's table
+    through its own table function, whose launch counts are the rows'.
+    Returns {path: launch counts}."""
+    from nle_tpu_torch.ops.kernels import sinkhorn_ab_kernel as ab
+    from nle_tpu_torch.tools import (
+        bench_sk_2stream,
+        bench_sk_unroll,
+        bench_sk_variants,
+    )
+    from nle_tpu_torch.tools._sk_bench import format_rows, make_factor
+
+    # Every configuration of each tool's own grid.
+    unroll_chunks = bench_sk_unroll.CHUNKS
+    tiles = bench_sk_variants.TILES
+    stream_configs = [(ns, c) for ns in bench_sk_2stream.STREAMS
+                      for c in bench_sk_2stream.CHUNKS]
+    t11 = time.perf_counter()
+    eps = 1e-10
+    src, tools = "nle_tpu_torch/csrc/sinkhorn_ab.cu", "tools/"
+    phi, t = make_factor(torch, npad, mpad, 0, 0.1)
+    phia = phi.abs()
+    print(f"[11] the A/B staging probes at npad {npad}, mpad {mpad} (seed 0, "
+          "phi normal x 0.05 + 0.1)")
+
+    # The cold calls: every kernel at every configuration of its tool, once.
+    _build.reset_launches()
+    cold = {("unroll", c): ab.sinkhorn_unroll(phi, t, eps, c)
+            for c in unroll_chunks}
+    cold.update({(v, r): ab.sinkhorn_variant(phi, t, eps, v, r)
+                 for v in ab.VARIANTS for r in tiles})
+    cold.update({("2stream", ns, c): ab.sinkhorn_2stream(phi, t, ns, c)
+                 for ns, c in stream_configs})
+    torch.cuda.synchronize()
+    cold_counts = dict(_build.LAUNCHES)
+    print(f"  cold calls: launches "
+          f"{({k: v for k, v in cold_counts.items() if v})}")
+    need = {"sinkhorn_ab_unroll": len(unroll_chunks),
+            "sinkhorn_ab_2stream": len(stream_configs)}
+    need.update({bench_sk_variants.launch_key(v): len(tiles)
+                 for v in ab.VARIANTS})
+    if {k: v for k, v in cold_counts.items() if v} != need:
+        raise AssertionError(f"[11] cold calls did not launch each kernel "
+                             f"once per configuration: {cold_counts}")
+
+    # Each against its plain twin: x as the half-steps' x, s to S_SUM_TOL of
+    # the sum of absolute terms (the TPU orders differ only in where the
+    # tile partials are summed), the staging probe exactly (the same rows
+    # added in the same order).
+    bx = None
+    errs = {}
+    for key, got in cold.items():
+        if key[0] == "2stream":
+            want = ab.sinkhorn_2stream_plain(phi, t, key[1], key[2])
+            errs[key] = check(f"K19 streams={key[1]} chunk={key[2]}",
+                              got - want, torch.zeros_like(want) + 1e-30)
+            continue
+        if key[0] == "unroll":
+            xp, sp = ab.sinkhorn_unroll_plain(phi, t, eps, key[1])
+        else:
+            xp, sp = ab.sinkhorn_variant_plain(phi, t, eps, *key)
+        if bx is None:
+            bx = 2 * (2 * mpad + 4) * U * (phia @ t.abs()) * xp * xp + 1e-30
+            bs = S_SUM_TOL * (phia.T @ xp.abs()) + 1e-30
+        label = f"{key[0]} {'chunk' if key[0] == 'unroll' else 'tile'} {key[1]}"
+        ex = check(f"{label} x", got[0] - xp, bx)
+        es = check(f"{label} s", got[1] - sp,
+                   torch.full_like(sp, 1e-30) if key[0] == "xonly" else bs)
+        errs[key] = (max(ex[0], es[0]), max(ex[1], es[1]))
+    del cold
+
+    # Time each kernel, its plain twin and torch.mv beside them. One row a
+    # configuration; tool_config is the row's label in its tool's table.
+    mv_ms = cuda_ms(torch, lambda: torch.mv(phi, t), reps=10)
+    f32 = 4 * (npad * mpad + npad + 2 * mpad)
+    halfstep_flops = 4 * npad * mpad
+    rows_of = []
+    for c in unroll_chunks:
+        rows_of.append((
+            "sinkhorn_ab_unroll" + ("" if c == 1024 else f"_chunk{c}"),
+            "K16", "bench_sk_unroll.py:99", ("unroll", c),
+            f"unroll2 chunk={c}", f32, halfstep_flops,
+            lambda c=c: ab.sinkhorn_unroll(phi, t, eps, c),
+            lambda c=c: ab.sinkhorn_unroll_plain(phi, t, eps, c)))
+    for v, kid, repl in (("parts3d", "K17", "bench_sk_variants.py:106"),
+                         ("mxu_row0", "K17", "bench_sk_variants.py:133"),
+                         ("vpu", "K18", "bench_sk_variants.py:133"),
+                         ("xonly", "K18", "bench_sk_variants.py:133"),
+                         ("mxu", "K13", "bench_sk_variants.py:133")):
+        base = ("sinkhorn_halfstep_tiled_mxu" if v == "mxu"
+                else f"sinkhorn_ab_{v}")
+        for r in tiles:
+            rows_of.append((
+                base + ("" if r == 2048 else f"_tile{r}"), kid, repl, (v, r),
+                f"{v} tile={r}", f32,
+                halfstep_flops if v != "xonly" else 2 * npad * mpad,
+                lambda v=v, r=r: ab.sinkhorn_variant(phi, t, eps, v, r),
+                lambda v=v, r=r: ab.sinkhorn_variant_plain(phi, t, eps, v,
+                                                           r)))
+    for ns, c in stream_configs:
+        rows_of.append((
+            "sinkhorn_ab_2stream" + ("" if (ns, c) == (2, 2048)
+                                     else f"_s{ns}_chunk{c}"),
+            "K19", "bench_sk_2stream.py:56", ("2stream", ns, c),
+            f"streams={ns} chunk={c}", 4 * (npad * mpad + 8 * mpad),
+            npad // c * mpad,
+            lambda ns=ns, c=c: ab.sinkhorn_2stream(phi, t, ns, c),
+            lambda ns=ns, c=c: ab.sinkhorn_2stream_plain(phi, t, ns, c)))
+    launch_key = {"unroll": "sinkhorn_ab_unroll",
+                  "2stream": "sinkhorn_ab_2stream"}
+    by_config = {}
+    for name, kid, repl, key, label, nbytes, flops, kern, plain in rows_of:
+        row = record(name, "nle_tpu_torch/csrc/sinkhorn.cu" if kid == "K13"
+                     else src, tools + repl, errs[key],
+                     cuda_ms(torch, kern, reps=10), cuda_ms(torch, plain),
+                     nbytes, flops, launch=(
+                         "ab_tools", launch_key.get(
+                             key[0], bench_sk_variants.launch_key(key[0]))))
+        row.update(kernel_id=kid, tool_config=label, mv_ms=mv_ms,
+                   x_mv=row["ms"] / mv_ms)
+        by_config[label] = row
+    print(f"  torch.mv(phi, t) on the same factor: {mv_ms:.3f} ms")
+    del phi, phia, t, bx, bs
+    torch.cuda.empty_cache()
+
+    # Each tool's table through its own table function at this shape; the
+    # counts of these runs are the rows' launches, and each row gets its
+    # tool's reading beside its own.
+    _build.reset_launches()
+    tables = [
+        ("bench_sk_unroll", bench_sk_unroll.unroll_table(torch, npad, mpad)),
+        ("bench_sk_variants", bench_sk_variants.variants_table(
+            torch, npad, mpad, variants=tuple(ab.VARIANTS))),
+        ("bench_sk_2stream", bench_sk_2stream.stream_table(torch, npad,
+                                                           mpad)),
+    ]
+    torch.cuda.synchronize()
+    tool_counts = dict(_build.LAUNCHES)
+    for tool, table in tables:
+        print(f"  nle_tpu_torch/tools/{tool}.py:")
+        for line in format_rows(table):
+            print(f"    {line}")
+        for r in table:
+            if r["config"] in by_config:
+                by_config[r["config"]].update(
+                    tool=tool, tool_ms=r["ms"], tool_gb_s=r["gb_s"],
+                    tool_x_dmaonly=r["x_dmaonly"], tool_x_mv=r["x_mv"])
+    print(f"  the tools' launches "
+          f"{({k: v for k, v in tool_counts.items() if v})}")
+    print(f"[11] A/B staging probes: {time.perf_counter() - t11:.1f} s")
+    return {"ab_cold": cold_counts, "ab_tools": tool_counts}
 
 
 def main() -> int:
@@ -1180,6 +1355,7 @@ def main() -> int:
             rows[-1]["issue_ms_entry_loop"] = issue_ms
             print(f"  {name}: entry loops {per:.1f} instructions and "
                   f"{len(keys)} expf per entry -> issue time {issue_ms:.3f} ms")
+        return rows[-1]
 
     eps = 1e-10
     phib = affinity_matmul_kernel(fa, fb, Uinv, sw, pw, out_rows=npad_b)
@@ -1623,6 +1799,10 @@ def main() -> int:
     for name, extra in wide10.items():
         next(r for r in rows if r["name"] == name).update(extra)
 
+    # -- [11] the A/B staging probes of tools/ at [10c]'s shape ---------
+    from nle_tpu_torch.tools.bench_sk_dmaonly import MPAD, NPAD
+    ab_paths = ab_probes(torch, _build, record, NPAD, MPAD)
+
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the
     # rows [9] adds); every path's count rides beside it.
@@ -1631,7 +1811,7 @@ def main() -> int:
              "dense_grid_16mp": grid_counts, "dense_p1200_1mp": p1200_counts,
              "dense_grid_streaming_4mp": gs_counts,
              "dense_grid_dense_4mp": gd_counts,
-             "dense_mpad2176_4mp": wd_counts, **mode_paths}
+             "dense_mpad2176_4mp": wd_counts, **mode_paths, **ab_paths}
     for row in rows:
         path, key = row.pop("_launch")
         row["launches"] = paths[path][key]

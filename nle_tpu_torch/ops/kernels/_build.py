@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel name -> launch count. K3, K4 and K14 (one CUDA template, three
-# dtypes) are counted apart, and so are K15's three probe variants.
+# dtypes) are counted apart, and so are K15's three probe variants, K17's
+# two TPU variants and K18's two modes.
 LAUNCHES = {
     "affinity_matmul": 0,          # K1
     "sinkhorn_halfstep_int16": 0,  # K3
@@ -44,6 +45,12 @@ LAUNCHES = {
     "sinkhorn_probe_dmaonly": 0,   # K15
     "sinkhorn_probe_wonly": 0,     # K15
     "sinkhorn_probe_wpart": 0,     # K15
+    "sinkhorn_ab_unroll": 0,       # K16
+    "sinkhorn_ab_parts3d": 0,      # K17
+    "sinkhorn_ab_mxu_row0": 0,     # K17
+    "sinkhorn_ab_vpu": 0,          # K18
+    "sinkhorn_ab_xonly": 0,        # K18
+    "sinkhorn_ab_2stream": 0,      # K19
     "scaled_gram": 0,              # K6
     "scaled_matmul": 0,            # K7
     "streaming_halfstep": 0,       # K8 (the unit_x s0 pass included)
@@ -152,7 +159,10 @@ def _declare(lib) -> None:
         "nle_sinkhorn_halfstep_f32": [p, p, p, p, p, i, i, f, p],
         "nle_sinkhorn_halfstep_bf16": [p, p, p, p, p, i, i, f, p],
         "nle_sinkhorn_tiled_f32": [p, p, p, p, p, i, i, i, f, p],
-        "nle_sinkhorn_probe_f32": [p, p, p, p, p, i, i, i, p],
+        "nle_sinkhorn_probe_f32": [p, p, p, p, p, i, i, i, i, p],
+        "nle_ab_unroll": [p, p, p, p, p, i, i, i, i, f, p],
+        "nle_ab_tiles": [p, p, p, p, p, i, i, i, i, f, p],
+        "nle_ab_2stream": [p, p, p, i, i, i, i, i, p],
         "nle_sinkhorn_nblocks": [i],
         "nle_scaled_gram": [p, p, p, p, i, i, i, i, p],
         "nle_scaled_matmul": [p, p, p, p, i, i, i, p],

@@ -12,8 +12,9 @@ Each half-step reads the factor once and computes
 - K13 replaces `_kernel` (:45, via `sinkhorn_halfstep_pallas`, call :95),
   the f32 half-step behind NLE_SINKHORN_KERNEL=auto: K4's function in the
   TPU kernel's decomposition (TILE_N row tiles, s summed in 8 stripes).
-- K15 replaces the probe of tools/bench_sk_dmaonly.py:68: K4's sweep with
-  parts of its work dropped (dmaonly / wonly / wpart), the measured
+- K15 replaces the probe of tools/bench_sk_dmaonly.py:68 and returns its
+  (8, max(mpad, chunk)) block (dmaonly / wonly / wpart): K13's sweep with
+  one block per chunk and parts of its work dropped, the measured
   streaming floor the half-steps are judged against
   (nle_tpu_torch/tools/bench_sk_dmaonly.py).
 
@@ -323,7 +324,9 @@ def sinkhorn_halfstep_plain(Q: torch.Tensor, t: torch.Tensor, eps: float):
     return x, colsum64(Qf, x.to(torch.bfloat16).float() if bf16 else x)
 
 
-def _launch(fn, Q, t, x, partial, s, *args):
+def launch_sweep(fn, Q, t, x, partial, s, *args):
+    """Call a sweep's C entry on (Q, t, x, partial, s, *args) on Q's device
+    and current stream; returns its cudaError_t."""
     with torch.cuda.device(Q.device):
         return fn(Q.data_ptr(), t.data_ptr(), x.data_ptr(), partial.data_ptr(),
                   s.data_ptr(), *args, _build.stream_ptr(Q))
@@ -354,8 +357,8 @@ def sinkhorn_halfstep(Q: torch.Tensor, t: torch.Tensor, eps: float):
     partial = torch.empty((lib.nle_sinkhorn_nblocks(npad), mpad),
                           dtype=torch.float32, device=Q.device)
     fn, name = _HALFSTEP[Q.dtype]
-    _build.check(_launch(getattr(lib, fn), Q, t, x, partial, s, npad, mpad,
-                         float(eps)), name)
+    _build.check(launch_sweep(getattr(lib, fn), Q, t, x, partial, s, npad,
+                              mpad, float(eps)), name)
     _build.count_launch(name)
     return x, s
 
@@ -363,6 +366,35 @@ def sinkhorn_halfstep(Q: torch.Tensor, t: torch.Tensor, eps: float):
 # -- K13 ---------------------------------------------------------------------
 
 K13_STRIPES = 8   # the TPU kernel's (8, mpad) s accumulator
+
+
+def striped_sum(parts: torch.Tensor, stripes: int) -> torch.Tensor:
+    """The kernels' fixed-order sum of per-tile partials (nparts, len):
+    part i added to stripe i % stripes in increasing i, then the stripes
+    in order, plain fp32 adds. stripes = 8 is the TPU kernels' (8, mpad)
+    accumulator and its jnp.sum; stripes = 1 one accumulator in order."""
+    nparts, width = parts.shape
+    # Zero parts pad the count to a stripe multiple: adding 0 is exact.
+    nk = -(-nparts // stripes)
+    parts = torch.nn.functional.pad(parts, (0, 0, 0, nk * stripes - nparts))
+    parts = parts.view(nk, stripes, width)
+    acc = torch.zeros((stripes, width), dtype=parts.dtype,
+                      device=parts.device)
+    for k in range(nk):
+        acc += parts[k]
+    total = torch.zeros((width,), dtype=parts.dtype, device=parts.device)
+    for r in range(stripes):
+        total += acc[r]
+    return total
+
+
+def tile_partials(phi: torch.Tensor, x: torch.Tensor,
+                  tile: int) -> torch.Tensor:
+    """Each row tile's partial x_tile^T phi_tile, (npad / tile, mpad)."""
+    npad, mpad = phi.shape
+    ntiles = npad // tile
+    return torch.bmm(x.view(ntiles, 1, tile),
+                     phi.view(ntiles, tile, mpad))[:, 0]
 
 
 def _check_tiles(phi: torch.Tensor, tile: int) -> None:
@@ -379,23 +411,25 @@ def sinkhorn_halfstep_tiled_plain(phi: torch.Tensor, t: torch.Tensor,
     x_tile^T phi_tile, added to stripe i % 8 in increasing tile i, then
     the 8 stripes summed in order (the TPU kernel's s order)."""
     _check_tiles(phi, tile)
-    npad, mpad = phi.shape
     x = safe_reciprocal(phi @ t, eps)
-    ntiles = npad // tile
-    parts = torch.bmm(x.view(ntiles, 1, tile),
-                      phi.view(ntiles, tile, mpad))[:, 0]
-    # Zero tiles pad the count to a stripe multiple: adding 0 is exact.
-    nk = -(-ntiles // K13_STRIPES)
-    parts = torch.nn.functional.pad(parts, (0, 0, 0, nk * K13_STRIPES
-                                            - ntiles))
-    parts = parts.view(nk, K13_STRIPES, mpad)
-    stripes = torch.zeros((K13_STRIPES, mpad), dtype=phi.dtype,
+    return x, striped_sum(tile_partials(phi, x, tile), K13_STRIPES)
+
+
+def tiled_halfstep_launch(phi: torch.Tensor, t: torch.Tensor, eps: float,
+                          tile: int):
+    """Launch K13 on a CUDA phi (npad, mpad) float32 with npad a multiple
+    of `tile` (any width up to MAX_MPAD) and count it."""
+    _check_width(phi, t)
+    npad, mpad = phi.shape
+    lib = _build.load()
+    x = torch.empty((npad,), dtype=torch.float32, device=phi.device)
+    s = torch.empty((mpad,), dtype=torch.float32, device=phi.device)
+    partial = torch.empty((npad // tile, mpad), dtype=torch.float32,
                           device=phi.device)
-    for k in range(nk):
-        stripes += parts[k]
-    s = torch.zeros((mpad,), dtype=phi.dtype, device=phi.device)
-    for r in range(K13_STRIPES):
-        s += stripes[r]
+    _build.check(launch_sweep(lib.nle_sinkhorn_tiled_f32, phi, t, x, partial,
+                              s, npad, mpad, tile, float(eps)),
+                 "sinkhorn_halfstep_tiled")
+    _build.count_launch("sinkhorn_halfstep_tiled")
     return x, s
 
 
@@ -407,63 +441,88 @@ def sinkhorn_halfstep_tiled(phi: torch.Tensor, t: torch.Tensor, eps: float,
     s (mpad,))."""
     if phi.dtype != torch.float32:
         raise TypeError(f"K13 factor dtype {phi.dtype}: float32 only")
-    npad, mpad = phi.shape
-    tile = k13_tile(mpad) if tile is None else tile
+    tile = k13_tile(phi.shape[1]) if tile is None else tile
     if not cuda_or_cpu(phi, t):
         return sinkhorn_halfstep_tiled_plain(phi, t, eps, tile)
-    _check_width(phi, t)
     _check_tiles(phi, tile)
-    lib = _build.load()
-    x = torch.empty((npad,), dtype=torch.float32, device=phi.device)
-    s = torch.empty((mpad,), dtype=torch.float32, device=phi.device)
-    partial = torch.empty((npad // tile, mpad), dtype=torch.float32,
-                          device=phi.device)
-    _build.check(_launch(lib.nle_sinkhorn_tiled_f32, phi, t, x, partial, s,
-                         npad, mpad, tile, float(eps)),
-                 "sinkhorn_halfstep_tiled")
-    _build.count_launch("sinkhorn_halfstep_tiled")
-    return x, s
+    return tiled_halfstep_launch(phi, t, eps, tile)
 
 
 # -- K15: the streaming probe ----------------------------------------------
 
 PROBE_VARIANTS = {"dmaonly": 1, "wonly": 2, "wpart": 3}
-PROBE_TOUCH = 32   # dmaonly keeps the rows r % 32 == 0 live
+PROBE_ROWS = 8               # the probe's (8, width) output block
+PROBE_WONLY_COLS = 1024      # its s[0, :1024] += w[:, :1024]
 
 
-def sinkhorn_probe_plain(phi: torch.Tensor, t: torch.Tensor, variant: str):
-    """K15's plain twin. Returns (w, s): dmaonly (None, the column sum of
-    the rows r % 32 == 0), wonly (phi t, None), wpart (w = phi t,
-    phi^T w)."""
-    if variant == "dmaonly":
-        return None, phi[::PROBE_TOUCH].sum(dim=0)
-    w = phi @ t
-    return w, (None if variant == "wonly" else phi.T @ w)
-
-
-def sinkhorn_probe(phi: torch.Tensor, t: torch.Tensor, variant: str):
-    """K15: K4's sweep over an f32 phi (npad, mpad) with parts of its work
-    dropped (PROBE_VARIANTS); returns what sinkhorn_probe_plain returns."""
+def check_probe(npad: int, mpad: int, variant: str, chunk: int) -> int:
+    """Raise ValueError where the TPU probe drops rows (npad % chunk) or
+    fails to trace (wonly: the (1, min(1024, width)) and (1, min(1024,
+    chunk)) slices must agree, width = max(mpad, chunk)). Returns the
+    output width."""
     if variant not in PROBE_VARIANTS:
         raise ValueError(f"probe variant {variant!r}: expected one of "
                          f"{sorted(PROBE_VARIANTS)}")
+    if chunk < 1 or npad % chunk:
+        raise ValueError(f"probe chunk {chunk}: npad {npad} must be a "
+                         "positive multiple of it (the TPU probe would "
+                         "drop rows)")
+    width = max(mpad, chunk)
+    if (variant == "wonly" and min(PROBE_WONLY_COLS, width)
+            != min(PROBE_WONLY_COLS, chunk)):
+        raise ValueError(
+            f"wonly at chunk {chunk}, mpad {mpad}: the TPU probe does not "
+            f"trace (s[0, :{min(PROBE_WONLY_COLS, width)}] += "
+            f"w[:, :{min(PROBE_WONLY_COLS, chunk)}])")
+    return width
+
+
+def sinkhorn_probe_plain(phi: torch.Tensor, t: torch.Tensor, variant: str,
+                         chunk: int) -> torch.Tensor:
+    """K15's plain twin: the TPU probe's (8, max(mpad, chunk)) block. Row
+    0 over the chunks of `chunk` rows, added in chunk order: dmaonly
+    sum_i phi[i chunk]; wonly sum_c w_c[:L] with w_c = phi_c t and L =
+    min(1024, chunk); wpart sum_c w_c^T phi_c. Every other element 0."""
+    npad, mpad = phi.shape
+    width = check_probe(npad, mpad, variant, chunk)
+    out = torch.zeros((PROBE_ROWS, width), dtype=torch.float32,
+                      device=phi.device)
+    if variant == "dmaonly":
+        out[0, :mpad] = striped_sum(phi[::chunk], 1)
+        return out
+    w = phi @ t
+    if variant == "wonly":
+        fold = min(PROBE_WONLY_COLS, chunk)
+        out[0, :fold] = striped_sum(w.view(-1, chunk)[:, :fold], 1)
+    else:
+        out[0, :mpad] = striped_sum(tile_partials(phi, w, chunk), 1)
+    return out
+
+
+def sinkhorn_probe(phi: torch.Tensor, t: torch.Tensor, variant: str,
+                   chunk: int) -> torch.Tensor:
+    """K15: the TPU probe of tools/bench_sk_dmaonly.py on an f32 phi
+    (npad, mpad), one block per chunk; returns what sinkhorn_probe_plain
+    returns."""
     if phi.dtype != torch.float32:
         raise TypeError(f"probe factor dtype {phi.dtype}: float32 only")
-    if not cuda_or_cpu(phi, t):
-        return sinkhorn_probe_plain(phi, t, variant)
-    _check_width(phi, t)
     npad, mpad = phi.shape
+    width = check_probe(npad, mpad, variant, chunk)
+    if not cuda_or_cpu(phi, t):
+        return sinkhorn_probe_plain(phi, t, variant, chunk)
+    _check_width(phi, t)
     lib = _build.load()
     x = torch.empty((npad,), dtype=torch.float32, device=phi.device)
-    s = torch.empty((mpad,), dtype=torch.float32, device=phi.device)
-    partial = torch.empty((lib.nle_sinkhorn_nblocks(npad), mpad),
-                          dtype=torch.float32, device=phi.device)
+    out = torch.empty((PROBE_ROWS, width), dtype=torch.float32,
+                      device=phi.device)
+    partial = torch.empty((npad // chunk, mpad), dtype=torch.float32,
+                          device=phi.device)
     name = f"sinkhorn_probe_{variant}"
-    _build.check(_launch(lib.nle_sinkhorn_probe_f32, phi, t, x, partial, s,
-                         npad, mpad, PROBE_VARIANTS[variant]), name)
+    _build.check(launch_sweep(lib.nle_sinkhorn_probe_f32, phi, t, x, partial,
+                              out, npad, mpad, chunk,
+                              PROBE_VARIANTS[variant]), name)
     _build.count_launch(name)
-    return (None if variant == "dmaonly" else x,
-            None if variant == "wonly" else s)
+    return out
 
 
 # -- the Sinkhorn loops of stage 2a ----------------------------------------

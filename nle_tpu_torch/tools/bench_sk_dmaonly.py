@@ -3,19 +3,27 @@ tools/bench_sk_dmaonly.py, with the per-width rates tools/bench_sk_width.py
 asks for).
 
     python -m nle_tpu_torch.tools.bench_sk_dmaonly [--npad N] [--mpad M]
+        [--sweeps S] [--seed K] [--chunks 512,1024]
 
-K15 (csrc/sinkhorn.cu) sweeps an f32 factor (npad, mpad) the way K4 does,
-with parts of the work dropped:
-    dmaonly  every row tile staged in shared memory, rows r % 32 == 0 summed
-    wonly    w = phi t per row, no s
-    wpart    w, then the partial s = phi^T w
-so K4's time splits into the staging, the w pass and the s pass. Then the
-half-step kernels themselves at the same shape: K4 and K13 on the f32
-factor, K14 on its bf16 copy, K3 on its per-column int16 copy. Each line
-gives ms per sweep (CUDA events over `sweeps` launches, the least of three
-runs) and the rate in GB/s of the factor's bytes, as the JAX tools report
-them. The defaults are the 1 MP main path's assembled shape (npad
-1,011,712 = 832 x 1216 padded to 2048 rows, mpad 640).
+K15 (csrc/sinkhorn.cu) is the TPU tool's probe: one block per chunk of
+`chunk` rows sweeps the f32 factor (npad, mpad) as K13 does, with parts of
+the work dropped, and returns the probe's (8, max(mpad, chunk)) block:
+    dmaonly  every row staged in shared memory, row 0 of each chunk summed
+    wonly    w = phi t per row, folded by chunk (its first 1024 entries)
+    wpart    w, then sum_c w_c^T phi_c
+so a half-step's time splits into the staging, the w pass and the s pass.
+One row per variant and chunk (--chunks, default the JAX tool's CHUNKS
+512,1024; wonly does not trace on the TPU where min(1024, max(mpad,
+chunk)) != min(1024, chunk), and its row says so). The JAX tool's NSLOTS
+(its DMA ring depth) has no counterpart: K15 stages with plain loads and
+no ring; K16 and K19 (bench_sk_unroll, bench_sk_2stream) carry the async
+staging. Then the half-step kernels themselves at the same shape: K4 and
+K13 on the f32 factor, K14 on its bf16 copy, K3 on its per-column int16
+copy. Each line gives ms per sweep (CUDA events over `sweeps` launches,
+the least of three runs) and the rate in GB/s of the factor's bytes, as
+the JAX tools report them. The defaults are the 1 MP main path's
+assembled shape (npad 1,011,712 = 832 x 1216 padded to 2048 rows, mpad
+640).
 
 The factor is made on the card from --seed (normal, x 0.05, as the JAX
 tool makes it); the kernels' times do not depend on its values. Needs an
@@ -26,34 +34,22 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
+
+from nle_tpu_torch.tools._sk_bench import card_line, int_list, ms_per_call
 
 NPAD = 1_011_712
 MPAD = 640
-
-
-def _ms_per_call(torch, fn, sweeps: int, repeats: int = 3) -> float:
-    fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(sweeps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        best = min(best, t0.elapsed_time(t1) / sweeps)
-    return best
+CHUNKS = (512, 1024)
 
 
 def probe_table(torch, npad: int = NPAD, mpad: int = MPAD, sweeps: int = 10,
-                seed: int = 0) -> list[dict]:
+                seed: int = 0, chunks=CHUNKS) -> list[dict]:
     """One row per measurement: {"kernel", "what", "dtype", "bytes", "ms",
-    "gb_s"}. Runs K15's three variants, then K4, K13, K14 and K3."""
+    "gb_s"}; ms and gb_s are None where the TPU probe does not trace. Runs
+    K15's three variants at each chunk, then K4, K13, K14 and K3."""
     from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
         PROBE_VARIANTS,
+        check_probe,
         quantize_int16,
         sinkhorn_halfstep,
         sinkhorn_halfstep_tiled,
@@ -71,13 +67,20 @@ def probe_table(torch, npad: int = NPAD, mpad: int = MPAD, sweeps: int = 10,
 
     def add(kernel, what, Q, fn):
         nbytes = Q.element_size() * Q.numel()
-        ms = _ms_per_call(torch, fn, sweeps)
+        ms = None if fn is None else ms_per_call(torch, fn, sweeps)
         rows.append(dict(kernel=kernel, what=what,
                          dtype=str(Q.dtype).rsplit(".", 1)[-1], bytes=nbytes,
-                         ms=ms, gb_s=nbytes / ms / 1e6))
+                         ms=ms, gb_s=None if ms is None else nbytes / ms / 1e6))
 
     for variant in PROBE_VARIANTS:
-        add("K15", variant, phi, lambda v=variant: sinkhorn_probe(phi, t, v))
+        for chunk in chunks:
+            try:
+                check_probe(npad, mpad, variant, chunk)
+            except ValueError:
+                add("K15", f"{variant} chunk={chunk}", phi, None)
+                continue
+            add("K15", f"{variant} chunk={chunk}", phi,
+                lambda v=variant, c=chunk: sinkhorn_probe(phi, t, v, c))
     add("K4", "half-step f32", phi, lambda: sinkhorn_halfstep(phi, t, 1e-10))
     add("K13", "half-step f32, TPU tiles", phi,
         lambda: sinkhorn_halfstep_tiled(phi, t, 1e-10))
@@ -94,7 +97,9 @@ def probe_table(torch, npad: int = NPAD, mpad: int = MPAD, sweeps: int = 10,
 
 def format_rows(rows) -> list[str]:
     return [f"{r['kernel']:4s} {r['what']:26s} {r['dtype']:8s} "
-            f"{r['ms']:8.3f} ms/sweep {r['gb_s']:8.1f} GB/s" for r in rows]
+            + ("does not trace on the TPU" if r["ms"] is None else
+               f"{r['ms']:8.3f} ms/sweep {r['gb_s']:8.1f} GB/s")
+            for r in rows]
 
 
 def main(argv=None) -> int:
@@ -105,16 +110,16 @@ def main(argv=None) -> int:
     ap.add_argument("--mpad", type=int, default=MPAD)
     ap.add_argument("--sweeps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunks", type=int_list, default=CHUNKS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_sk_dmaonly: torch.cuda.is_available() is False; this "
               "measures an NVIDIA GPU.")
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
+    card = card_line()
     print(f"{card}; npad {args.npad}, mpad {args.mpad}")
-    rows = probe_table(torch, args.npad, args.mpad, args.sweeps, args.seed)
+    rows = probe_table(torch, args.npad, args.mpad, args.sweeps, args.seed,
+                       args.chunks)
     for line in format_rows(rows):
         print(line)
     print(json.dumps({"card": card, "npad": args.npad, "mpad": args.mpad,

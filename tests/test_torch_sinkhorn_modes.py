@@ -225,25 +225,42 @@ def test_k14_plain_twin_matches_interpreted_bf16_kernel(n, m):
     assert float((s32 - s).abs().max() / s32.abs().max()) > 1e-4
 
 
-def test_k15_plain_probe_variants():
-    """K15's plain twin computes the three probe reductions: the column
-    sum of rows r % 32 == 0, w = phi t, and (w, phi^T w); float64
-    references of the same products, to fp32 summation rounding."""
+@pytest.mark.parametrize("chunk", [512, 1024])
+def test_k15_plain_probe_variants(monkeypatch, chunk):
+    """K15's plain twin returns the TPU probe's (8, max(mpad, chunk))
+    block, held against tools/bench_sk_dmaonly.py's probe itself (loaded
+    by path, pallas_call in interpret mode): row 0 of dmaonly (the chunks'
+    first rows, in order) exactly, wonly's chunk-folded w to 1e-6, wpart's
+    sum_c w_c^T phi_c to 1e-5; rows 1-7 are 0."""
+    import functools
+    import importlib.util
+    import os
+
+    from jax.experimental import pallas as pl
+
+    monkeypatch.setenv("NLE_JAX_CACHE_DIR", "off")
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "bench_sk_dmaonly.py")
+    spec = importlib.util.spec_from_file_location("tools_dmaonly", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
     rng = np.random.default_rng(13)
-    phi = rng.random((3000, 128)).astype(np.float32)
-    t = rng.random(128).astype(np.float32)
-    p64, t64 = phi.astype(np.float64), t.astype(np.float64)
+    npad, mpad = 4096, 128
+    phi = (rng.standard_normal((npad, mpad)) * 0.05 + 0.1).astype(np.float32)
+    t = rng.random(mpad).astype(np.float32)
     P, T = torch.from_numpy(phi), torch.from_numpy(t)
-    w, s = tsk.sinkhorn_probe(P, T, "dmaonly")
-    assert w is None
-    np.testing.assert_allclose(s.numpy(), p64[::32].sum(0), rtol=1e-6)
-    w, s = tsk.sinkhorn_probe(P, T, "wonly")
-    assert s is None
-    np.testing.assert_allclose(w.numpy(), p64 @ t64, rtol=1e-6)
-    w, s = tsk.sinkhorn_probe(P, T, "wpart")
-    np.testing.assert_allclose(s.numpy(), p64.T @ (p64 @ t64), rtol=1e-5)
+    for variant, rtol in (("dmaonly", 0.0), ("wonly", 1e-6),
+                          ("wpart", 1e-5)):
+        want = np.asarray(tool.make(variant, chunk, npad, mpad)(
+            jnp.asarray(phi), jnp.asarray(t)))
+        got = tsk.sinkhorn_probe(P, T, variant, chunk).numpy()
+        assert got.shape == want.shape == (8, max(mpad, chunk)), variant
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=0,
+                                   err_msg=variant)
     with pytest.raises(ValueError, match="variant"):
-        tsk.sinkhorn_probe(P, T, "dma")
+        tsk.sinkhorn_probe(P, T, "dma", chunk)
 
 
 def test_probe_tool_measures_only_the_card():
@@ -520,10 +537,10 @@ def test_cuda_sinkhorn_modes_match_plain_versions():
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
     for variant in tsk.PROBE_VARIANTS:
-        for a, b in zip(tsk.sinkhorn_probe(P, T, variant),
-                        tsk.sinkhorn_probe_plain(P, T, variant)):
-            if a is not None:
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        torch.testing.assert_close(
+            tsk.sinkhorn_probe(P, T, variant, 1024),
+            tsk.sinkhorn_probe_plain(P, T, variant, 1024),
+            rtol=0 if variant == "dmaonly" else 1e-5, atol=0)
     torch.cuda.synchronize()
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
         "sinkhorn_halfstep_tiled": 1, "sinkhorn_halfstep_bf16": 1,
