@@ -15,7 +15,9 @@
    PyTorch call computes the same function, that call, with CUDA events;
    each kernel's bound (the least time the card could take: bytes over
    3.35 TB/s or fp32 operations over 67 TFLOP/s) is computed from the same
-   inputs;
+   inputs. K6's Sb must also be bitwise symmetric, K6 and K7 bitwise
+   repeatable; K7 is held and timed on the 64-wide B the path passes (and
+   beside the TPU's 128-lane B), and K6's plan and scratch bytes printed;
 4. runs a small frame on device="cuda" and device="cpu" (>= 45 dB between
    them) and twice on the card (bitwise equal), and edits on the card with
    the filter the CPU trained;
@@ -70,8 +72,8 @@
    route past 2048 factor columns on a real train: the same frame with
    48 44 500 5 50 50 (m = 2078, mb 2112, mpad 2176) through the auto rule
    on the int16 route (K3) and the f32 route (K4), >= 45 dB apart, then K1
-   at p = 2112 and K3/K4 (and K13/K14 for [10a]) at mpad 2176 held on 2^20
-   of its rest pixels;
+   at p = 2112 and K3/K4 (and K13/K14 for [10a]) and K6/K7 at mpad 2176
+   held and timed on 2^20 of its rest pixels;
 10. the Sinkhorn modes: (a) K13 (NLE_SINKHORN_KERNEL=auto), K14 (the bf16
    preview branch) and K15's three probe variants (the TPU probe's (8,
    max(mpad, chunk)) block at chunk 1024; dmaonly exact) held against
@@ -122,9 +124,11 @@ MAIN_ARGS = (20, 30, 500.0, 10.0, 50, 50)   # rows, cols, hx, hy, iters, k
 WEIGHTS = [4, 3, 4, 1]
 U = 2.0 ** -24                                # fp32 unit roundoff
 # Tolerance of K6's Sb, a sum over N ~ 1 M rows, relative to the sum of
-# absolute terms. The kernel sums rows in fixed chunks and then the chunks in
-# order; plain cuBLAS blocks differently. Rounding puts both within ~1e-5 of
-# the exact sum; a dropped row tile or wrong index is O(1e-3) or more.
+# absolute terms. The kernel sums rows in 2,048-row register chains, then
+# the chains and the splits in order: within ~1e-5 of float64 at 1 MP and
+# at mpad 2176. Plain cuBLAS sums each entry in one long chain: ~1e-4 off at
+# 1 MP, ~4e-4 at mpad 2176 on 2^20 rows, so the float64 plain version is the
+# reference there. A dropped row tile or wrong index is O(1e-3) or more.
 GRAM_SUM_TOL = 2.5e-4
 # Tolerance of s = Q^T x (K3/K4), relative to |Q|^T |x|. The kernel sums each
 # column over a 1024-row block, then ~1000 block partials in order; cuBLAS
@@ -698,7 +702,7 @@ def train_routes(torch, _build, tag: str, frame: np.ndarray, args, routes):
         with knobs(NLE_SINKHORN_INT16=env):
             _, _, edit = train_filter(L, *args, device="cuda", grid=grid,
                                       packed_y=packed, edit_weights=WEIGHTS,
-                                      streaming=mode)
+                                      streaming=mode, pixel_order=False)
         outs[label] = recompose(lab, edit, grid.perm)
         torch.cuda.synchronize()
         st = counts[label] = dict(_build.LAUNCHES)
@@ -1228,6 +1232,128 @@ def ab_probes(torch, _build, record, npad: int, mpad: int) -> dict:
     return {"ab_cold": cold_counts, "ab_tools": tool_counts}
 
 
+def hold_scaled(torch, record, tag: str, phi, c, nb: int, mb: int,
+                kvec: int) -> dict:
+    """K6 and K7 on (phi, c) against their plain versions, timed beside
+    one PyTorch call of the same function: K6 within GRAM_SUM_TOL of
+    |c phi|^T |c phi| from its plain version evaluated in float64 (and, at
+    the 1 MP shapes, in fp32), its Sb bitwise symmetric, and both kernels
+    bitwise repeatable; K7 on the round_up(kvec, 32)-wide B the path passes, and
+    for continuity beside the TPU's 128-lane B. nb and mb are the rows
+    and columns that carry data (the bounds count their work). tag ""
+    records the rows (the 1 MP main path's shapes); any other tag returns
+    its readings as {kernel name: {key + tag: value}} for those rows."""
+    from nle_tpu_torch.ops.kernels.scaled_matmul_kernel import (
+        MATMUL_COL_ALIGN,
+        gram_plan,
+        scaled_gram,
+        scaled_gram_plain,
+        scaled_matmul,
+        scaled_matmul_plain,
+    )
+
+    npad, mpad = phi.shape
+    label = f" at mpad {mpad}" if tag else ""
+    plan = gram_plan(npad, mpad)
+    print(f"  K6 plan{label}: {plan.tiles} lower-triangle tiles x "
+          f"{plan.nsplit} splits of {plan.split_rows} rows, chains of "
+          f"{plan.chain_rows} rows; scratch {plan.scratch_bytes} B "
+          f"({plan.scratch_bytes / 1e6:.1f} MB; one mpad^2 partial per "
+          f"16,384 rows would be {-(-npad // 16384) * mpad * mpad * 4 / 1e6:.1f}"
+          f" MB)")
+    gk = scaled_gram(phi, c)
+    gk2 = scaled_gram(phi, c)
+    torch.cuda.synchronize()
+    if not torch.equal(gk, gk.T):
+        raise AssertionError(f"K6{label}: Sb is not bitwise symmetric")
+    if not torch.equal(gk, gk2):
+        raise AssertionError(f"K6{label}: two calls differ")
+    del gk2
+    # Against the plain version evaluated in float64 everywhere and, at the
+    # 1 MP shapes, also in fp32 as before: at 2^20 rows and mpad 2176 the
+    # fp32 plain version (one long cuBLAS chain) is itself 1.7x the
+    # tolerance away from float64, the kernel 0.04x.
+    p64, c64 = phi.double(), c.double()
+    g64 = scaled_gram_plain(p64, c64)
+    tol = GRAM_SUM_TOL * scaled_gram_plain(p64.abs(), c64.abs()) + 1e-30
+    del p64, c64
+    torch.cuda.empty_cache()
+    gp = scaled_gram_plain(phi, c)
+    parts = [(gk.double() - g64, tol)]
+    if not tag:
+        parts.append(((gk - gp).double(), tol))
+    err6 = check_parts(f"K6 scaled_gram{label} (float64 plain"
+                       f"{'' if tag else '; fp32 plain'})", parts)
+    print(f"  the fp32 plain version{label} against float64: "
+          f"max err/bound {float(((gp - g64).abs() / tol).max()):.3e}")
+    del gk, gp, g64, tol, parts
+    torch.cuda.empty_cache()
+    cphi = phi * c                        # pre-scaled, for the library call
+    nbytes6 = 4 * (npad * mpad + npad + mpad * mpad)
+    flops6 = nb * mb * (mb + 1)
+    k6 = (cuda_ms(torch, lambda: scaled_gram(phi, c)),
+          cuda_ms(torch, lambda: scaled_gram_plain(phi, c)), nbytes6, flops6,
+          cuda_ms(torch, lambda: torch.matmul(cphi.T, cphi)))
+
+    rng = np.random.default_rng(3)
+    kw = -(-kvec // MATMUL_COL_ALIGN) * MATMUL_COL_ALIGN
+    B128 = np.zeros((mpad, 128), np.float32)
+    B128[:mb, :kvec] = rng.standard_normal((mb, kvec)) * 1e-3
+    B128 = torch.from_numpy(B128).to(phi.device)
+    B = B128[:, :kw].contiguous()
+    errs = []
+    for b in (B, B128):
+        vk = scaled_matmul(phi, c, b)
+        vk2 = scaled_matmul(phi, c, b)
+        torch.cuda.synchronize()
+        if not torch.equal(vk, vk2):
+            raise AssertionError(f"K7{label}: two calls differ")
+        del vk2
+        errs.append(check(
+            f"K7 scaled_matmul{label} (B {b.shape[1]} wide)",
+            vk - scaled_matmul_plain(phi, c, b),
+            (2 * mpad + 4) * U * scaled_matmul_plain(
+                phi.abs(), c.abs(), b.abs()) + 1e-30))
+        del vk
+        torch.cuda.empty_cache()
+    err7 = (max(e[0] for e in errs), max(e[1] for e in errs))
+    nbytes7 = 4 * (npad * mpad + npad + mpad * kw + npad * kw)
+    k7 = (cuda_ms(torch, lambda: scaled_matmul(phi, c, B)),
+          cuda_ms(torch, lambda: scaled_matmul_plain(phi, c, B)), nbytes7,
+          2 * nb * mb * kvec, cuda_ms(torch, lambda: torch.matmul(cphi, B)))
+    ms128 = cuda_ms(torch, lambda: scaled_matmul(phi, c, B128))
+    lib128 = cuda_ms(torch, lambda: torch.matmul(cphi, B128))
+    print(f"  K7{label} on the TPU's 128-lane B: kernel {ms128:.3f} ms, "
+          f"library {lib128:.3f} ms")
+    del cphi
+    torch.cuda.empty_cache()
+    extras = {}
+    for name, repl, err, (ms, plain_ms, nbytes, flops, lib) in (
+            ("scaled_gram", "nle_tpu/ops/pallas/scaled_matmul_kernel.py:56",
+             err6, k6),
+            ("scaled_matmul",
+             "nle_tpu/ops/pallas/scaled_matmul_kernel.py:111", err7, k7)):
+        if not tag:
+            row = record(name, "nle_tpu_torch/csrc/scaled_matmul.cu", repl,
+                         err, ms, plain_ms, nbytes, flops, lib)
+        else:
+            bms, by = bound_ms(nbytes, flops)
+            print(f"  {name}{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+                  f" ms, library {lib:.3f} ms, bound {bms:.4f} ms ({by})")
+            row = {f"max_abs_err{tag}": err[0],
+                   f"err_over_bound{tag}": err[1], f"ms{tag}": ms,
+                   f"plain_ms{tag}": plain_ms, f"library_ms{tag}": lib,
+                   f"bound_ms{tag}": bms, f"bound_by{tag}": by}
+            extras[name] = row
+            continue
+        if name == "scaled_gram":
+            row["scratch_bytes"] = plan.scratch_bytes
+        else:
+            row["b_cols"] = kw
+            row["ms_b128"], row["library_ms_b128"] = ms128, lib128
+    return extras
+
+
 def main() -> int:
     import torch
 
@@ -1242,12 +1368,6 @@ def main() -> int:
     from nle_tpu_torch.ops.kernels.affinity_kernel import (
         affinity_matmul_kernel,
         affinity_matmul_plain,
-    )
-    from nle_tpu_torch.ops.kernels.scaled_matmul_kernel import (
-        scaled_gram,
-        scaled_gram_plain,
-        scaled_matmul,
-        scaled_matmul_plain,
     )
     from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
         carrier_crush_frac,
@@ -1412,35 +1532,8 @@ def main() -> int:
     del phi
 
     c = xk[:, None].contiguous()          # a real balancing vector
-    gk = scaled_gram(phib, c)
-    gp = scaled_gram_plain(phib, c)
-    err = check("K6 scaled_gram", gk - gp,
-                GRAM_SUM_TOL * scaled_gram_plain(phib.abs(), c.abs()) + 1e-30)
-    cphi = phib * c                       # pre-scaled, for the library call
-    record("scaled_gram", "nle_tpu_torch/csrc/scaled_matmul.cu",
-           "nle_tpu/ops/pallas/scaled_matmul_kernel.py:56", err,
-           cuda_ms(torch, lambda: scaled_gram(phib, c)),
-           cuda_ms(torch, lambda: scaled_gram_plain(phib, c)),
-           4 * (npad_b * mpad + npad_b + mpad * mpad), nb * mb * (mb + 1),
-           cuda_ms(torch, lambda: torch.matmul(cphi.T, cphi)))
-
-    rng = np.random.default_rng(3)
-    B = np.zeros((mpad, 128), np.float32)
-    B[:mb, :kvec] = rng.standard_normal((mb, kvec)) * 1e-3
-    B = torch.from_numpy(B).to(dev)
-    vk = scaled_matmul(phib, c, B)
-    vp = scaled_matmul_plain(phib, c, B)
-    err = check("K7 scaled_matmul", vk - vp,
-                (2 * mpad + 4) * U * scaled_matmul_plain(
-                    phib.abs(), c.abs(), B.abs()) + 1e-30)
-    record("scaled_matmul", "nle_tpu_torch/csrc/scaled_matmul.cu",
-           "nle_tpu/ops/pallas/scaled_matmul_kernel.py:111", err,
-           cuda_ms(torch, lambda: scaled_matmul(phib, c, B)),
-           cuda_ms(torch, lambda: scaled_matmul_plain(phib, c, B)),
-           4 * (npad_b * mpad + npad_b + mpad * 128 + npad_b * 128),
-           2 * nb * mb * kvec,
-           cuda_ms(torch, lambda: torch.matmul(cphi, B)))
-    del phib, gk, gp, vk, vp, c, xk, cphi
+    hold_scaled(torch, record, "", phib, c, nb, mb, kvec)
+    del phib, c, xk
     torch.cuda.empty_cache()
 
     # The streaming kernels at the same frame's shapes: the rest pixels
@@ -1747,7 +1840,8 @@ def main() -> int:
     rows_b = op.fb[:1 << 20]
     nb2 = rows_b.shape[0]
     print(f"  K1 at p={op.p} (m={op.m}, mb={op.mb}, mpad={op.mpad}) and "
-          f"K3/K4 on {nb2} rest pixels")
+          f"K3/K4/K6/K7 on {nb2} rest pixels")
+    mbw = op.mb
     phiw, err2112 = hold_k1("K1 at p=2112", op, rows_b, nb2, op.Uinv)
     k2_row = next(r for r in rows if r["name"] == "affinity_matmul_ptiled")
     k2_row["max_abs_err_p2112"], k2_row["err_over_bound_p2112"] = err2112
@@ -1774,7 +1868,10 @@ def main() -> int:
             ("K14 bf16 at mpad 2176", phiw.to(torch.bfloat16),
              lamw.contiguous(), "sinkhorn_halfstep_bf16", sinkhorn_halfstep,
              sinkhorn_halfstep_plain)):
-        _, errw = hold_halfstep(torch, label, Q, tq_w, eps, kernel, plain)
+        xw, errw = hold_halfstep(torch, label, Q, tq_w, eps, kernel, plain)
+        if label.startswith("K4"):
+            cw = xw[:, None].contiguous()   # a real balancing vector for K6/K7
+        del xw
         row = next((r for r in rows if r["name"] == row_name), None)
         if row is None:
             row = wide10.setdefault(row_name, {})
@@ -1789,7 +1886,12 @@ def main() -> int:
         print(f"  {label}: kernel {row['ms_mpad2176']:.3f} ms, plain "
               f"{row['plain_ms_mpad2176']:.3f} ms, bound {bw:.4f} ms ({byw})")
         del Q
-    del q16w, phiw, lamw
+    del q16w, lamw
+    torch.cuda.empty_cache()
+    for name, extra in hold_scaled(torch, record, "_mpad2176", phiw, cw, nb2,
+                                   mbw, WIDE_ARGS[5]).items():
+        next(r for r in rows if r["name"] == name).update(extra)
+    del phiw, cw
     torch.cuda.empty_cache()
     print(f"[9] dense sampling grids: {time.perf_counter() - t9:.1f} s")
 

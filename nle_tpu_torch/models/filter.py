@@ -175,7 +175,7 @@ class NLEFilter:
         out = train_filter(
             channel, n_row_samples, n_col_samples, hx, hy, n_sinkhorn_iter,
             n_eigen_vectors, device=self.device, eps=self._eps, grid=grid,
-            packed_y=packed_y, edit_weights=edit_weights)
+            packed_y=packed_y, edit_weights=edit_weights, pixel_order=False)
         self._trained = TrainedFilter(out[0], out[1], nrows, ncols,
                                       perm=grid.perm)
         if edit_weights is not None:

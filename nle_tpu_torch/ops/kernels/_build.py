@@ -164,7 +164,7 @@ def _declare(lib) -> None:
         "nle_ab_tiles": [p, p, p, p, p, i, i, i, i, f, p],
         "nle_ab_2stream": [p, p, p, i, i, i, i, i, p],
         "nle_sinkhorn_nblocks": [i],
-        "nle_scaled_gram": [p, p, p, p, i, i, i, i, p],
+        "nle_scaled_gram": [p, p, p, p, i, i, i, i, i, p],
         "nle_scaled_matmul": [p, p, p, p, i, i, i, p],
         "nle_stream_nblocks": [i],
         "nle_stream_halfstep": [p, p, p, p, p, p, p, i, i, f, f, f, i, p],

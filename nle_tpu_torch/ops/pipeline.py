@@ -3,7 +3,9 @@ the dense path the 1 MP enhance takes).
 
 Composition (reference NLEFilter::trainFilter, src/filter.cpp:480-512):
   sample -> Ka (f64 host) + eigh -> Nystrom extension -> Sinkhorn
-  -> orthogonalize (f64 host chain) -> eigenvectors, packed order.
+  -> orthogonalize (f64 host chain) -> eigenvectors, scattered to pixel
+  order unless the caller asks for the packed one (train_filter's
+  pixel_order, as in nle_tpu).
 
 Everything on the device runs in packed [selected; rest] order. Stage 1
 and the m x m chain are float64 NumPy/SciPy on the host; every N-scale
@@ -53,6 +55,7 @@ from nle_tpu_torch.ops.affinity import (
 )
 from nle_tpu_torch.ops.kernels._common import round_up
 from nle_tpu_torch.ops.kernels.scaled_matmul_kernel import (
+    MATMUL_COL_ALIGN,
     scaled_gram,
     scaled_matmul,
 )
@@ -339,14 +342,15 @@ def _stage2b_dense_body(factor, c_rest, va_grt, *, n: int, mb: int):
         top = va_grt[:p]
         grt = va_grt[p:]
         k = grt.shape[1]
-        grt_pad = grt.new_zeros((phib_pad.shape[1], round_up(k, 128)))
+        grt_pad = grt.new_zeros((phib_pad.shape[1],
+                                 round_up(k, MATMUL_COL_ALIGN)))
         grt_pad[:mb, :k] = grt
         vb = scaled_matmul(phib_pad, c_rest, grt_pad)[:n - p, :k]
         return torch.cat([top, vb], dim=0)
     k = va_grt.shape[1] // 2
     Va = va_grt[:, :k]
     GrT = va_grt[:, k:]
-    grt_pad = GrT.new_zeros((factor.shape[1], round_up(k, 128)))
+    grt_pad = GrT.new_zeros((factor.shape[1], round_up(k, MATMUL_COL_ALIGN)))
     grt_pad[:mb, :k] = GrT
     V = scaled_matmul(factor, c_rest, grt_pad)[:n, :k]
     V[:mb] += Va
@@ -457,15 +461,24 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
                  hy: float, n_sinkhorn_iter: int = 10, n_eig_vectors: int = 5,
                  *, device, eps: float | None = None,
                  grid: SampleGrid | None = None, packed_y=None,
-                 edit_weights=None, streaming: bool | None = None):
+                 edit_weights=None, streaming: bool | None = None,
+                 pixel_order: bool = True):
     """Train the nonlocal filter on one channel (H, W) on `device`.
 
-    Returns (eigvecs (N, k) in packed [selected; rest] order, eigvals (k,)),
-    both float32 on the device; with edit_weights, also the first edit's
-    filtered u8 channel (packed order), fused into stage 2b. packed_y: the
-    packed channel already on the device (skips the upload). streaming:
-    True/False forces the phi-free or the dense stage 2; None applies
+    Returns (eigvecs (N, k), eigvals (k,)), both float32 on the device.
+    The rows of eigvecs are in pixel order (row-major over the channel, the
+    reference's `m_eigvecs = P * V`, src/filter.cpp:502) by default, or in
+    the packed [selected; rest] order with pixel_order=False, which callers
+    that hold the SampleGrid (the model layer) use. edit_weights: also the
+    first edit's filtered u8 channel (packed order), fused into stage 2b;
+    it requires pixel_order=False, as in nle_tpu. packed_y: the packed
+    channel already on the device (skips the upload). streaming: True/False
+    forces the phi-free or the dense stage 2; None applies
     resolve_streaming's rule."""
+    if edit_weights is not None and pixel_order:
+        raise ValueError(
+            "edit_weights requires pixel_order=False (the caller holds "
+            "the SampleGrid and unscatters the u8 result on the host).")
     dev = resolve_device(device)
     channel_np = np.asarray(channel)
     if eps is None:
@@ -496,11 +509,14 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
     stage1 = torch.from_numpy(pack_stage1(Um64, lam64, mb=mb)).to(dev)
 
     if resolve_streaming(streaming, dev, n, mb):
-        return _train_streaming(y, rr, cc, stage1, sw, pw, Um64,
-                                lam64, p=p, m=m, mb=mb,
-                                n_sinkhorn_iter=n_sinkhorn_iter,
-                                n_eig_vectors=n_eig_vectors, eps=float(eps),
-                                edit_weights=edit_weights)
+        out = _train_streaming(y, rr, cc, stage1, sw, pw, Um64,
+                               lam64, p=p, m=m, mb=mb,
+                               n_sinkhorn_iter=n_sinkhorn_iter,
+                               n_eig_vectors=n_eig_vectors, eps=float(eps),
+                               edit_weights=edit_weights)
+        if pixel_order:
+            return _pixel_rows(out[0], grid), out[1]
+        return out
 
     with stage("Nystrom approximation + Sinkhorn"):
         rc, sb, factor, c_rest = train_filter_stage2a(
@@ -529,11 +545,17 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
     with stage("Stage 2b"):
         if edit_weights is None:
             V = _stage2b_dense_body(factor, c_rest, va_grt, n=n, mb=mb)
-            return V, S
+            return (_pixel_rows(V, grid) if pixel_order else V), S
         fs = transform_eigenvalues(S, edit_weights)
         V, edit_out = train_filter_stage2b_edit(
             factor, c_rest, va_grt, packed_y, fs, n=n, mb=mb)
     return V, S, edit_out
+
+
+def _pixel_rows(V, grid: SampleGrid):
+    """Packed rows -> pixel order: a gather by the inverse permutation,
+    out[i] = V[inv_perm[i]] (nle_tpu's _scatter_rows)."""
+    return V[torch.from_numpy(grid.unpack_indices()).to(V.device)]
 
 
 # Peak device bytes of the dense stage 2 per byte of the padded f32 phi, on

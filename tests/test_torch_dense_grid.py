@@ -298,7 +298,8 @@ def test_streaming_train_matches_jax_on_a_dense_grid(dense_grid):
     L, grid = dense_grid
     Vj, Sj = jtrain_filter(L, 48, 44, streaming=True, pixel_order=False,
                            **KW)
-    V, S = train_filter(L, 48, 44, device="cpu", streaming=True, **KW)
+    V, S = train_filter(L, 48, 44, device="cpu", streaming=True,
+                        pixel_order=False, **KW)
     np.testing.assert_allclose(S.numpy(), np.asarray(Sj), rtol=1e-4)
     y = L.reshape(-1)[grid.perm]
     want = np.asarray(japply_filter(Vj, jtransform(Sj, jnp.asarray(WEIGHTS)),
@@ -325,7 +326,8 @@ def _edits(L, grid, eps, routes):
         torch, L, grid, args, WEIGHTS, torch.device("cpu"), eps=eps)[0]}
     for label, mode in routes:
         out[label] = train_filter(L, *args, device="cpu", eps=eps,
-                                  edit_weights=WEIGHTS, streaming=mode)[2]
+                                  edit_weights=WEIGHTS, streaming=mode,
+                                  pixel_order=False)[2]
     return {k: v.numpy() for k, v in out.items()}
 
 

@@ -235,7 +235,7 @@ def test_streaming_train_filter_matches_jax(small_channel):
     Vj, Sj = jtrain_filter(small_channel, 5, 5, streaming=True,
                            pixel_order=False, **kw)
     V, S = train_filter(small_channel, 5, 5, device="cpu", streaming=True,
-                        **kw)
+                        pixel_order=False, **kw)
     Vj, V = np.asarray(Vj), V.numpy()
     np.testing.assert_allclose(S.numpy(), np.asarray(Sj), rtol=1e-4,
                                atol=1e-7)
@@ -257,7 +257,8 @@ def test_streaming_and_dense_trains_agree_in_the_port(small_channel):
     y = torch.from_numpy(small_channel.reshape(-1)[grid.perm])
     out = {}
     for mode in (False, True):
-        V, S = train_filter(small_channel, 5, 5, streaming=mode, **kw)
+        V, S = train_filter(small_channel, 5, 5, streaming=mode,
+                            pixel_order=False, **kw)
         out[mode] = apply_filter(V, transform_eigenvalues(
             S, [1.0, 1.6, 1.3, 1.1]), y).numpy()
     assert np.abs(out[True] - out[False]).max() < 0.5
@@ -273,7 +274,8 @@ def test_streaming_tiny_and_full_grid_edges_match_jax(shape, grid_rc):
               n_eig_vectors=min(3, shape[0] * shape[1] - 1))
     Vj, Sj = jtrain_filter(chan, *grid_rc, streaming=True, pixel_order=False,
                            **kw)
-    V, S = train_filter(chan, *grid_rc, device="cpu", streaming=True, **kw)
+    V, S = train_filter(chan, *grid_rc, device="cpu", streaming=True,
+                        pixel_order=False, **kw)
     np.testing.assert_allclose(S.numpy(), np.asarray(Sj), rtol=1e-4,
                                atol=1e-7)
     np.testing.assert_allclose(np.abs(V.numpy()), np.abs(np.asarray(Vj)),
