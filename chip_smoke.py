@@ -6,7 +6,9 @@
 1. requires CUDA and prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from nle_tpu_torch/csrc (one nvcc per source,
    all started together) and prints the build time and ptxas'
-   register/spill lines;
+   register/spill lines, and the SASS instructions of each streaming
+   kernel's entry loop per entry; K8's one-build kernel must hold one
+   MUFU.EX2 per entry its row groups build (one barrier a group);
 3. checks each kernel against its plain PyTorch version on the card at the
    1 MP main path's shapes (real data: the rock2-parameter frame below),
    each within a stated error bound (the streaming kernels K8, K10 and
@@ -18,6 +20,7 @@
    inputs. K6's Sb must also be bitwise symmetric, K6 and K7 bitwise
    repeatable; K7 is held and timed on the 64-wide B the path passes (and
    beside the TPU's 128-lane B), and K6's plan and scratch bytes printed;
+   the half-step (K8, and K9 in [9a]) must be bitwise repeatable;
 4. runs a small frame on device="cuda" and device="cpu" (>= 45 dB between
    them) and twice on the card (bitwise equal), and edits on the card with
    the filter the CPU trained;
@@ -40,13 +43,17 @@
    its peak device memory must stay below 256 B/pixel; the warm run prints
    train and apply seconds. Then K8 (unit_x and a real half-step), K10,
    K11 and K12 are held against their float64 plain versions on this
-   frame's own operands (q ~ 32 M rest pixels, mpad 384);
+   frame's own operands (q ~ 32 M rest pixels, mpad 384), and K8 timed
+   there; the profiled warm call must launch K8's one-build kernel once
+   per half-step, the reduction of its partials, and no two-pass K9 (also
+   in [9a]; a profile without device events fails);
 8. cross-path checks: (a) the factored path on the card vs the CPU
    (>= 45 dB) and twice on the card (bitwise) on a 128x192 frame; (b) the
    factored path vs the dense main path at 1 MP (>= 45 dB); (c)
    train_filter(streaming=True) vs streaming=False on a 2000x2000 frame
    with the rock2 parameters (>= 45 dB on the edit), the streaming run's
-   counts proving it took K8, K12 and K1 and no dense kernel; (d) the
+   counts proving it took K8, K12 and K1 and no dense kernel, and K8 held
+   against its float64 plain version on that frame's operands; (d) the
    streaming auto rule: a frame at ~92% of the phi limit it computes on
    this card runs dense through NLEFilter's default (no K8), on the split
    int16 route and on the assembled f32 route, without running out of
@@ -59,7 +66,10 @@
    pass and the apply), K11, K12 and no dense kernel and no K8, peak below
    256 B/pixel; K9, K10, K11 and K12 held against their float64 plain
    versions on that frame's own operands and timed there (rows for K9 and
-   for K10-K12 at that Ppad); (b) NLEFilter(device="cuda") at 1 MP with
+   for K10-K12 at that Ppad); K9's two passes, which serve Ppad past
+   4096, held the same way on its first 2^20 rest pixels with the samples
+   zero-padded to Ppad 4224 (bitwise repeatable, each launch counted),
+   timed, and their entry loops counted into K9's row; (b) NLEFilter(device="cuda") at 1 MP with
    40 30 500 10 50 50 (p = 1200): K1 at K2's contract, K3, K6, K7, its
    edit >= 45 dB from the assembled f32 route's (K4), and K1 held and
    timed at p = 1200 (the K2 row); (c) train_filter(streaming=True), the
@@ -309,15 +319,18 @@ def path_operands(torch, L: np.ndarray, args, dev):
                            fb=f[p:], sw=sw, pw=pw)
 
 
-def hold_streaming(torch, op, eps: float, label: str):
+def hold_streaming(torch, op, eps: float, label: str,
+                   halfstep_only: bool = False):
     """The half-step (K8, or past Ppad 1792 K9, whose unit_x pass is K10
     with x = mask), K10 and K11 (R = 1, 2, 3) and K12 on the path's own
     operands `op`, each held against its plain version evaluated in float64
     on the same inputs, so each bound covers the kernel's own rounding.
-    Returns ({kernel: (max_abs_err, max err/bound)}, the f32 operands for
-    timing)."""
+    The half-step must also be bitwise repeatable (two launches on the
+    same inputs). halfstep_only: the half-step alone. Returns ({kernel: (max_abs_err,
+    max err/bound)}, the f32 operands for timing)."""
     from nle_tpu_torch.ops.kernels.streaming_kernel import (
         MAX_STREAM_P_FUSED,
+        halfstep_plan,
         pad_stream_operands,
         streaming_ap,
         streaming_ap_plain,
@@ -356,6 +369,12 @@ def hold_streaming(torch, op, eps: float, label: str):
     u = pad(op.Uinv @ (op.lam * (op.Um.sum(dim=0) + op.Uinv.T @ ap0[:p])),
             (0, ppad - p)).contiguous()
     xk, apk = streaming_halfstep(fa_rows, fb_cols, mask, u, sw, pw, eps)
+    xk2, apk2 = streaming_halfstep(fa_rows, fb_cols, mask, u, sw, pw, eps)
+    if not (torch.equal(xk, xk2) and torch.equal(apk, apk2)):
+        raise AssertionError(f"{label} {kh}: two launches differ")
+    del xk2, apk2
+    print(f"  {label} {kh}: {halfstep_plan(qpad, ppad)}; two launches "
+          "bitwise equal")
     xp, _ = streaming_halfstep_plain(fa64, fb64, mask.to(f64), u.to(f64), sw,
                                      pw, eps)
     # Rows for K10: the factored projection's input (x y here), x itself,
@@ -379,6 +398,8 @@ def hold_streaming(torch, op, eps: float, label: str):
     # chain and the entries' rounding; x2 for the second order.
     hold(half, f"{kh} x", xk - xp, 2 * (2 * ppad + 4) * U * kref[6] * xp * xp)
     hold(half, f"{kh} ap", apk[:p] - ref[1], S_SUM_TOL * ref[4])
+    if halfstep_only:
+        return out, None
     for R in (1, 2, 3):
         hold("streaming_ap", f"K10 R={R}",
              streaming_ap(fa_rows, fb_cols, X[:R].contiguous(), sw, pw)[:, :p]
@@ -403,16 +424,101 @@ def hold_streaming(torch, op, eps: float, label: str):
     return out, timing
 
 
+# K9's two passes: past the one-build kernel's Ppad 4096 the wrapper runs
+# them (streaming_kernel.halfstep_route). Held on [9a]'s first 2^20 rest
+# pixels against its samples zero-padded to this Ppad.
+TWO_PASS_PPAD = 4224
+TWO_PASS_ROWS = 1 << 20
+
+
+def hold_two_pass(torch, _build, t, eps: float, sass: dict,
+                  issue_rate: float) -> dict:
+    """K9's two passes on [9a]'s operands `t` (the pad samples have u = 0,
+    so x and ap[:p] are the half-step of the real ones): x and ap held
+    against the float64 plain version at hold_streaming's bounds, two
+    launches bitwise equal and each counted once, then timed. Returns the
+    K9 row's two-pass fields."""
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        halfstep_route,
+        streaming_ap_plain,
+        streaming_atb_plain,
+        streaming_halfstep_ptiled,
+        streaming_halfstep_ptiled_plain,
+    )
+
+    pad = torch.nn.functional.pad
+    ppad, p, sw, pw = TWO_PASS_PPAD, t["p"], t["sw"], t["pw"]
+    if halfstep_route(ppad) != "two_pass":
+        raise AssertionError(f"Ppad {ppad} does not route to two passes")
+    fa = pad(t["fa_rows"], (0, ppad - t["ppad"])).contiguous()
+    fb = t["fb_cols"][:, :TWO_PASS_ROWS].contiguous()
+    mask = t["mask"][:, :TWO_PASS_ROWS].contiguous()
+    u = pad(t["u"], (0, ppad - t["ppad"])).contiguous()
+    q = int(mask.sum())
+    _build.reset_launches()
+    x, ap = streaming_halfstep_ptiled(fa, fb, mask, u, sw, pw, eps)
+    x2, ap2 = streaming_halfstep_ptiled(fa, fb, mask, u, sw, pw, eps)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    print(f"  K9 two passes at Ppad {ppad} on {TWO_PASS_ROWS} rows: launches "
+          f"{counts}; two launches bitwise equal: "
+          f"{bool(torch.equal(x, x2) and torch.equal(ap, ap2))}")
+    if counts != {"streaming_halfstep_ptiled": 2}:
+        raise AssertionError(f"K9 two passes: launches {counts}")
+    if not (torch.equal(x, x2) and torch.equal(ap, ap2)):
+        raise AssertionError("K9 two passes: two launches differ")
+    del x2, ap2
+    f64 = torch.float64
+    fa64, fb64 = fa.to(f64), fb.to(f64)
+    xp, _ = streaming_halfstep_ptiled_plain(fa64, fb64, mask.to(f64),
+                                            u.to(f64), sw, pw, eps)
+    kabs = streaming_atb_plain(fa64, fb64, u.abs()[None].to(f64), sw, pw)[0]
+    ref = streaming_ap_plain(fa64, fb64, torch.stack([x, x.abs()]).to(f64),
+                             sw, pw)[:, :p]
+    ex = check(f"K9 two passes x (Ppad {ppad})", x - xp,
+               2 * (2 * ppad + 4) * U * kabs * xp * xp)
+    eap = check(f"K9 two passes ap (Ppad {ppad})", ap[:p] - ref[0],
+                S_SUM_TOL * ref[1])
+    del fa64, fb64, xp, kabs, ref
+    entries = q * p
+    out = {
+        "max_abs_err_two_pass": max(ex[0], eap[0]),
+        "err_over_bound_two_pass": max(ex[1], eap[1]),
+        "launches_two_pass": counts["streaming_halfstep_ptiled"],
+        "ms_two_pass": cuda_ms(torch, lambda: streaming_halfstep_ptiled(
+            fa, fb, mask, u, sw, pw, eps)),
+        "plain_ms_two_pass": cuda_ms(
+            torch, lambda: streaming_halfstep_ptiled_plain(
+                fa, fb, mask, u, sw, pw, eps), reps=1)}
+    out["bound_ms_two_pass"], out["bound_by_two_pass"] = bound_ms(
+        4 * (5 * TWO_PASS_ROWS + 5 * ppad), (ENTRY_FLOPS + 4) * entries)
+    # Its entry loops: pass 1 (K11's kernel with the reciprocal) and pass 2
+    # (K10's), one expf each: two builds of every entry.
+    keys = ("stream_atb_kernelILi1ELb1E", "stream_ap_kernelILi1E")
+    if all(k in sass for k in keys):
+        per = sum(sass[k][0] / sass[k][1] for k in keys)
+        out["sass_per_entry_two_pass"] = per
+        out["expf_per_entry_two_pass"] = len(keys)
+        out["issue_ms_two_pass"] = entries * per / issue_rate * 1e3
+    print(f"  K9 two passes: kernel {out['ms_two_pass']:.3f} ms, plain "
+          f"{out['plain_ms_two_pass']:.3f} ms, bound "
+          f"{out['bound_ms_two_pass']:.4f} ms ({out['bound_by_two_pass']}); "
+          f"entry loops {out.get('sass_per_entry_two_pass', float('nan')):.1f}"
+          " instructions per entry (two expf)")
+    return out
+
+
 # Host-side stages of one train_and_enhance call (utils.logging.stage
 # names, each a torch.profiler range).
 STAGES = ("BGR to Lab", "Computing kernel", "Nystrom approximation + Sinkhorn",
           "Orthogonalize", "Stage 2b", "Fetch edit", "Lab to BGR")
 
 
-def profile_call(torch, label: str, fn, mp: float) -> None:
+def profile_call(torch, label: str, fn, mp: float) -> list:
     """Profile one warm call of fn: wall, device time (the sum of the
     device-side events; one stream, so they do not overlap), busy share,
-    host ms per stage and the device ms per kernel."""
+    host ms per stage and the device ms per kernel. Returns [(device ms,
+    launches, kernel name)], the largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -452,6 +558,7 @@ def profile_call(torch, label: str, fn, mp: float) -> None:
     print(f"  outside the stages: {wall_ms - sum(stages.values()):.1f} ms")
     for ms, count, key in kernels[:10]:
         print(f"  device {ms:9.3f} ms  x{count:<4d} {key[:70]}")
+    return kernels
 
 
 STREAMING_KERNELS = ("streaming_halfstep", "streaming_halfstep_ptiled",
@@ -475,9 +582,14 @@ def recompose(lab, edit_packed, perm):
     return lab_to_bgr_u8_np(out)
 
 
-# Mangled-name pieces of the kernels whose entry loop chip_smoke counts: K8,
-# K10 (R = 1; also K9's pass 2), K11 (R = 1) and K9's pass 1.
-SASS_KEYS = ("stream_halfstep_kernel", "stream_ap_kernelILi1E",
+# Mangled-name pieces of the kernels whose entry loop chip_smoke counts:
+# K8's one-build kernel in each of its instantiations (cols, rows; the
+# csrc's HS_TILES), K10 (R = 1), K11 (R = 1) and the two-pass K9's first
+# pass (K11's kernel with the reciprocal; its second pass is K10's).
+SASS_KEYS = ("stream_halfstep_kernelILi4ELi8E",
+             "stream_halfstep_kernelILi4ELi4E",
+             "stream_halfstep_kernelILi8ELi4E",
+             "stream_halfstep_kernelILi8ELi2E", "stream_ap_kernelILi1E",
              "stream_atb_kernelILi1ELb0E", "stream_atb_kernelILi1ELb1E")
 
 
@@ -485,7 +597,8 @@ def sass_per_entry(lib_path: str) -> dict:
     """fp32-pipe issue cost of one affinity entry in each streaming
     kernel's inner loop: the SASS instructions of the innermost loop that
     holds the exp (MUFU.EX2), over the number of exps in it. Returns
-    {kernel: (instructions, exps)}; empty when cuobjdump is missing."""
+    {kernel: (instructions, exps, barriers, instructions of the finalizing
+    warp's branch)}; empty when cuobjdump is missing."""
     import re
     import shutil
 
@@ -523,9 +636,42 @@ def sass_per_entry(lib_path: str) -> dict:
         if not loops:
             continue
         a, b = min(loops, key=lambda ab: ab[1] - ab[0])
-        body = [x for x in insts[a:b + 1] if x.split()[0] != "NOP"]
-        found[key] = (len(body), sum("MUFU.EX2" in x for x in body))
+        # The finalizing warp's branch (K8: x = 1 / w, MUFU.RCP, for one
+        # warp of the block): what a forward branch inside the loop skips
+        # when that holds the reciprocal and no exp.
+        final = set()
+        for i, t in branches:
+            if a <= i <= b and t in addrs and i < addrs[t] <= b + 1:
+                skipped = insts[i + 1:addrs[t]]
+                if (any("MUFU.RCP" in x for x in skipped)
+                        and not any("MUFU.EX2" in x for x in skipped)):
+                    final.update(range(i + 1, addrs[t]))
+        body = [k for k in range(a, b + 1) if insts[k].split()[0] != "NOP"]
+        found[key] = (len(body),
+                      sum("MUFU.EX2" in insts[k] for k in body),
+                      sum("BAR.SYNC" in insts[k] for k in body),
+                      sum(k in final for k in body))
     return found
+
+
+def onebuild_key(qpad: int, ppad: int) -> str:
+    """SASS_KEYS' name of K8's one-build kernel as halfstep_plan launches
+    it at (qpad, ppad)."""
+    from nle_tpu_torch.ops.kernels.streaming_kernel import halfstep_plan
+
+    plan = halfstep_plan(qpad, ppad)
+    return f"stream_halfstep_kernelILi{plan.cols}ELi{plan.rows}E"
+
+
+def onebuild_entries(key: str, nbar: int) -> int | None:
+    """Entries K8's one-build kernel builds in a loop that holds nbar
+    barriers: each row group (one barrier) builds rows x cols entries, the
+    template arguments in the mangled name ("...kernelILi4ELi4E"). None
+    for the other kernels."""
+    import re
+
+    m = re.search(r"stream_halfstep_kernelILi(\d+)ELi(\d+)E", key)
+    return None if m is None else nbar * int(m.group(1)) * int(m.group(2))
 
 
 def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
@@ -615,9 +761,26 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
     if not np.array_equal(cold, warm):
         raise AssertionError(f"{tag}: cold and warm runs differ")
     del f, cold, warm
-    profile_call(torch, f"  profiled warm {mp:.0f} MP train_and_enhance",
-                 lambda: NLEFilter(device="cuda", factored=True)
-                 .train_and_enhance(big, *args, weights=WEIGHTS), mp)
+    kernels = profile_call(
+        torch, f"  profiled warm {mp:.0f} MP train_and_enhance",
+        lambda: NLEFilter(device="cuda", factored=True).train_and_enhance(
+            big, *args, weights=WEIGHTS), mp)
+    # One entry-building launch per half-step: K8's one-build kernel once
+    # for each of the 2 x iters half-steps (K9 included), each followed by
+    # the fixed-order reduction of its partials, and no two-pass K9 (K11's
+    # kernel with the reciprocal epilogue). A profile with no device
+    # events fails here.
+    built = sum(n for _, n, k in kernels if "stream_halfstep_kernel" in k)
+    reduced = sum(n for _, n, k in kernels if "reduce_partials" in k)
+    two_pass = sum(n for _, n, k in kernels
+                   if "stream_atb_kernel<1, true>" in k)
+    print(f"  {built} launches of K8's one-build kernel for {2 * iters} "
+          f"half-steps, {reduced} of the partials' reduction (all kernels); "
+          f"{two_pass} of the two-pass K9's first pass")
+    if built != 2 * iters or reduced < built or two_pass:
+        raise AssertionError(f"{tag}: {built} one-build launches for "
+                             f"{2 * iters} half-steps, {reduced} reductions, "
+                             f"{two_pass} two-pass")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     L = bgr_to_lab_u8_np(big)[..., 0].astype(np.float32)
@@ -625,7 +788,7 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
     op = path_operands(torch, L, args, torch.device("cuda"))
     del L
     errs, timing = hold_streaming(torch, op, 1e-10, f"{mp:.0f} MP")
-    timing.update(p=op.p, mb=op.mb, mpad=op.mpad)
+    timing.update(p=op.p, mb=op.mb, mpad=op.mpad, sw=op.sw, pw=op.pw)
     del op
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -660,13 +823,18 @@ def cross_paths(torch, NLEFilter, _build, img, dense_out) -> dict:
     if not db >= 45.0:
         raise AssertionError(f"factored vs dense {db:.2f} dB < 45")
 
-    outs, counts, _ = train_routes(
+    outs, counts, (_, L, _) = train_routes(
         torch, _build, "[8c]", structured_frame(*STREAM_SHAPE, seed=9),
         MAIN_ARGS, (("streaming", True, None), ("dense", False, None)))
     db = psnr(outs["streaming"], outs["dense"])
     print(f"  streaming vs dense edit: {db:.2f} dB")
     if not db >= 45.0:
         raise AssertionError(f"[8c] streaming vs dense {db:.2f} dB < 45")
+    # K8 on this frame's own operands, held to float64.
+    hold_streaming(torch, path_operands(torch, L, MAIN_ARGS,
+                                        torch.device("cuda")), 1e-10,
+                   "[8c] 4 MP", halfstep_only=True)
+    torch.cuda.empty_cache()
     return counts["streaming"]
 
 
@@ -1423,10 +1591,22 @@ def main() -> int:
     # Thread instructions the card issues per second: 132 SMs x 4
     # schedulers x 32 lanes x the maximum SM clock.
     issue_rate = 132 * 128 * float(clock) * 1e6
-    for key, (ninst, nexp) in sass.items():
+    for key, (ninst, nexp, nbar, nfinal) in sass.items():
         print(f"  sass: {key} inner loop {ninst} instructions for {nexp} "
               f"affinity entries = {ninst / nexp:.1f} per entry "
               f"(max SM clock {clock} MHz)")
+        entries = onebuild_entries(key, nbar)
+        if entries is not None:
+            print(f"  sass: {key}: {(ninst - nfinal) / nexp:.1f} per entry "
+                  f"outside the finalizing warp's branch ({nfinal} "
+                  "instructions, one warp of the block)")
+            # One build per entry: the loop's row groups (one barrier
+            # each) build `entries` entries with one MUFU.EX2 apiece.
+            print(f"  sass: {key}: {nbar} row groups = {entries} entries, "
+                  f"{nexp} MUFU.EX2 = {nexp / max(entries, 1):.2f} per entry")
+            if nexp != entries:
+                raise AssertionError(f"{key}: {nexp} MUFU.EX2 for {entries} "
+                                     "entries: not one build per entry")
     if not sass:
         print("  sass: not measured (no cuobjdump)")
 
@@ -1472,6 +1652,10 @@ def main() -> int:
             # Each loop builds an entry once, with one MUFU.EX2 (expf).
             rows[-1]["expf_per_entry"] = len(keys)
             rows[-1]["sass_per_entry"] = per
+            # K8: the same loop outside the finalizing warp's branch, what
+            # every other warp of the block issues.
+            rows[-1]["sass_per_entry_other_warps"] = sum(
+                (sass[k][0] - sass[k][3]) / sass[k][1] for k in keys)
             rows[-1]["issue_ms_entry_loop"] = issue_ms
             print(f"  {name}: entry loops {per:.1f} instructions and "
                   f"{len(keys)} expf per entry -> issue time {issue_ms:.3f} ms")
@@ -1553,7 +1737,7 @@ def main() -> int:
            cuda_ms(torch, lambda: streaming_halfstep_plain(
                fa_rows, fb_cols, mask, u, sw, pw, eps)),
            4 * (3 * qpad + 2 * qpad + 5 * ppad), (ENTRY_FLOPS + 4) * entries,
-           sass_key="stream_halfstep_kernel", entries=entries)
+           sass_key=onebuild_key(qpad, ppad), entries=entries)
     rows[-1]["unit_x_ms"] = unit_ms
     print(f"  streaming_halfstep unit_x: kernel {unit_ms:.3f} ms")
     record("streaming_ap", "nle_tpu_torch/csrc/streaming.cu",
@@ -1662,8 +1846,30 @@ def main() -> int:
                      img, *MAIN_ARGS, weights=WEIGHTS), mp)
 
     # -- [7] the capacity path at 32 MP; [8] cross-path checks ------------
-    cap_counts, cap_errs = capacity_path(torch, NLEFilter, _build, "[7]",
-                                         CAP_SHAPE, CAP_ARGS, seed=7)[:2]
+    cap_counts, cap_errs, t = capacity_path(torch, NLEFilter, _build, "[7]",
+                                            CAP_SHAPE, CAP_ARGS, seed=7)
+    # K8 at 32 MP, its busiest path (2 x iters launches a train).
+    fa_rows, fb_cols, mask, u = t["fa_rows"], t["fb_cols"], t["mask"], t["u"]
+    qpad, ppad = t["qpad"], t["ppad"]
+    entries = t["q"] * t["p"]
+    k8 = next(r for r in rows if r["name"] == "streaming_halfstep")
+    sw7, pw7 = t["sw"], t["pw"]
+    k8["ms_32mp"] = cuda_ms(torch, lambda: streaming_halfstep(
+        fa_rows, fb_cols, mask, u, sw7, pw7, eps), reps=10)
+    k8["plain_ms_32mp"] = cuda_ms(torch, lambda: streaming_halfstep_plain(
+        fa_rows, fb_cols, mask, u, sw7, pw7, eps), reps=1)
+    k8["bound_ms_32mp"], k8["bound_by_32mp"] = bound_ms(
+        4 * (3 * qpad + 2 * qpad + 5 * ppad), (ENTRY_FLOPS + 4) * entries)
+    key = onebuild_key(qpad, ppad)
+    if key in sass:
+        k8["issue_ms_32mp"] = (entries * sass[key][0] / sass[key][1]
+                               / issue_rate * 1e3)
+    print(f"[7] K8 at 32 MP (q={t['q']}, Ppad={ppad}): kernel "
+          f"{k8['ms_32mp']:.3f} ms, plain {k8['plain_ms_32mp']:.3f} ms, "
+          f"bound {k8['bound_ms_32mp']:.4f} ms ({k8['bound_by_32mp']}), "
+          f"entry-loop issue {k8.get('issue_ms_32mp', float('nan')):.3f} ms")
+    del t, fa_rows, fb_cols, mask, u
+    torch.cuda.empty_cache()
     stream_counts = cross_paths(torch, NLEFilter, _build, img, warm)
     near_threshold(torch, NLEFilter, _build)
 
@@ -1675,6 +1881,7 @@ def main() -> int:
           f"p={t['p']}, Ppad={t['ppad']}, mpad={t['mpad']})")
     fa_rows, fb_cols, mask, u = t["fa_rows"], t["fb_cols"], t["mask"], t["u"]
     qg, qpad, ppad, pg = t["q"], t["qpad"], t["ppad"], t["p"]
+    sw, pw = t["sw"], t["pw"]      # the 16 MP frame's bandwidths
     entries = qg * pg
     grid_launch = "dense_grid_16mp"
     record("streaming_halfstep_ptiled", "nle_tpu_torch/csrc/streaming.cu",
@@ -1685,9 +1892,10 @@ def main() -> int:
            cuda_ms(torch, lambda: streaming_halfstep_ptiled_plain(
                fa_rows, fb_cols, mask, u, sw, pw, eps), reps=1),
            4 * (3 * qpad + 2 * qpad + 5 * ppad), (ENTRY_FLOPS + 4) * entries,
-           sass_key=("stream_atb_kernelILi1ELb1E", "stream_ap_kernelILi1E"),
+           sass_key=onebuild_key(qpad, ppad),
            entries=entries,
            launch=(grid_launch, "streaming_halfstep_ptiled"))
+    rows[-1].update(hold_two_pass(torch, _build, t, eps, sass, issue_rate))
     Xg, bg = t["X"], t["b"]
     record(f"streaming_ap@ppad{ppad}", "nle_tpu_torch/csrc/streaming.cu",
            "nle_tpu/ops/pallas/streaming_kernel.py:299",

@@ -4,10 +4,12 @@
 // same entry K1 stores in phi, so no (N, m) array ever exists.
 //
 // K8 replaces nle_tpu/ops/pallas/streaming_kernel.py:105 `_halfstep_kernel`
-// (call :163):  x = mask * safe_recip(K^T u, eps),  ap = K x   (one sweep,
-// ppad <= 1792); with unit_x, x = mask (the s0 = phi^T 1 pass).
+// (call :163):  x = mask * safe_recip(K^T u, eps),  ap = K x   (one sweep);
+// with unit_x, x = mask (the s0 = phi^T 1 pass, K10's kernel on the mask).
 // K9 replaces :189 `_halfstep_ptiled_kernel` (call :263): K8's function at
-// any ppad, in two passes (below).
+// any ppad. It is served by K8's kernel up to ppad 4096 (the TPU split it
+// in two passes because a (TILE_Q, Ppad) tile did not fit VMEM; a Hopper
+// block holds its columns in registers), and by two passes past it.
 // K10 replaces :299 `_ap_kernel` (call :345):  ap (R, ppad) = K x, x (R, qpad).
 // K11 replaces :369 `_atb_kernel` (call :411):  out (R, qpad) = K^T b.
 // K12 replaces :453 `_gram_kernel` (call :492), and past the TPU's VMEM
@@ -25,13 +27,14 @@
 // entry exactly once per pass. K12 is fp32 FMA work (the phi build,
 // 2 q p mpad, plus the gram, q mpad^2), compute-bound like K1 and K6.
 //
-// K9, dense sampling grids: K8 holds a thread's ST_MAXC sample columns in
-// registers and a (tr, ppad) affinity tile in shared memory, both bounded
-// by ppad. K9 builds each entry twice instead (2 expf per entry, as the
-// TPU's two-pass kernel): pass 1 is K11's kernel with b = u, one thread
-// per pixel row summing w over the samples staged through shared memory in
-// chunks, with x = mask * safe_recip(w) as its epilogue; pass 2 is K10 on
-// that x. Neither pass holds more than a chunk of samples on chip.
+// K8/K9: each entry is built once per half-step (one expf). A block
+// keeps all ppad sample columns in its threads' registers (4 or 8 a
+// thread), so a row's w = K u is complete inside the block, x follows, and
+// the entries still in registers take x into ap: no entry goes to shared
+// or device memory. Past ppad 4096 the block's registers no longer hold
+// the columns and the entries; there K9 runs two passes, building each
+// entry twice: pass 1 is K11's kernel with b = u and x = mask *
+// safe_recip(w) as its epilogue, pass 2 is K10 on that x.
 //
 // Cross-block sums (K8's, K9's and K10's ap, K12's Sb) never use float atomics:
 // a bounded number of blocks each own a fixed contiguous row range and
@@ -40,8 +43,9 @@
 // its sequential grid in VMEM, which CUDA blocks cannot do.
 //
 // Long fp32 chains are compensated (nle::kahan_add): the sums over rows
-// (K10's group partials, every kernel's block partials) and over samples
-// (K9 pass 1, K11). The streaming route turns ap into
+// (K8's and K10's 32-row chains, every kernel's block partials) and over
+// samples (K8's sum of w over 256-sample segments, the two-pass K9's pass
+// 1, K11). The streaming route turns ap into
 // u = Uinv (lambda * Uinv^T ap) with eigenvalues down to 1e-10, so a
 // chain's rounding reaches the Sinkhorn vectors amplified: plain chains
 // put the card's c 3x further from float64 than the plain version's cuBLAS
@@ -53,16 +57,10 @@ namespace {
 
 constexpr int ST_THREADS = 256;
 constexpr int ST_MAXC = 7;                          // sample columns per thread
-constexpr int ST_MAX_PPAD = ST_THREADS * ST_MAXC;   // 1792: K8's regime, K10's p-tile
+constexpr int ST_MAX_PPAD = ST_THREADS * ST_MAXC;   // 1792: K10's p-tile
 // K9-pass-1/K11 samples staged in shared memory at a time: (3 + R) * 2048
 // floats is 48 KB at R = 3.
 constexpr int ST_ATB_CHUNK = 2048;
-constexpr int ST_MAX_TR = 32;                       // K8 rows per shared tile
-// K8's shared tile: ~44 KB and at least 128 threads a block were the
-// fastest of the tile sizes and block widths tried on the H100 at p = 600:
-// more, smaller blocks per SM hide the latency of the tile's three phases.
-constexpr int K8_SMEM_TARGET = 44 * 1024;
-constexpr int K8_MIN_THREADS = 128;
 // Blocks of K8/K10: at most 8 per SM of a 132-SM card, each walking a
 // contiguous range of whole 32-row groups. A function of qpad alone, so the
 // partial sums (and their order) do not depend on the card.
@@ -170,91 +168,280 @@ __global__ void __launch_bounds__(ST_THREADS)
   }
 }
 
-// K8 proper: the row's w needs the whole affinity row before x exists, and
-// ap needs x, so each tile of tr rows is built once into shared memory
-// (one expf per entry per half-step, as on the TPU), then read twice:
-// one warp per row forms w (lanes stride the samples, a fixed shuffle tree
-// sums them), and each thread adds x_i K_ij into its own columns: the
-// tile's sum first, then that into the block's (two-level). Compensating
-// that add, as K10 does, made K8 11% slower on the H100 (PERF.md);
-// K8 serves p <= 1792, where chip_smoke [8c] holds streaming vs dense at
-// 71 dB.
-__global__ void __launch_bounds__(ST_THREADS)
+// K8 and K9 (the redesigned half-step, one build of each entry): x =
+// mask * safe_recip(K u, eps) and the block's partial of ap = K^T x.
+// Thread t owns the C consecutive sample columns j = t * C + c, with
+// their features and u in registers (zero past ppad). A block walks its
+// row range in 32-row chunks, each in groups of G rows:
+//   1. each thread builds the group's G x C entries into registers and
+//      sums its columns' terms of w = K u per row (cols_sum);
+//   2. a transposing butterfly sums the G rows over the warp's lanes at
+//      once (warp_rows_sum); one lane per row writes the warp's sum to
+//      ws[buf][g][warp];
+//   3. one barrier; then lane g of the finalizing warp adds row g's
+//      HS_SEGMENT-sample segments in sample order with compensation
+//      (kahan_add: u carries 1/lambda up to 1e10 and w cancels) and
+//      writes x = mask * safe_recip(w) to xs[buf] and to x;
+//   4. the entries of the previous group, still in registers, take their
+//      x (written before this step's barrier) into ap's column chains.
+// The x of a group is read one step after it is formed and the shared
+// buffers alternate, so one barrier a group suffices and no entry is ever
+// stored. The pixel rows' features and mask are staged in shared memory
+// two chunks ahead by the finalizing warp (a three-chunk ring; every warp
+// reads a row as one broadcast), so no step waits on device memory. ap is
+// two-level as in K10: a chain per chunk, added into the block's sum with
+// compensation, written as the block's partial. The plan (threads, C, G,
+// blocks, rows a block, shared bytes) is streaming_kernel.halfstep_plan, a
+// function of (qpad, ppad) alone.
+//
+// w's order of adds is one fixed tree over the sample index j, whatever
+// the plan (C, G, threads) and the padding: pairs of consecutive samples
+// fmaf(K[2k+1], u[2k+1], K[2k] u[2k]), then aligned pairs of nodes up to
+// HS_SEGMENT samples (within a thread, across the warp's lanes, across
+// the segment's warps; float adds commute, so which side holds a node
+// does not matter), then the segments in increasing order with
+// compensation. Pad samples (u = 0) add exact zeros to their segment and
+// make all-pad segments zero, which kahan_add skips: x, and with it ap,
+// is bitwise the same at every Ppad and every plan.
+constexpr int HS_SUM_ROWS = 32;   // rows of a chunk: one fp32 chain of ap
+constexpr int HS_RING = 3;        // chunks of staged pixel rows
+constexpr int HS_SEGMENT = 256;   // samples of w's tree below the Kahan sum
+
+__host__ __device__ constexpr int hs_log2(int g) {
+  return g <= 1 ? 0 : 1 + hs_log2(g / 2);
+}
+
+// The thread's part of w's tree: its C consecutive columns (an aligned
+// subtree, C a power of two) in pairs, then pairwise.
+template <int C>
+__device__ __forceinline__ float cols_sum(const float (&e)[C],
+                                          const float (&u)[C]) {
+  static_assert(C >= 2 && C == 1 << hs_log2(C), "C is a power of two");
+  float n[C / 2];
+#pragma unroll
+  for (int k = 0; k < C / 2; ++k) {
+    n[k] = fmaf(e[2 * k + 1], u[2 * k + 1], __fmul_rn(e[2 * k], u[2 * k]));
+  }
+#pragma unroll
+  for (int w = C / 2; w > 1; w /= 2) {
+#pragma unroll
+    for (int k = 0; k < w / 2; ++k) n[k] = __fadd_rn(n[2 * k], n[2 * k + 1]);
+  }
+  return n[0];
+}
+
+// Sum over the warp's lanes of G rows' values at once, the aligned tree
+// over lanes: the first log2(G) steps swap half the rows with the partner
+// lane and add the other half (a transpose), the others add all-to-all.
+// Lane l < G ends with the total of row hs_lane_row<G>(l).
+template <int G>
+__device__ __forceinline__ int hs_lane_row(int lane) {
+  int row = 0;
+#pragma unroll
+  for (int s = 0; s < hs_log2(G); ++s) {
+    if (lane & (1 << s)) row += G >> (s + 1);
+  }
+  return row;
+}
+
+template <int G>
+__device__ __forceinline__ float warp_rows_sum(float (&v)[G], int lane) {
+  constexpr int kSteps = hs_log2(G);
+  static_assert(G == 1 << kSteps && G <= 8, "G is 1, 2, 4 or 8");
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int half = G >> (s + 1);
+    const int off = 1 << s;
+    const bool hi = lane & off;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const float send = hi ? v[k] : v[k + half];
+      const float keep = hi ? v[k + half] : v[k];
+      v[k] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, off));
+    }
+  }
+  float t = v[0];
+#pragma unroll
+  for (int off = G; off < 32; off <<= 1) {
+    t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, off));
+  }
+  return t;
+}
+
+template <int C, int G>
+struct HalfstepState {
+  float sr[C], sc[C], sy[C], su[C];   // the thread's sample columns
+  float part[C], acc[C], comp[C];     // ap: the chunk's chain, the block's sum
+};
+
+// Pixel row i as the ring holds it: (row, col, y, mask).
+__device__ __forceinline__ float4 pixel_row(const float* __restrict__ fb,
+                                            const float* __restrict__ mask,
+                                            int qpad, int i) {
+  return make_float4(fb[i], fb[qpad + i], fb[2 * qpad + i], mask[i]);
+}
+
+// The warp that finalizes x and stages the ring: warp 1, or warp 0 alone.
+__device__ __forceinline__ int finalizing_warp() {
+  return blockDim.x > 32 ? 1 : 0;
+}
+
+// A 32-row chunk's chain of ap into the block's sum.
+template <int C, int G>
+__device__ __forceinline__ void halfstep_flush(HalfstepState<C, G>& st) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    nle::kahan_add(st.acc[c], st.comp[c], st.part[c]);
+    st.part[c] = 0.0f;
+  }
+}
+
+// One step: build the group of rows r0..r0 + G (features `rows`) into
+// `cur` and publish its warp sums; after the barrier, finalize its x into
+// xs[buf] and, if has_prev, add the previous group (`prev`, x in
+// xs[buf ^ 1]) into ap, then, if it was the last group of a chunk
+// (close_prev), flush the chunk's chain: every chain is one whole 32-row
+// chunk whatever G is.
+template <int C, int G>
+__device__ __forceinline__ void halfstep_step(
+    HalfstepState<C, G>& st, float (&cur)[G][C], const float (&prev)[G][C],
+    const float4* rows, float* __restrict__ x, float* xs, float* ws, int buf,
+    int r0, bool has_prev, bool close_prev, float sw, float pw, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float w[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float4 f = rows[g];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      cur[g][c] = nle::affinity(f.x, f.y, f.z, st.sr[c], st.sc[c], st.sy[c],
+                                sw, pw);
+    }
+    w[g] = cols_sum<C>(cur[g], st.su);
+  }
+  const float wsum = warp_rows_sum<G>(w, lane);
+  if (lane < G) ws[(buf * G + hs_lane_row<G>(lane)) * nwarps + warp] = wsum;
+  __syncthreads();
+  if (warp == finalizing_warp() && lane < G) {
+    // A segment is one warp's sum (C = 8) or an aligned pair's (C = 4; a
+    // missing second warp is all pad, a zero).
+    constexpr int kSegWarps = HS_SEGMENT / (32 * C);
+    static_assert(kSegWarps == 1 || kSegWarps == 2, "C is 4 or 8");
+    const float* row = ws + (buf * G + lane) * nwarps;
+    float s = 0.0f, comp = 0.0f;
+    for (int k = 0; k < nwarps; k += kSegWarps) {
+      const float seg = kSegWarps == 2 && k + 1 < nwarps
+                            ? __fadd_rn(row[k], row[k + 1]) : row[k];
+      nle::kahan_add(s, comp, seg);
+    }
+    const float wv = __fsub_rn(s, comp);
+    // Pad rows have real affinities: the mask kills them here.
+    const float xv = (fabsf(wv) >= eps ? 1.0f / wv : 0.0f) * rows[lane].w;
+    xs[buf * G + lane] = xv;
+    x[r0 + lane] = xv;
+  }
+  if (has_prev) {
+    const float* xp = xs + (buf ^ 1) * G;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float xv = xp[g];
+#pragma unroll
+      for (int c = 0; c < C; ++c) st.part[c] = fmaf(xv, prev[g][c], st.part[c]);
+    }
+    if (close_prev) halfstep_flush(st);
+  }
+}
+
+// The instantiations K8's kernel has: (C columns a thread, G rows a
+// group, most threads a block), streaming_kernel.HS_TILES, which the plan
+// takes in this order, the first that holds Ppad. The launch bound caps
+// the registers at 65,536 / most threads: 102 at 640 (C = 4, G = 4, Ppad
+// up to 2560), 170 at 384 (C = 8, G = 4, to 3072), 128 at 512 (C = 8,
+// G = 2, to 4096). C = 4 with G = 4 was the fastest instantiation on the
+// H100 at Ppad 640 and 2176 alike (PERF.md).
+#define HS_TILES(X) X(4, 4, 640) X(8, 4, 384) X(8, 2, 512)
+
+template <int C, int G>
+struct HsTile;
+#define HS_TILE_BOUND(CC, GG, MT) \
+  template <>                     \
+  struct HsTile<CC, GG> {         \
+    static constexpr int kMaxThreads = MT; \
+  };
+HS_TILES(HS_TILE_BOUND)
+#undef HS_TILE_BOUND
+
+template <int C, int G>
+__global__ void __launch_bounds__(HsTile<C, G>::kMaxThreads)
     stream_halfstep_kernel(const float* __restrict__ fb,
                            const float* __restrict__ fa,
                            const float* __restrict__ mask,
                            const float* __restrict__ u, float* __restrict__ x,
                            float* __restrict__ partial, int qpad, int ppad,
-                           int per_block, int tr, float sw, float pw,
-                           float eps) {
-  extern __shared__ float smem[];
-  float* u_s = smem;                        // (ppad,)
-  float* x_s = smem + ppad;                 // (ST_MAX_TR,)
-  float* tile = x_s + ST_MAX_TR;            // (tr, ppad)
+                           int per_block, float sw, float pw, float eps) {
+  extern __shared__ float4 smem4[];
+  float4* ring = smem4;                                   // [3][32] rows
+  float* xs = reinterpret_cast<float*>(smem4 + HS_RING * HS_SUM_ROWS);
+  float* ws = xs + 2 * G;          // xs: [2][G]; ws: [2][G][warps]
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  SampleCols s;
-  s.load(fa, ppad, 0, ppad);
   const int nthreads = blockDim.x;
-  for (int j = tid; j < ppad; j += nthreads) u_s[j] = u[j];
-  float acc[ST_MAXC];
+  const int lane = tid & 31;
+  HalfstepState<C, G> st;
 #pragma unroll
-  for (int c = 0; c < ST_MAXC; ++c) acc[c] = 0.0f;
-  const int rbeg = blockIdx.x * per_block;
-  const int rend = min(rbeg + per_block, qpad);
-  __syncthreads();
-  for (int r0 = rbeg; r0 < rend; r0 += tr) {
-    const int nr = min(tr, rend - r0);
-    for (int r = 0; r < nr; ++r) {
-      const int i = r0 + r;
-      const float br = fb[i], bc = fb[qpad + i], by = fb[2 * qpad + i];
-#pragma unroll
-      for (int c = 0; c < ST_MAXC; ++c) {
-        const int j = tid + c * nthreads;
-        if (j < ppad) {
-          tile[r * ppad + j] =
-              nle::affinity(br, bc, by, s.r[c], s.c[c], s.y[c], sw, pw);
-        }
-      }
-    }
-    __syncthreads();
-    for (int r = warp; r < nr; r += nthreads / 32) {
-      const float* row = tile + r * ppad;
-      float w = 0.0f;
-      for (int j = lane; j < ppad; j += 32) w = fmaf(row[j], u_s[j], w);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        w += __shfl_xor_sync(0xffffffffu, w, off);
-      }
-      if (lane == 0) {
-        // Pad rows have real affinities: the mask kills them here.
-        const float xv = (fabsf(w) >= eps ? 1.0f / w : 0.0f) * mask[r0 + r];
-        x_s[r] = xv;
-        x[r0 + r] = xv;
-      }
-    }
-    __syncthreads();
-    float part[ST_MAXC];
-#pragma unroll
-    for (int c = 0; c < ST_MAXC; ++c) part[c] = 0.0f;
-    for (int r = 0; r < nr; ++r) {
-      const float xv = x_s[r];
-#pragma unroll
-      for (int c = 0; c < ST_MAXC; ++c) {
-        const int j = tid + c * nthreads;
-        if (j < ppad) part[c] = fmaf(xv, tile[r * ppad + j], part[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < ST_MAXC; ++c) acc[c] += part[c];
-    __syncthreads();
+  for (int c = 0; c < C; ++c) {
+    const int j = tid * C + c;
+    const bool in = j < ppad;
+    st.sr[c] = in ? fa[j] : 0.0f;
+    st.sc[c] = in ? fa[ppad + j] : 0.0f;
+    st.sy[c] = in ? fa[2 * ppad + j] : 0.0f;
+    st.su[c] = in ? u[j] : 0.0f;
+    st.part[c] = st.acc[c] = st.comp[c] = 0.0f;
   }
+  const int rbeg = blockIdx.x * per_block;
+  // Whole chunks: qpad and per_block are multiples of HS_SUM_ROWS.
+  const int nchunks = (min(rbeg + per_block, qpad) - rbeg) / HS_SUM_ROWS;
+  for (int e = tid; e < 2 * HS_SUM_ROWS && e < nchunks * HS_SUM_ROWS;
+       e += nthreads) {
+    ring[e] = pixel_row(fb, mask, qpad, rbeg + e);
+  }
+  __syncthreads();
+  const bool stager = (tid >> 5) == finalizing_warp();
+  float e0[G][C], e1[G][C];
+  for (int k = 0; k < nchunks; ++k) {
+    const bool stage = stager && k + 2 < nchunks;
+    float4 next;
+    if (stage) next = pixel_row(fb, mask, qpad, rbeg + (k + 2) * HS_SUM_ROWS + lane);
+    const float4* rows = ring + (k % HS_RING) * HS_SUM_ROWS;
+    const int c0 = rbeg + k * HS_SUM_ROWS;
+    for (int i = 0; i < HS_SUM_ROWS; i += 2 * G) {
+      // The adds lag the build by one group: the first step of a chunk
+      // adds, and closes, the previous chunk's last group.
+      halfstep_step<C, G>(st, e0, e1, rows + i, x, xs, ws, 0, c0 + i,
+                          k > 0 || i > 0, k > 0 && i == 0, sw, pw, eps);
+      halfstep_step<C, G>(st, e1, e0, rows + i + G, x, xs, ws, 1, c0 + i + G,
+                          true, false, sw, pw, eps);
+    }
+    // The ring slot chunk k - 1 used takes chunk k + 2.
+    if (stage) ring[((k + 2) % HS_RING) * HS_SUM_ROWS + lane] = next;
+  }
+  __syncthreads();   // the last group's x
+  {
+    const float* xp = xs + G;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float xv = xp[g];
+#pragma unroll
+      for (int c = 0; c < C; ++c) st.part[c] = fmaf(xv, e1[g][c], st.part[c]);
+    }
+  }
+  halfstep_flush(st);
   float* dst = partial + static_cast<size_t>(blockIdx.x) * ppad;
 #pragma unroll
-  for (int c = 0; c < ST_MAXC; ++c) {
-    const int j = tid + c * nthreads;
-    if (j < ppad) dst[j] = acc[c];
+  for (int c = 0; c < C; ++c) {
+    const int j = tid * C + c;
+    if (j < ppad) dst[j] = __fsub_rn(st.acc[c], st.comp[c]);
   }
 }
 
@@ -436,48 +623,49 @@ cudaError_t launch_atb(const float* fb, const float* fa, const float* b,
 
 }  // namespace
 
-// Rows of the (nblocks, R * ppad) partial scratch K8/K10 need for qpad rows.
+// Rows of the (nblocks, R * ppad) partial scratch K10 and the two-pass K9
+// need for qpad rows.
 extern "C" int nle_stream_nblocks(int qpad) { return ap_blocks(qpad); }
 
-// K8. fb (3, qpad), fa (3, ppad), mask (qpad,), u (ppad,) -> x (qpad,),
-// ap (ppad,); partial is scratch of nle_stream_nblocks(qpad) * ppad floats.
-// unit_x != 0: x is not written (it is the mask) and u is not read.
-// ppad <= 1792 (past it: K9, or K10 with x = mask for unit_x).
-extern "C" int nle_stream_halfstep(const float* fb, const float* fa,
-                                   const float* mask, const float* u, float* x,
-                                   float* partial, float* ap, int qpad,
-                                   int ppad, float sw, float pw, float eps,
-                                   int unit_x, void* stream) {
-  if (bad_stream_shape(qpad, ppad) || ppad > ST_MAX_PPAD) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// K8 and K9 (one build of each entry; K8's unit_x pass is K10 with X =
+// mask). fb (3, qpad), fa (3, ppad), mask (qpad,), u (ppad,) -> x
+// (qpad,), ap (ppad,); partial is scratch of blocks * ppad floats. The
+// launch takes streaming_kernel.halfstep_plan(qpad, ppad) as it is
+// (threads, cols, rows, blocks, per_block, shared bytes) and refuses one
+// that does not cover every row and column exactly once with the fewest
+// threads for its cols.
+extern "C" int nle_stream_halfstep_onebuild(
+    const float* fb, const float* fa, const float* mask, const float* u,
+    float* x, float* partial, float* ap, int qpad, int ppad, int threads,
+    int cols, int rows, int blocks, int per_block, int smem, float sw,
+    float pw, float eps, void* stream) {
+  const bool shape_ok =
+      !bad_stream_shape(qpad, ppad) && cols > 0 &&
+      threads == ((ppad + cols - 1) / cols + 31) / 32 * 32 &&
+      per_block >= HS_SUM_ROWS && per_block % HS_SUM_ROWS == 0 &&
+      (blocks - 1) * per_block < qpad && qpad <= blocks * per_block &&
+      smem == static_cast<int>(sizeof(float4)) * HS_RING * HS_SUM_ROWS +
+                  static_cast<int>(sizeof(float)) * 2 * rows *
+                      (1 + threads / 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (unit_x) {
-    return static_cast<int>(
-        launch_ap<1>(fb, fa, mask, partial, ap, qpad, ppad, sw, pw, st));
+  cudaError_t err = cudaErrorInvalidValue;
+#define HS_LAUNCH(CC, GG, MT)                                            \
+  if (shape_ok && cols == CC && rows == GG && threads <= MT) {           \
+    stream_halfstep_kernel<CC, GG><<<blocks, threads, smem, st>>>(       \
+        fb, fa, mask, u, x, partial, qpad, ppad, per_block, sw, pw, eps); \
+    err = cudaGetLastError();                                            \
   }
-  const size_t fixed = sizeof(float) * (ppad + ST_MAX_TR);
-  int tr = static_cast<int>((K8_SMEM_TARGET - fixed) / (sizeof(float) * ppad));
-  tr = tr > ST_MAX_TR ? ST_MAX_TR : tr;
-  if (tr < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fixed + sizeof(float) * static_cast<size_t>(tr) * ppad;
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_halfstep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nblocks = ap_blocks(qpad);
-  const int threads = max(K8_MIN_THREADS, ap_threads(ppad));
-  stream_halfstep_kernel<<<nblocks, threads, smem, st>>>(
-      fb, fa, mask, u, x, partial, qpad, ppad, rows_per_block(qpad), tr, sw,
-      pw, eps);
-  err = cudaGetLastError();
+  HS_TILES(HS_LAUNCH)
+#undef HS_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      nle::launch_reduce_partials(partial, ap, nblocks, ppad, st));
+      nle::launch_reduce_partials(partial, ap, blocks, ppad, st));
 }
 
-// K9. K8's contract without unit_x, at any ppad: pass 1 writes x, pass 2
-// is K10 on it; partial as for K8.
+// K9's two passes, for ppad past the one-build kernel's 4096 (the
+// wrapper's dispatch by shape): K8's contract without unit_x, at any
+// ppad; pass 1 writes x, pass 2 is K10 on it; partial is scratch of
+// nle_stream_nblocks(qpad) * ppad floats.
 extern "C" int nle_stream_halfstep_ptiled(const float* fb, const float* fa,
                                           const float* mask, const float* u,
                                           float* x, float* partial, float* ap,

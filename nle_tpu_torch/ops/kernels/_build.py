@@ -54,7 +54,7 @@ LAUNCHES = {
     "scaled_gram": 0,              # K6
     "scaled_matmul": 0,            # K7
     "streaming_halfstep": 0,       # K8 (the unit_x s0 pass included)
-    "streaming_halfstep_ptiled": 0,  # K9
+    "streaming_halfstep_ptiled": 0,  # K9 (K8's kernel up to Ppad 4096)
     "streaming_ap": 0,             # K10
     "streaming_atb": 0,            # K11
     "streaming_gram": 0,           # K12
@@ -167,7 +167,8 @@ def _declare(lib) -> None:
         "nle_scaled_gram": [p, p, p, p, i, i, i, i, i, p],
         "nle_scaled_matmul": [p, p, p, p, i, i, i, p],
         "nle_stream_nblocks": [i],
-        "nle_stream_halfstep": [p, p, p, p, p, p, p, i, i, f, f, f, i, p],
+        "nle_stream_halfstep_onebuild": [p, p, p, p, p, p, p, i, i, i, i, i,
+                                         i, i, i, f, f, f, p],
         "nle_stream_halfstep_ptiled": [p, p, p, p, p, p, p, i, i, f, f, f,
                                        p],
         "nle_stream_ap": [p, p, p, p, p, i, i, i, f, f, p],

@@ -19,9 +19,11 @@ contractions (~1e-7 relative).
 
 - K8 replaces `_halfstep_kernel` (:105, call :163):
   x = mask * safe_recip(K u, eps), ap = K^T x in one sweep, Ppad <= 1792;
-  unit_x gives x = mask (the s0 = phi^T 1 pass).
+  unit_x gives x = mask (the s0 = phi^T 1 pass, K10's kernel on the mask).
 - K9 replaces `_halfstep_ptiled_kernel` (:189, call :263): K8's x and ap
-  at any Ppad, in two passes (each entry built twice).
+  at any Ppad. Up to HS_MAX_PPAD = 4096 it runs K8's kernel (each entry
+  built once per half-step, halfstep_plan); past it two passes, each
+  entry built twice (halfstep_route: a dispatch by shape alone).
 - K10 replaces `_ap_kernel` (:299, call :345): ap (R, Ppad) = K^T x.
 - K11 replaces `_atb_kernel` (:369, call :411): out (R, Qpad) = K b.
 - K12 replaces `_gram_kernel` (:453, call :492) and, where the TPU's VMEM
@@ -31,7 +33,8 @@ contractions (~1e-7 relative).
 products K_AB^T u and K_AB x.)
 
 On the H100, K8-K11 are bound by instruction issue (the IEEE
-expf and the rounded argument of every entry), not by bytes; K12 is fp32
+expf and the rounded argument of every entry), not by bytes, so K8 builds
+each entry once per half-step at every Ppad up to 4096; K12 is fp32
 FMA work like K1 and K6. Cross-block sums are fixed-order partials, never
 float atomics: training stays bitwise repeatable.
 
@@ -51,6 +54,8 @@ to the plain PyTorch version; a CUDA tensor goes to the kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from nle_tpu_torch.ops.kernels import _build
@@ -65,6 +70,68 @@ GRAM_CHUNK_ROWS = 32768      # K12 phi scratch rows (84 MB at mpad = 640)
 GRAM_NSPLIT = 16             # K12 partial grams per chunk
 PLAIN_CHUNK_ROWS = 8192      # rows of one affinity block in the plain twins
 PLAIN_CPU_ENTRIES = 1 << 18  # on the CPU, entries of one: cache-sized blocks
+# K8's kernel (csrc/streaming.cu stream_halfstep_kernel): a block holds all
+# Ppad sample columns in registers, `cols` a thread, and builds `rows` pixel
+# rows a step. Its instantiations (cols, rows, most threads a block), the
+# csrc's HS_TILES, in the order the plan takes them (the first that holds
+# Ppad): 4 x 4 to 640 threads (Ppad 2560; the fastest on the H100 at Ppad
+# 640 and 2176), 8 x 4 to 384 (3072), 8 x 2 to 512 (4096). cols is a power
+# of two, so a thread's columns are an aligned subtree of w's fixed sum
+# order (csrc: HS_SEGMENT). Past HS_MAX_PPAD, 65,536 registers no longer
+# hold the columns and two groups of entries: K9 runs two passes there.
+HS_TILES = ((4, 4, 640), (8, 4, 384), (8, 2, 512))
+HS_MAX_PPAD = max(cols * most for cols, _, most in HS_TILES)   # 4096
+# Blocks own contiguous row ranges of whole HS_ROW_GRAIN-row chains, at most
+# HS_MAX_BLOCKS of them (8 per SM of a 132-SM card): csrc's ST_MAX_BLOCKS
+# and ST_ROW_GRAIN, the rule of every streaming kernel's partials.
+HS_MAX_BLOCKS = 1056
+HS_ROW_GRAIN = 32
+HS_RING = 3                  # 32-row chunks of pixel features staged ahead
+HS_SEGMENT = 256             # samples of w's tree below its Kahan sum
+
+
+class HalfstepPlan(NamedTuple):
+    """The launch of K8's kernel. Thread t of a block owns the sample
+    columns t * cols + c, c < cols (those < Ppad); block b owns the rows
+    [b * per_block, min((b + 1) * per_block, Qpad)), walked `rows` at a
+    time. shared_bytes: a ring of HS_RING 32-row chunks of pixel features
+    (16 B a row), the x of two row groups and each warp's sums of w for
+    them."""
+    threads: int
+    cols: int
+    rows: int
+    blocks: int
+    per_block: int
+    shared_bytes: int
+
+
+def halfstep_plan(qpad: int, ppad: int) -> HalfstepPlan:
+    """K8's kernel's plan for (Qpad, Ppad): a function of the shapes alone,
+    so the block partials of ap, and the order they are summed in, do not
+    depend on the card. Raises on shapes the kernel cannot take."""
+    if qpad < HS_ROW_GRAIN or qpad % HS_ROW_GRAIN:
+        raise ValueError(f"Qpad {qpad} must be a positive multiple of "
+                         f"{HS_ROW_GRAIN}")
+    if ppad < P_ALIGN or ppad % P_ALIGN or ppad > HS_MAX_PPAD:
+        raise ValueError(f"Ppad {ppad} must be a multiple of {P_ALIGN} up to "
+                         f"{HS_MAX_PPAD} (past it: two passes)")
+
+    cols, rows, _ = next(t for t in HS_TILES
+                         if round_up(-(-ppad // t[0]), 32) <= t[2])
+    threads = round_up(-(-ppad // cols), 32)
+    per_block = max(HS_ROW_GRAIN,
+                    round_up(-(-qpad // HS_MAX_BLOCKS), HS_ROW_GRAIN))
+    return HalfstepPlan(threads, cols, rows, -(-qpad // per_block), per_block,
+                        16 * HS_RING * HS_ROW_GRAIN
+                        + 4 * 2 * rows * (1 + threads // 32))
+
+
+def halfstep_route(ppad: int) -> str:
+    """Which kernel runs a half-step on the card at this Ppad: "one_build"
+    (K8's kernel, each entry built once) up to HS_MAX_PPAD, "two_pass"
+    (K9's passes, K11's kernel then K10's) past it. Shape alone decides;
+    nothing falls back."""
+    return "one_build" if ppad <= HS_MAX_PPAD else "two_pass"
 
 
 def pad_stream_operands(fa: torch.Tensor, fb: torch.Tensor):
@@ -179,16 +246,49 @@ def _check_rows(rows) -> None:
         raise ValueError(f"{rows.shape[0]} rows: K10/K11 take 1 to {MAX_ROWS}")
 
 
+def _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps, name):
+    """Launch the half-step on the card by halfstep_route: K8's kernel on
+    halfstep_plan, or K9's two passes past HS_MAX_PPAD."""
+    lib = _build.load()
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    dev = fb_cols.device
+    x = torch.empty((qpad,), dtype=torch.float32, device=dev)
+    ap = torch.empty((ppad,), dtype=torch.float32, device=dev)
+    one_build = halfstep_route(ppad) == "one_build"
+    if one_build:
+        plan = halfstep_plan(qpad, ppad)
+        blocks = plan.blocks
+    else:
+        blocks = lib.nle_stream_nblocks(qpad)
+    partial = torch.empty((blocks, ppad), dtype=torch.float32, device=dev)
+    ptrs = (fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
+            u_pad.data_ptr(), x.data_ptr(), partial.data_ptr(), ap.data_ptr(),
+            qpad, ppad)
+    with torch.cuda.device(dev):
+        if one_build:
+            status = lib.nle_stream_halfstep_onebuild(
+                *ptrs, plan.threads, plan.cols, plan.rows, plan.blocks,
+                plan.per_block, plan.shared_bytes, float(sw), float(pw),
+                float(eps), _build.stream_ptr(fb_cols))
+        else:
+            status = lib.nle_stream_halfstep_ptiled(
+                *ptrs, float(sw), float(pw), float(eps),
+                _build.stream_ptr(fb_cols))
+    _build.check(status, name)
+    _build.count_launch(name)
+    return x, ap
+
+
 def streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
                        unit_x: bool = False):
     """One phi-free Sinkhorn half-step over the rest pixels, the
-    streaming_halfstep dispatch of the JAX package: Ppad <= 1792 runs the
-    single-pass K8; past it unit_x runs K10 with x = mask, and a real
-    half-step the two-pass K9.
+    streaming_halfstep dispatch of the JAX package: Ppad <= 1792 is K8;
+    past it unit_x runs K10 with x = mask, and a real half-step K9.
 
     fa_rows (3, Ppad), fb_cols (3, Qpad), mask (1, Qpad), u_pad (Ppad,) =
     Uinv t zero-padded. Returns (x (Qpad,), ap (Ppad,)); pad columns of ap
-    are garbage the caller slices off. unit_x: x = mask, u unused."""
+    are garbage the caller slices off. unit_x: x = mask, u unused (K10's
+    kernel on the mask, counted as K8's launch)."""
     _check_layout(fa_rows, fb_cols)
     if fa_rows.shape[1] > MAX_STREAM_P_FUSED:
         if unit_x:
@@ -198,48 +298,35 @@ def streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
     if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
         return streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw,
                                         pw, eps, unit_x)
+    if not unit_x:
+        return _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
+                                "streaming_halfstep")
     lib = _build.load()
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
     dev = fb_cols.device
-    x = mask[0] if unit_x else torch.empty((qpad,), dtype=torch.float32,
-                                           device=dev)
-    ap = torch.empty((ppad,), dtype=torch.float32, device=dev)
+    ap = torch.empty((1, ppad), dtype=torch.float32, device=dev)
     partial = torch.empty((lib.nle_stream_nblocks(qpad), ppad),
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        status = lib.nle_stream_halfstep(
+        status = lib.nle_stream_ap(
             fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
-            u_pad.data_ptr(), None if unit_x else x.data_ptr(),
-            partial.data_ptr(), ap.data_ptr(), qpad, ppad, float(sw),
-            float(pw), float(eps), int(unit_x), _build.stream_ptr(fb_cols))
+            partial.data_ptr(), ap.data_ptr(), qpad, ppad, 1, float(sw),
+            float(pw), _build.stream_ptr(fb_cols))
     _build.check(status, "streaming_halfstep")
     _build.count_launch("streaming_halfstep")
-    return x, ap
+    return mask[0], ap[0]
 
 
 def streaming_halfstep_ptiled(fa_rows, fb_cols, mask, u_pad, sw, pw, eps):
     """K8's contract (unit_x excluded) at any Ppad (K9): x (Qpad,) =
-    mask * safe_recip(K u, eps), then ap (Ppad,) = K^T x."""
+    mask * safe_recip(K u, eps), then ap (Ppad,) = K^T x. On the card K8's
+    kernel up to HS_MAX_PPAD, two passes past it (halfstep_route)."""
     _check_layout(fa_rows, fb_cols)
     if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
         return streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad,
                                                sw, pw, eps)
-    lib = _build.load()
-    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
-    dev = fb_cols.device
-    x = torch.empty((qpad,), dtype=torch.float32, device=dev)
-    ap = torch.empty((ppad,), dtype=torch.float32, device=dev)
-    partial = torch.empty((lib.nle_stream_nblocks(qpad), ppad),
-                          dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = lib.nle_stream_halfstep_ptiled(
-            fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
-            u_pad.data_ptr(), x.data_ptr(), partial.data_ptr(), ap.data_ptr(),
-            qpad, ppad, float(sw), float(pw), float(eps),
-            _build.stream_ptr(fb_cols))
-    _build.check(status, "streaming_halfstep_ptiled")
-    _build.count_launch("streaming_halfstep_ptiled")
-    return x, ap
+    return _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
+                            "streaming_halfstep_ptiled")
 
 
 def streaming_ap(fa_rows, fb_cols, x_rows, sw, pw):

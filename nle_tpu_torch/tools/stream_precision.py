@@ -2,29 +2,37 @@
 grid, on one NVIDIA GPU.
 
     python -m nle_tpu_torch.tools.stream_precision [--base-csrc DIR]
+        [--seeds N [N ...]]
 
-The frame is chip_smoke.py's [9c] frame (structured 2000x2000, seed 9)
-with 48 44 500 10 50 50: p = 2112 samples, and a rank cut at eigenvalues
-of 1e-10 (m = 1768), so the streaming route's u = Uinv t carries 1/lambda
-up to 1e10. The streaming Sinkhorn loop of train_filter(streaming=True)
-runs once per variant of its half-step, and each run's balancing vector c
-is held against the same loop in float64 on the plain PyTorch twins
-(c64); the dense f32 route's c (K1, then K4) is held too. Printed per
-variant: the median, 99th percentile and max over the rest pixels of
-|c - c64| / c64, and seconds. Variants:
+A frame is chip_smoke.py's [9c] frame (structured 2000x2000, seed 9; other
+seeds with --seeds) with 48 44 500 10 50 50: p = 2112 samples, and a rank
+cut at eigenvalues of 1e-10 (m = 1768 at seed 9), so the streaming route's
+u = Uinv t carries 1/lambda up to 1e10. The streaming Sinkhorn loop of
+train_filter(streaming=True) runs once per variant of its half-step, and
+each run's balancing vector c is held against the same loop in float64 on
+the plain PyTorch twins (c64); the dense f32 route's c (K1, then K4) is
+held too. Printed per variant: the median, 99th percentile and max over
+the rest pixels of |c - c64| / c64, and seconds. Variants:
 
-- kernel: K9 (pass 1 K11's chain + reciprocal, pass 2 K10), K10 for s0;
-- plain f32: the plain twins (cuBLAS sums);
-- kernel w + plain ap / plain w + kernel ap: one pass each (which pass
-  carries the kernel's extra error);
+- kernel: the half-step at p = 2112 (K8's one-build kernel, serving K9),
+  K10 for s0;
+- on the first frame only: plain f32 (the plain twins, cuBLAS sums), and
+  kernel w + plain ap / plain w + kernel ap, one pass each (K11 and K10:
+  which pass carries the kernel's extra error);
+- one half-step alone, on the float64 loop's u at half-steps 1, 20 and
+  100 (rounded to f32): x and ap against the float64 twin on the same u
+  (median, 99th percentile and max relative error);
 
 each kernel variant once per kernel library: the package's own csrc and,
-with --base-csrc, another checkout's (an A/B of two kernel versions in
-one call). Then, for each library in turn, twice (A, B, A, B), CUDA-event
-times of K9, K10 and K11 (R = 1) on this frame's operands (p = 2112) and
-at the 1 MP main path's sizes (1,011,200 rest pixels against 640
-samples), and of K3/K4 at the 1 MP main path's shape (1,011,712 x 640).
-Prints one JSON line last. Imports no JAX."""
+with --base-csrc, another checkout's with the same C interface (an A/B of
+two kernel versions in one call), on every frame (the loop amplifies
+rounding at lambda down to 1e-10, so one frame does not tell a kernel's
+accuracy from chance).
+Then, for each library in turn, twice (A, B, A, B), CUDA-event times of
+the half-step, K10 and K11 (R = 1) on the first frame's operands (p =
+2112) and at the 1 MP main path's sizes (1,011,200 rest pixels against
+640 samples), and of K3/K4 at the 1 MP main path's shape (1,011,712 x
+640). Prints one JSON line last. Imports no JAX."""
 
 from __future__ import annotations
 
@@ -42,6 +50,9 @@ PKG = os.path.dirname(HERE)
 ROOT = os.path.dirname(PKG)
 ARGS = (48, 44, 500.0, 10.0, 50, 50)
 EPS = 1e-10
+# Half-steps of the float64 loop (1 is the first after the s0 pass) whose
+# input u the one-half-step table gives every library.
+ONE_STEP = (1, 20, 100)
 
 
 def build(csrc: str, out: str):
@@ -62,9 +73,9 @@ def use(lib) -> None:
     _build._lib = lib
 
 
-def frame_operands(torch, dev):
-    """f32 operands as train_filter builds them, and their float64 twins
-    (stage 1 straight from the host eigensystem)."""
+def frame_operands(torch, dev, seed: int):
+    """The frame of this seed: f32 operands as train_filter builds them,
+    and their float64 twins (stage 1 straight from the host eigensystem)."""
     from types import SimpleNamespace
 
     sys.path.insert(0, ROOT)
@@ -81,7 +92,7 @@ def frame_operands(torch, dev):
     )
     from nle_tpu_torch.ops.sampling import sample_grid
 
-    img = structured_frame(2000, 2000, seed=9)
+    img = structured_frame(2000, 2000, seed=seed)
     L = bgr_to_lab_u8_np(img)[..., 0].astype(np.float32)
     h, w = L.shape
     rows_s, cols_s, hx, hy = ARGS[:4]
@@ -202,58 +213,21 @@ def streaming_edit_f64(torch, L: np.ndarray, grid, args, weights, device,
     return _apply_u8_body(V, fs, y), c
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--base-csrc", default=None,
-                        help="csrc of another checkout to A/B against")
-    opts = parser.parse_args()
-    import torch
-
-    if not torch.cuda.is_available():
-        print("stream_precision: needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
-    import nle_tpu_torch  # noqa: F401  (pins fp32 precision)
-    from nle_tpu_torch.ops.kernels import _build
-    from nle_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
+    """One frame's table (see the module docstring); full adds the plain
+    f32 and one-pass variants. Returns (the frame's rows, its f32
+    operands)."""
     from nle_tpu_torch.ops.kernels import streaming_kernel as stk
     from nle_tpu_torch.ops.linalg import safe_reciprocal
     from nle_tpu_torch.ops.pipeline import train_filter_stage2a
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card)
-    out_dir = os.path.join(PKG, "_build", "stream_precision")
-    os.makedirs(out_dir, exist_ok=True)
-    libs = {"this": build(os.path.join(PKG, "csrc"),
-                          os.path.join(out_dir, "this"))}
-    if opts.base_csrc:
-        libs["base"] = build(opts.base_csrc, os.path.join(out_dir, "base"))
-    use(libs["this"])
-
-    op = frame_operands(torch, dev)
+    op = frame_operands(torch, dev, seed)
     p, q, iters = op.p, op.q, ARGS[4]
     ppad = op.fa_rows.shape[1]
     sw, pw = op.sw, op.pw
-    print(f"p={p} m={op.m} mb={op.mb} q={q} Ppad={ppad}; lam min "
-          f"{float(op.lam64.min()):.3e}")
-    result = {"card": card, "p": p, "m": op.m, "q": q, "ppad": ppad}
-
-    # Dense f32 route (K1 then K4): its c over the rest rows.
-    rr = (op.perm // op.w).float()
-    cc = (op.perm % op.w).float()
-    stage1 = torch.cat([op.Um, op.lam[None]])
-    t0 = time.perf_counter()
-    _, _, phi, c_rest = train_filter_stage2a(
-        op.y, rr, cc, stage1, sw, pw, p=p, m=op.m, mb=op.mb,
-        n_sinkhorn_iter=iters, eps=EPS, split=False, int16=False)
-    c_dense = c_rest[p:op.n, 0].clone()
-    del phi, c_rest
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    print(f"dense f32 route: {time.perf_counter() - t0:.1f} s")
-
+    print(f"seed {seed}: p={p} m={op.m} mb={op.mb} q={q} Ppad={ppad}; lam "
+          f"min {float(op.lam64.min()):.3e}")
+    result = {"p": p, "m": op.m, "q": q, "ppad": ppad}
     fa, fb, mask = op.fa_rows, op.fb_cols, op.mask
     fa64, fb64, mask64 = op.fa64, op.fb64, op.mask64
 
@@ -269,10 +243,17 @@ def main() -> int:
         torch.cuda.synchronize()
         return c[p:], time.perf_counter() - t0
 
-    c64, secs = run(lambda u: stk.streaming_halfstep_ptiled_plain(
-        fa64, fb64, mask64, u, sw, pw, EPS),
-        lambda: stk.streaming_ap_plain(fa64, fb64, mask64, sw, pw)[0],
-        torch.float64)
+    taken, count = [], [0]
+
+    def half64(u):
+        count[0] += 1
+        if count[0] in ONE_STEP:
+            taken.append(u.float().contiguous())
+        return stk.streaming_halfstep_ptiled_plain(fa64, fb64, mask64, u, sw,
+                                                   pw, EPS)
+
+    c64, secs = run(half64, lambda: stk.streaming_ap_plain(
+        fa64, fb64, mask64, sw, pw)[0], torch.float64)
     print(f"float64 plain twin: {secs:.1f} s")
 
     def stats(label, c, secs):
@@ -285,40 +266,127 @@ def main() -> int:
         print(f"{label:34s} vs float64: median {qs[0]:.3e} p99 {qs[1]:.3e} "
               f"max {row['max']:.3e} ({secs:.1f} s)", flush=True)
 
+    def kernel_halfstep(u):
+        return stk.streaming_halfstep(fa, fb, mask, u, sw, pw, EPS)
+
+    kernel_s0 = lambda: stk.streaming_ap(fa, fb, mask, sw, pw)[0]  # noqa: E731
+    # Dense f32 route (K1 then K4): its c over the rest rows.
+    rr = (op.perm // op.w).float()
+    cc = (op.perm % op.w).float()
+    stage1 = torch.cat([op.Um, op.lam[None]])
+    _, _, phi, c_rest = train_filter_stage2a(
+        op.y, rr, cc, stage1, sw, pw, p=p, m=op.m, mb=op.mb,
+        n_sinkhorn_iter=iters, eps=EPS, split=False, int16=False)
+    c_dense = c_rest[p:op.n, 0].clone()
+    del phi, c_rest
+    torch.cuda.empty_cache()
     stats("dense f32 (K1, K4)", c_dense, float("nan"))
     del c_dense
+    if full:
+        def plain_w(u):
+            return safe_reciprocal(
+                stk.streaming_atb_plain(fa, fb, u, sw, pw)[0], EPS) * mask[0]
 
-    def plain_w(u):
-        return safe_reciprocal(stk.streaming_atb_plain(fa, fb, u, sw, pw)[0],
-                               EPS) * mask[0]
+        def kernel_w(u):
+            return safe_reciprocal(
+                stk.streaming_atb(fa, fb, u, sw, pw)[0], EPS) * mask[0]
 
-    def kernel_w(u):
-        return safe_reciprocal(stk.streaming_atb(fa, fb, u, sw, pw)[0],
-                               EPS) * mask[0]
+        def plain_ap(x):
+            return stk.streaming_ap_plain(fa, fb, x[None], sw, pw)[0]
 
-    def plain_ap(x):
-        return stk.streaming_ap_plain(fa, fb, x[None], sw, pw)[0]
+        def kernel_ap(x):
+            return stk.streaming_ap(fa, fb, x[None].contiguous(), sw, pw)[0]
 
-    def kernel_ap(x):
-        return stk.streaming_ap(fa, fb, x[None].contiguous(), sw, pw)[0]
-
-    plain_s0 = lambda: stk.streaming_ap_plain(fa, fb, mask, sw, pw)[0]  # noqa: E731
-    kernel_s0 = lambda: stk.streaming_ap(fa, fb, mask, sw, pw)[0]  # noqa: E731
-    stats("plain f32", *run(lambda u: stk.streaming_halfstep_ptiled_plain(
-        fa, fb, mask, u, sw, pw, EPS), plain_s0))
+        plain_s0 = lambda: stk.streaming_ap_plain(fa, fb, mask, sw, pw)[0]  # noqa: E731
+        stats("plain f32", *run(lambda u: stk.streaming_halfstep_ptiled_plain(
+            fa, fb, mask, u, sw, pw, EPS), plain_s0))
     for name, lib in libs.items():
         use(lib)
-        stats(f"kernel [{name}]", *run(lambda u: stk.streaming_halfstep(
-            fa, fb, mask, u, sw, pw, EPS), kernel_s0))
-        stats(f"kernel w + plain ap [{name}]", *run(
-            lambda u: (lambda x: (x, plain_ap(x)))(kernel_w(u)),
-            plain_s0))
-        stats(f"plain w + kernel ap [{name}]", *run(
-            lambda u: (lambda x: (x, kernel_ap(x)))(plain_w(u)),
-            kernel_s0))
-    del fa64, fb64, mask64, c64
+        stats(f"kernel [{name}]", *run(kernel_halfstep, kernel_s0))
+        if full:
+            stats(f"kernel w + plain ap [{name}]", *run(
+                lambda u: (lambda x: (x, plain_ap(x)))(kernel_w(u)),
+                plain_s0))
+            stats(f"plain w + kernel ap [{name}]", *run(
+                lambda u: (lambda x: (x, kernel_ap(x)))(plain_w(u)),
+                kernel_s0))
+    # One half-step on the same f32 u (the float64 loop's inputs at the
+    # ONE_STEP-th half-steps) against the float64 twin on that u: each
+    # library's own rounding of x and ap, apart from the loop.
+    result["one_step"] = {}
+    for k, u32 in zip(ONE_STEP, taken):
+        x64, ap64 = stk.streaming_halfstep_ptiled_plain(
+            fa64, fb64, mask64, u32.double(), sw, pw, EPS)
+        for name, lib in libs.items():
+            use(lib)
+            x, ap = kernel_halfstep(u32)
+            row = {}
+            for what, got, want in (("x", x[:q], x64[:q]),
+                                    ("ap", ap[:p], ap64[:p])):
+                live = want != 0
+                rel = ((got.double()[live] - want[live]) / want[live]).abs()
+                qs = torch.quantile(rel.float(), torch.tensor(
+                    [0.5, 0.99], device=rel.device)).tolist()
+                row[what] = {"median": qs[0], "p99": qs[1],
+                             "max": float(rel.max())}
+            result["one_step"].setdefault(f"half-step {k}", {})[name] = row
+            print(f"one half-step {k:3d} [{name}] vs float64: x median "
+                  f"{row['x']['median']:.3e} p99 {row['x']['p99']:.3e} max "
+                  f"{row['x']['max']:.3e}; ap median {row['ap']['median']:.3e}"
+                  f" p99 {row['ap']['p99']:.3e} max {row['ap']['max']:.3e}",
+                  flush=True)
+        del x64, ap64
+    use(libs["this"])
     op.fa64 = op.fb64 = op.mask64 = None
     torch.cuda.empty_cache()
+    return result, op
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--base-csrc", default=None,
+                        help="csrc of another checkout to A/B against")
+    parser.add_argument("--seeds", type=int, nargs="+", default=[9],
+                        help="structured_frame seeds of the frames")
+    opts = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stream_precision: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    import nle_tpu_torch  # noqa: F401  (pins fp32 precision)
+    from nle_tpu_torch.ops.kernels import _build
+    from nle_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from nle_tpu_torch.ops.kernels import streaming_kernel as stk
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card)
+    out_dir = os.path.join(PKG, "_build", "stream_precision")
+    os.makedirs(out_dir, exist_ok=True)
+    libs = {"this": build(os.path.join(PKG, "csrc"),
+                          os.path.join(out_dir, "this"))}
+    if opts.base_csrc:
+        libs["base"] = build(opts.base_csrc, os.path.join(out_dir, "base"))
+    use(libs["this"])
+
+    result = {"card": card, "frames": {}}
+    op = None
+    for k, seed in enumerate(opts.seeds):
+        rows, frame = frame_precision(torch, dev, libs, seed, full=k == 0)
+        result["frames"][f"seed {seed}"] = rows
+        if op is None:
+            op = frame
+    # Per library: the kernel loop's median over the frames.
+    for name in libs:
+        medians = [f"{r[f'kernel [{name}]']['median']:.3e}"
+                   for r in result["frames"].values()]
+        print(f"kernel [{name}] median by frame: {', '.join(medians)}")
+
+    fa, fb, mask, p = op.fa_rows, op.fb_cols, op.mask, op.p
+    ppad, sw, pw = fa.shape[1], op.sw, op.pw
 
     def ms(fn, reps=10):
         fn()
@@ -331,9 +399,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    # Times on this frame's operands (p = 2112) and at the 1 MP main path's
-    # sizes: its first 1,011,200 rest pixels against 640 of its samples
-    # (the entry count, not the data, sets these kernels' time).
+    # Times on the first frame's operands (p = 2112) and at the 1 MP main
+    # path's sizes: its first 1,011,200 rest pixels against 640 of its
+    # samples (the entry count, not the data, sets these kernels' time).
     x1 = torch.rand((1, fb.shape[1]), device=dev) * mask
     b1 = torch.zeros((1, ppad), device=dev)
     b1[0, :p] = torch.rand(p, device=dev) * 1e-3
@@ -342,6 +410,8 @@ def main() -> int:
     fb1 = fb[:, :qs1].contiguous()
     x1s = x1[:, :qs1].contiguous()
     b1s = b1[:, :p1].contiguous()
+    mask1 = mask[:, :qs1].contiguous()
+    u1 = b1[0, :p1].contiguous()
     npad, mpad = 1011712, 640
     Q16 = torch.randint(-32767, 32768, (npad, mpad), device=dev,
                         dtype=torch.int16)
@@ -357,6 +427,8 @@ def main() -> int:
                     ("K11 R=1 p=2112", lambda: stk.streaming_atb(fa, fb, b1, sw, pw)),
                     ("K9 p=2112", lambda: stk.streaming_halfstep(
                         fa, fb, mask, b1[0].contiguous(), sw, pw, EPS)),
+                    ("K8 1MP", lambda: stk.streaming_halfstep(
+                        fa1, fb1, mask1, u1, sw, pw, EPS)),
                     ("K10 R=1 1MP", lambda: stk.streaming_ap(fa1, fb1, x1s, sw, pw)),
                     ("K11 R=1 1MP", lambda: stk.streaming_atb(fa1, fb1, b1s, sw, pw)),
                     ("K3 1MP", lambda: sk.sinkhorn_halfstep(Q16, t, EPS)),
