@@ -20,7 +20,12 @@
    inputs. K6's Sb must also be bitwise symmetric, K6 and K7 bitwise
    repeatable; K7 is held and timed on the 64-wide B the path passes (and
    beside the TPU's 128-lane B), and K6's plan and scratch bytes printed;
-   the half-step (K8, and K9 in [9a]) must be bitwise repeatable;
+   the half-step (K8, and K9 in [9a]) and K3/K4/K14 must be bitwise
+   repeatable, K4 is timed beside torch.mv on the same factor; K12's Sb
+   must be bitwise symmetric and repeatable, the phi rows of its last
+   chunk bitwise K1's for the same pixels, and its phi step's main loop
+   must hold one MUFU.EX2 per entry it builds (each entry built once per
+   column panel: once at mpad 384);
 4. runs a small frame on device="cuda" and device="cpu" (>= 45 dB between
    them) and twice on the card (bitwise equal), and edits on the card with
    the filter the CPU trained;
@@ -43,8 +48,8 @@
    its peak device memory must stay below 256 B/pixel; the warm run prints
    train and apply seconds. Then K8 (unit_x and a real half-step), K10,
    K11 and K12 are held against their float64 plain versions on this
-   frame's own operands (q ~ 32 M rest pixels, mpad 384), and K8 timed
-   there; the profiled warm call must launch K8's one-build kernel once
+   frame's own operands (q ~ 32 M rest pixels, mpad 384), and K8 and K12
+   timed there; the profiled warm call must launch K8's one-build kernel once
    per half-step, the reduction of its partials, and no two-pass K9 (also
    in [9a]; a profile without device events fails);
 8. cross-path checks: (a) the factored path on the card vs the CPU
@@ -52,8 +57,9 @@
    factored path vs the dense main path at 1 MP (>= 45 dB); (c)
    train_filter(streaming=True) vs streaming=False on a 2000x2000 frame
    with the rock2 parameters (>= 45 dB on the edit), the streaming run's
-   counts proving it took K8, K12 and K1 and no dense kernel, and K8 held
-   against its float64 plain version on that frame's operands; (d) the
+   counts proving it took K8, K12 and K1 and no dense kernel, and K8 and
+   K12 held against their float64 plain versions on that frame's
+   operands; (d) the
    streaming auto rule: a frame at ~92% of the phi limit it computes on
    this card runs dense through NLEFilter's default (no K8), on the split
    int16 route and on the assembled f32 route, without running out of
@@ -78,7 +84,9 @@
    1e-10, and the streaming route's float64 plain twin on the same frame,
    each pair >= 45 dB: streaming vs dense f32, dense vs dense f32, the
    twin vs dense f32 (the streaming algebra without its rounding lands on
-   the dense route), and the streaming kernels vs the twin; (d) the dense
+   the dense route), and the streaming kernels vs the twin (>= TWIN_DB);
+   and the streaming loop's c against the twin's (median over the rest
+   pixels <= LOOP_C_TOL, the two-pass K9's reading there); (d) the dense
    route past 2048 factor columns on a real train: the same frame with
    48 44 500 5 50 50 (m = 2078, mb 2112, mpad 2176) through the auto rule
    on the int16 route (K3) and the f32 route (K4), >= 45 dB apart, then K1
@@ -151,6 +159,12 @@ S_SUM_TOL = 1e-5
 # this bounds the kernel's own rounding (~sqrt(chain) u: a few 1e-6). A
 # dropped 16-row k-step moves a 1 MP gram by ~1.6e-5, a 64-row tile by ~6e-5.
 GRAM_STREAM_TOL = 1e-5
+# [9c]: the streaming loop's c against its float64 twin's, median over the
+# rest pixels, at most the two-pass K9's reading on this frame
+# (tools/stream_precision.py, seed 9); the streaming edit against the
+# twin's edit.
+LOOP_C_TOL = 1.362e-4
+TWIN_DB = 52.5
 GUARD_ITERS = 10                              # Sinkhorn iterations, noise frame
 CAP_SHAPE = (5656, 5656)                      # 31,990,336 px
 CAP_ARGS = (24, 25, 5000.0, 30.0, 50, 50)     # p = 600 samples
@@ -266,14 +280,18 @@ def check_parts(name: str, parts) -> tuple[float, float]:
 def hold_halfstep(torch, label: str, Q, t, eps: float, kernel=None,
                   plain=None):
     """A half-step kernel (K3/K4/K14 by Q's dtype unless `kernel` is given)
-    against its plain version on (Q, t). Returns (the kernel's x,
-    (max_abs_err, max err/bound))."""
+    against its plain version on (Q, t), and two launches bitwise equal.
+    Returns (the kernel's x, (max_abs_err, max err/bound))."""
     from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
         sinkhorn_halfstep,
         sinkhorn_halfstep_plain,
     )
 
     xk, sk = (kernel or sinkhorn_halfstep)(Q, t, eps)
+    xk2, sk2 = (kernel or sinkhorn_halfstep)(Q, t, eps)
+    if not (torch.equal(xk, xk2) and torch.equal(sk, sk2)):
+        raise AssertionError(f"{label}: two launches differ")
+    del xk2, sk2
     xp, sp = (plain or sinkhorn_halfstep_plain)(Q, t, eps)
     Qa = Q.float().abs()
     # x = 1/w: |dx| ~ |dw| x^2 with |dw| <= (2 mpad + 4) u (|Q| |t|) for the
@@ -326,8 +344,9 @@ def hold_streaming(torch, op, eps: float, label: str,
     operands `op`, each held against its plain version evaluated in float64
     on the same inputs, so each bound covers the kernel's own rounding.
     The half-step must also be bitwise repeatable (two launches on the
-    same inputs). halfstep_only: the half-step alone. Returns ({kernel: (max_abs_err,
-    max err/bound)}, the f32 operands for timing)."""
+    same inputs). halfstep_only: the half-step alone. Returns ({kernel:
+    (max_abs_err, max err/bound)}, the f32 operands for timing; with
+    halfstep_only, the padded features and the half-step's x)."""
     from nle_tpu_torch.ops.kernels.streaming_kernel import (
         MAX_STREAM_P_FUSED,
         halfstep_plan,
@@ -338,8 +357,6 @@ def hold_streaming(torch, op, eps: float, label: str,
         streaming_atb_plain,
         streaming_halfstep,
         streaming_halfstep_plain,
-        streaming_scaled_gram,
-        streaming_scaled_gram_plain,
     )
 
     pad = torch.nn.functional.pad
@@ -399,7 +416,7 @@ def hold_streaming(torch, op, eps: float, label: str,
     hold(half, f"{kh} x", xk - xp, 2 * (2 * ppad + 4) * U * kref[6] * xp * xp)
     hold(half, f"{kh} ap", apk[:p] - ref[1], S_SUM_TOL * ref[4])
     if halfstep_only:
-        return out, None
+        return out, dict(fa_rows=fa_rows, fb_cols=fb_cols, x=xk)
     for R in (1, 2, 3):
         hold("streaming_ap", f"K10 R={R}",
              streaming_ap(fa_rows, fb_cols, X[:R].contiguous(), sw, pw)[:, :p]
@@ -408,20 +425,60 @@ def hold_streaming(torch, op, eps: float, label: str,
         hold("streaming_atb", f"K11 R={R}",
              streaming_atb(fa_rows, fb_cols, B[:R].contiguous(), sw, pw)
              - kref[:R], (2 * ppad + 4) * U * kref[3:3 + R])
-    del ref, kref, xp
+    del ref, kref, xp, fa64, fb64
     c_row = xk[None].contiguous()               # zero on the pad rows
     uinv_pad = pad(op.Uinv, (0, op.mpad - op.mb, 0, ppad - p)).contiguous()
-    gk = streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw)
-    gref = streaming_scaled_gram_plain(fa64, fb64, c_row.to(f64),
-                                       uinv_pad.to(f64), sw, pw)
-    gabs = streaming_scaled_gram_plain(fa64, fb64, c_row.abs().to(f64),
-                                       uinv_pad.abs().to(f64), sw, pw)
-    hold("streaming_gram", "K12 Sb", gk - gref, GRAM_STREAM_TOL * gabs)
-    del fa64, fb64, gref, gabs
+    out["streaming_gram"] = hold_gram(torch, op, label, fa_rows, fb_cols,
+                                      c_row, uinv_pad)
     timing = dict(fa_rows=fa_rows, fb_cols=fb_cols, mask=mask, u=u,
                   X=X[:1].contiguous(), b=B[:1].contiguous(), c_row=c_row,
                   uinv_pad=uinv_pad, q=q, qpad=qpad, ppad=ppad)
     return out, timing
+
+
+def hold_gram(torch, op, label: str, fa_rows, fb_cols, c_row, uinv_pad):
+    """K12 on the path's own operands: Sb against its float64 plain
+    version at GRAM_STREAM_TOL of the gram of absolute terms, bitwise
+    symmetric, two launches bitwise equal; the phi rows of its last chunk
+    bitwise K1's rows (affinity_matmul) for the same pixels. Returns
+    (max_abs_err, max err/bound)."""
+    from nle_tpu_torch.ops.kernels.affinity_kernel import (
+        affinity_matmul_kernel,
+    )
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        stream_gram_plan,
+        streaming_scaled_gram,
+        streaming_scaled_gram_plain,
+    )
+
+    f64 = torch.float64
+    sw, pw, p, q = op.sw, op.pw, op.p, op.n - op.p
+    qpad, ppad, mpad = fb_cols.shape[1], fa_rows.shape[1], uinv_pad.shape[1]
+    plan = stream_gram_plan(qpad, ppad, mpad)
+    gk, phi = streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw,
+                                    pw, keep_phi=True)
+    lo = qpad - plan.last
+    phi = phi[:max(q - lo, 0), :op.mb].clone()
+    gk2 = streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw)
+    if not torch.equal(gk, gk2):
+        raise AssertionError(f"{label} K12: two launches differ")
+    if not torch.equal(gk, gk.T):
+        raise AssertionError(f"{label} K12: Sb is not bitwise symmetric")
+    k1 = affinity_matmul_kernel(op.fa, op.fb[lo:], op.Uinv, sw, pw)
+    same = torch.equal(phi, k1)
+    print(f"  {label} K12: planned {plan.nchunks} chunks of {plan.chunk} "
+          f"rows, column panels {plan.panels}; "
+          f"Sb bitwise symmetric, two launches bitwise equal; the last "
+          f"chunk's {phi.shape[0]} phi rows bitwise K1's: {same}")
+    if not same:
+        raise AssertionError(f"{label} K12: phi rows differ from K1's")
+    del gk2, phi, k1
+    fa64, fb64 = fa_rows.to(f64), fb_cols.to(f64)
+    gref = streaming_scaled_gram_plain(fa64, fb64, c_row.to(f64),
+                                       uinv_pad.to(f64), sw, pw)
+    gabs = streaming_scaled_gram_plain(fa64, fb64, c_row.abs().to(f64),
+                                       uinv_pad.abs().to(f64), sw, pw)
+    return check(f"{label} K12 Sb", gk - gref, GRAM_STREAM_TOL * gabs)
 
 
 # K9's two passes: past the one-build kernel's Ppad 4096 the wrapper runs
@@ -514,11 +571,119 @@ STAGES = ("BGR to Lab", "Computing kernel", "Nystrom approximation + Sinkhorn",
           "Orthogonalize", "Stage 2b", "Fetch edit", "Lab to BGR")
 
 
-def profile_call(torch, label: str, fn, mp: float) -> list:
+def kernel_grids(prof, needles) -> list:
+    """[(kernel name, grid (x, y, z))] of the device kernels of a finished
+    profile whose names hold one of needles, in launch order: read from
+    the profiler's trace, which carries each launch's grid."""
+    import json
+
+    from nle_tpu_torch.ops.kernels import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(_build.BUILD_DIR, "profile_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    found = []
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") != "kernel" or not any(k in name for k in needles):
+            continue
+        grid = e.get("args", {}).get("grid")
+        if grid is None:
+            raise AssertionError(f"the profile's trace holds no grid for "
+                                 f"{name[:60]}")
+        found.append((float(e["ts"]), name, tuple(grid)))
+    return [(name, grid) for _, name, grid in sorted(found)]
+
+
+# K12's launches in a profile: its phi step (one gram_phi_kernel<TN> launch
+# for each panel width a chunk takes, grid (rows / GRAM_PHI_ROWS, panels))
+# and the in-order add that closes each chunk.
+K12_TRACE = ("gram_phi_kernel", "gram_chunk_add_kernel")
+
+
+def phi_builds(grids) -> list:
+    """K12's phi step per chunk from a profile's K12_TRACE launches: for
+    each chunk (closed by its gram_chunk_add_kernel launch), [(TN, blocks
+    down the rows, column panels)] of its gram_phi_kernel launches. A
+    block builds each entry of its rows once for every panel of its grid,
+    so the panels of a chunk's launches summed are its builds an entry."""
+    import re
+
+    chunks, cur = [], []
+    for name, (gx, gy, _) in grids:
+        if "gram_chunk_add_kernel" in name:
+            chunks.append(cur)
+            cur = []
+        else:
+            cur.append((int(re.search(r"gram_phi_kernel<(\d+)>",
+                                      name).group(1)), gx, gy))
+    if cur or not chunks or not all(chunks):
+        raise AssertionError(f"K12's trace is not phi launches closed by "
+                             f"chunk adds: {grids}")
+    return chunks
+
+
+def phi_expf(chunks, ex2_build: dict) -> tuple:
+    """(builds an entry, MUFU.EX2 an entry) of K12's phi step, the most
+    over the chunks: each launch's panels times the MUFU.EX2 its
+    instantiation's SASS issues for one build (ex2_build, by TN; the EX2
+    count is None without cuobjdump). A launch's blocks must cover the same
+    rows as the chunk's other launches."""
+    builds, ex2 = 0, 0.0
+    for chunk in chunks:
+        if len({gx for _, gx, _ in chunk}) != 1:
+            raise AssertionError(f"K12's phi launches of one chunk cover "
+                                 f"different rows: {chunk}")
+        builds = max(builds, sum(gy for _, _, gy in chunk))
+        if ex2 is not None and all(tn in ex2_build for tn, _, _ in chunk):
+            ex2 = max(ex2, sum(gy * ex2_build[tn] for tn, _, gy in chunk))
+        else:
+            ex2 = None
+    return builds, ex2
+
+
+def k12_expf(row: dict, suffix: str, chunks, ex2_build: dict, mpad: int,
+             where: str) -> None:
+    """Put K12's measured builds an entry and MUFU.EX2 an entry (phi_expf)
+    into its kernels-line row under expf_per_entry + suffix; fail where
+    Mpad fits one panel (GRAM_PANEL_COLS) and an entry was built more than
+    once a chunk, or where a build issued other than one MUFU.EX2."""
+    from nle_tpu_torch.ops.kernels.streaming_kernel import GRAM_PANEL_COLS
+
+    builds, ex2 = phi_expf(chunks, ex2_build)
+    row["builds_per_entry" + suffix] = builds
+    row["expf_per_entry" + suffix] = ex2
+    print(f"  K12 in {where}: {len(chunks)} chunk(s), {builds} build(s) of "
+          f"each entry a chunk at mpad {mpad}, "
+          f"{'not measured (no cuobjdump)' if ex2 is None else ex2} "
+          "MUFU.EX2 an entry")
+    if mpad <= GRAM_PANEL_COLS and builds != 1:
+        raise AssertionError(f"K12 in {where}: {builds} builds an entry at "
+                             f"mpad {mpad}")
+    if ex2 is not None and ex2 != builds:
+        raise AssertionError(f"K12 in {where}: {ex2} MUFU.EX2 an entry for "
+                             f"{builds} build(s)")
+
+
+def profile_grids(torch, fn, needles) -> list:
+    """kernel_grids of one call of fn under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_grids(prof, needles)
+
+
+def profile_call(torch, label: str, fn, mp: float, needles=()) -> tuple:
     """Profile one warm call of fn: wall, device time (the sum of the
     device-side events; one stream, so they do not overlap), busy share,
-    host ms per stage and the device ms per kernel. Returns [(device ms,
-    launches, kernel name)], the largest first."""
+    host ms per stage and the device ms per kernel. Returns ([(device ms,
+    launches, kernel name)], the largest first; kernel_grids of the
+    kernels named by needles)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -558,7 +723,7 @@ def profile_call(torch, label: str, fn, mp: float) -> list:
     print(f"  outside the stages: {wall_ms - sum(stages.values()):.1f} ms")
     for ms, count, key in kernels[:10]:
         print(f"  device {ms:9.3f} ms  x{count:<4d} {key[:70]}")
-    return kernels
+    return kernels, (kernel_grids(prof, needles) if needles else [])
 
 
 STREAMING_KERNELS = ("streaming_halfstep", "streaming_halfstep_ptiled",
@@ -582,6 +747,12 @@ def recompose(lab, edit_packed, perm):
     return lab_to_bgr_u8_np(out)
 
 
+# K12's phi step in its three column-panel widths (8 x TN outputs a
+# thread, TN = 12, 8, 4): its main loop builds GRAM_PHI_K x GRAM_PHI_ROWS
+# entries a step over 256 threads, one MUFU.EX2 each.
+GRAM_PHI_KEYS = ("gram_phi_kernelILi12E", "gram_phi_kernelILi8E",
+                 "gram_phi_kernelILi4E")
+
 # Mangled-name pieces of the kernels whose entry loop chip_smoke counts:
 # K8's one-build kernel in each of its instantiations (cols, rows; the
 # csrc's HS_TILES), K10 (R = 1), K11 (R = 1) and the two-pass K9's first
@@ -590,7 +761,8 @@ SASS_KEYS = ("stream_halfstep_kernelILi4ELi8E",
              "stream_halfstep_kernelILi4ELi4E",
              "stream_halfstep_kernelILi8ELi4E",
              "stream_halfstep_kernelILi8ELi2E", "stream_ap_kernelILi1E",
-             "stream_atb_kernelILi1ELb0E", "stream_atb_kernelILi1ELb1E")
+             "stream_atb_kernelILi1ELb0E", "stream_atb_kernelILi1ELb1E",
+             *GRAM_PHI_KEYS)
 
 
 def sass_per_entry(lib_path: str) -> dict:
@@ -761,10 +933,15 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
     if not np.array_equal(cold, warm):
         raise AssertionError(f"{tag}: cold and warm runs differ")
     del f, cold, warm
-    kernels = profile_call(
+    kernels, k12_grids = profile_call(
         torch, f"  profiled warm {mp:.0f} MP train_and_enhance",
         lambda: NLEFilter(device="cuda", factored=True).train_and_enhance(
-            big, *args, weights=WEIGHTS), mp)
+            big, *args, weights=WEIGHTS), mp, needles=K12_TRACE)
+    # K12's phi step as this run launched it: the panels of each chunk.
+    phi_chunks = phi_builds(k12_grids)
+    print(f"  K12's phi step: {len(phi_chunks)} chunk(s), launches (TN, "
+          f"blocks, panels) {phi_chunks[0]} a chunk; "
+          f"{phi_expf(phi_chunks, {})[0]} build(s) an entry")
     # One entry-building launch per half-step: K8's one-build kernel once
     # for each of the 2 x iters half-steps (K9 included), each followed by
     # the fixed-order reduction of its partials, and no two-pass K9 (K11's
@@ -788,7 +965,8 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
     op = path_operands(torch, L, args, torch.device("cuda"))
     del L
     errs, timing = hold_streaming(torch, op, 1e-10, f"{mp:.0f} MP")
-    timing.update(p=op.p, mb=op.mb, mpad=op.mpad, sw=op.sw, pw=op.pw)
+    timing.update(p=op.p, mb=op.mb, mpad=op.mpad, sw=op.sw, pw=op.pw,
+                  phi_chunks=phi_chunks)
     del op
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -830,10 +1008,15 @@ def cross_paths(torch, NLEFilter, _build, img, dense_out) -> dict:
     print(f"  streaming vs dense edit: {db:.2f} dB")
     if not db >= 45.0:
         raise AssertionError(f"[8c] streaming vs dense {db:.2f} dB < 45")
-    # K8 on this frame's own operands, held to float64.
-    hold_streaming(torch, path_operands(torch, L, MAIN_ARGS,
-                                        torch.device("cuda")), 1e-10,
-                   "[8c] 4 MP", halfstep_only=True)
+    # K8 and K12 on this frame's own operands, held to float64.
+    op = path_operands(torch, L, MAIN_ARGS, torch.device("cuda"))
+    _, t = hold_streaming(torch, op, 1e-10, "[8c] 4 MP", halfstep_only=True)
+    pad = torch.nn.functional.pad
+    hold_gram(torch, op, "[8c] 4 MP", t["fa_rows"], t["fb_cols"],
+              t["x"][None].contiguous(), pad(op.Uinv, (
+                  0, op.mpad - op.mb, 0, t["fa_rows"].shape[1] - op.p))
+              .contiguous())
+    del op, t
     torch.cuda.empty_cache()
     return counts["streaming"]
 
@@ -1561,6 +1744,7 @@ def main() -> int:
         streaming_halfstep_ptiled_plain,
         streaming_scaled_gram,
         streaming_scaled_gram_plain,
+        streaming_sinkhorn_vectors,
     )
     from nle_tpu_torch.tools.stream_precision import streaming_edit_f64
 
@@ -1591,6 +1775,24 @@ def main() -> int:
     # Thread instructions the card issues per second: 132 SMs x 4
     # schedulers x 32 lanes x the maximum SM clock.
     issue_rate = 132 * 128 * float(clock) * 1e6
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        GRAM_PHI_K,
+        GRAM_PHI_ROWS,
+    )
+    gram_build = GRAM_PHI_K * GRAM_PHI_ROWS // 256
+    ex2_build = {}    # K12's phi step: MUFU.EX2 a build of an entry, by TN
+    for key in GRAM_PHI_KEYS:
+        if key not in sass:
+            continue
+        ninst, nexp, nbar, _ = sass.pop(key)
+        ex2_build[int(key.split("ILi")[1][:-1])] = nexp / gram_build
+        print(f"  sass: {key} (K12's phi step) main loop {ninst} "
+              f"instructions and {nbar} barrier a step; {nexp} MUFU.EX2 for "
+              f"the {gram_build} entries a thread builds a step = "
+              f"{nexp / gram_build:.2f} per entry a build")
+        if nexp != gram_build:
+            raise AssertionError(f"{key}: {nexp} MUFU.EX2 for {gram_build} "
+                                 "entries: not one a build")
     for key, (ninst, nexp, nbar, nfinal) in sass.items():
         print(f"  sass: {key} inner loop {ninst} instructions for {nexp} "
               f"affinity entries = {ninst / nexp:.1f} per entry "
@@ -1713,6 +1915,12 @@ def main() -> int:
            cuda_ms(torch, lambda: sinkhorn_halfstep(phi, t32, eps), reps=10),
            cuda_ms(torch, lambda: sinkhorn_halfstep_plain(phi, t32, eps)),
            4 * (npad * mpad + npad + 2 * mpad), 4 * n * mb)
+    # torch.mv on the same f32 factor: a yardstick of one read of it, not
+    # the same function (K16-K19's bracketed number).
+    rows[-1]["torch_mv_ms"] = cuda_ms(torch, lambda: torch.mv(phi, t32),
+                                      reps=10)
+    print(f"  torch.mv on the same f32 factor: "
+          f"{rows[-1]['torch_mv_ms']:.3f} ms")
     del phi
 
     c = xk[:, None].contiguous()          # a real balancing vector
@@ -1765,6 +1973,12 @@ def main() -> int:
                fa_rows, fb_cols, c_row, uinv_pad, sw, pw)),
            4 * (4 * qpad + 3 * ppad + ppad * mpad + mpad * mpad),
            2 * entries * mb + ENTRY_FLOPS * entries + nb * mb * (mb + 1))
+    # Builds of each affinity entry a chunk, and MUFU.EX2 an entry, as one
+    # profiled call launched the phi step.
+    k12_expf(rows[-1], "", phi_builds(profile_grids(
+        torch, lambda: streaming_scaled_gram(fa_rows, fb_cols, c_row,
+                                             uinv_pad, sw, pw),
+        K12_TRACE)), ex2_build, mpad, "[3] 1 MP")
     del fa_rows, fb_cols, mask, u, X, b, c_row, uinv_pad, t, op
     torch.cuda.empty_cache()
 
@@ -1868,7 +2082,22 @@ def main() -> int:
           f"{k8['ms_32mp']:.3f} ms, plain {k8['plain_ms_32mp']:.3f} ms, "
           f"bound {k8['bound_ms_32mp']:.4f} ms ({k8['bound_by_32mp']}), "
           f"entry-loop issue {k8.get('issue_ms_32mp', float('nan')):.3f} ms")
-    del t, fa_rows, fb_cols, mask, u
+    # K12 at 32 MP, once a train.
+    k12 = next(r for r in rows if r["name"] == "streaming_gram")
+    c_row, uinv_pad, mb7, mpad7 = t["c_row"], t["uinv_pad"], t["mb"], t["mpad"]
+    k12["ms_32mp"] = cuda_ms(torch, lambda: streaming_scaled_gram(
+        fa_rows, fb_cols, c_row, uinv_pad, sw7, pw7), reps=1)
+    k12["plain_ms_32mp"] = cuda_ms(torch, lambda: streaming_scaled_gram_plain(
+        fa_rows, fb_cols, c_row, uinv_pad, sw7, pw7), reps=1)
+    k12["bound_ms_32mp"], k12["bound_by_32mp"] = bound_ms(
+        4 * (4 * qpad + 3 * ppad + ppad * mpad7 + mpad7 * mpad7),
+        2 * entries * mb7 + ENTRY_FLOPS * entries + t["q"] * mb7 * (mb7 + 1))
+    print(f"[7] K12 at 32 MP (mpad={mpad7}): kernel {k12['ms_32mp']:.3f} ms, "
+          f"plain {k12['plain_ms_32mp']:.3f} ms, bound "
+          f"{k12['bound_ms_32mp']:.4f} ms ({k12['bound_by_32mp']})")
+    k12_expf(k12, "_32mp", t["phi_chunks"], ex2_build, mpad7,
+             "[7] the profiled 32 MP call")
+    del t, fa_rows, fb_cols, mask, u, c_row, uinv_pad
     torch.cuda.empty_cache()
     stream_counts = cross_paths(torch, NLEFilter, _build, img, warm)
     near_threshold(torch, NLEFilter, _build)
@@ -1926,6 +2155,8 @@ def main() -> int:
            4 * (4 * qpad + 3 * ppad + ppad * mpg + mpg * mpg),
            2 * entries * mbg + ENTRY_FLOPS * entries + qg * mbg * (mbg + 1),
            launch=(grid_launch, "streaming_gram"))
+    k12_expf(rows[-1], "", t["phi_chunks"], ex2_build, mpg,
+             "[9a] the profiled 16 MP call")
     del t, fa_rows, fb_cols, mask, u, Xg, bg, c_row, uinv_pad
     torch.cuda.empty_cache()
 
@@ -2007,13 +2238,25 @@ def main() -> int:
                     ("dense f32", False, "off")))
     gs_counts, gd_counts = c9["streaming"], c9["dense"]
     t0 = time.perf_counter()
-    edit64, _ = streaming_edit_f64(torch, Lg, grid, GRID_ARGS, WEIGHTS,
-                                   dev)
+    edit64, c64 = streaming_edit_f64(torch, Lg, grid, GRID_ARGS, WEIGHTS,
+                                     dev)
     outs["float64 twin"] = recompose(lab, edit64, grid.perm)
-    del edit64, lab, Lg, grid
-    torch.cuda.empty_cache()
     print(f"  the streaming route's float64 plain twin: "
           f"{time.perf_counter() - t0:.1f} s")
+    # The streaming loop's c (K10, then K9 x 100 in streaming_loop's
+    # float64 projections) against the float64 twin's on this frame.
+    op = path_operands(torch, Lg, GRID_ARGS, dev)
+    c9k = streaming_sinkhorn_vectors(op.fa, op.fb, op.Um, op.lam,
+                                     GRID_ARGS[4], 1e-10, op.sw, op.pw)[1]
+    rel = ((c9k[op.p:].double() - c64[op.p:]) / c64[op.p:]).abs()
+    loop_c = float(rel.median())
+    print(f"  the streaming loop's c against the twin's: median "
+          f"{loop_c:.3e}, max {float(rel.max()):.3e} (bound {LOOP_C_TOL})")
+    if not loop_c <= LOOP_C_TOL:
+        raise AssertionError(f"[9c] loop c median {loop_c:.3e} > "
+                             f"{LOOP_C_TOL}")
+    del edit64, c64, c9k, rel, op, lab, Lg, grid
+    torch.cuda.empty_cache()
     for a, b, what in (
             ("streaming", "dense f32", "the two f32 routes"),
             ("dense", "dense f32", "the int16 carrier, K3 vs K4"),
@@ -2022,9 +2265,10 @@ def main() -> int:
             ("streaming", "float64 twin",
              "the streaming kernels against their float64 twin")):
         db = psnr(outs[a], outs[b])
-        print(f"  {a} vs {b}: {db:.2f} dB ({what})")
-        if not db >= 45.0:
-            raise AssertionError(f"[9c] {a} vs {b} {db:.2f} dB < 45")
+        least = TWIN_DB if b == "float64 twin" else 45.0
+        print(f"  {a} vs {b}: {db:.2f} dB ({what}; gate {least})")
+        if not db >= least:
+            raise AssertionError(f"[9c] {a} vs {b} {db:.2f} dB < {least}")
     del outs
 
     # [9d] the dense route past 2048 factor columns on a real train (the
@@ -2085,6 +2329,9 @@ def main() -> int:
             row = wide10.setdefault(row_name, {})
         nbytes = Q.element_size() * nb2 * WIDE_MPAD + 4 * (nb2 + 2 * WIDE_MPAD)
         bw, byw = bound_ms(nbytes, 4 * nb2 * WIDE_MPAD)
+        if Q.dtype == torch.float32:
+            row["torch_mv_ms_mpad2176"] = cuda_ms(
+                torch, lambda: torch.mv(Q, tq_w), reps=10)
         row.update({
             "max_abs_err_mpad2176": errw[0], "err_over_bound_mpad2176": errw[1],
             "ms_mpad2176": cuda_ms(torch, lambda: kernel(Q, tq_w, eps),

@@ -1,8 +1,9 @@
-// Shared device code of the port's kernels: one register-tiled fp32 GEMM
+// Shared device code of the port's kernels: K1's register-tiled fp32 GEMM
 // tile whose operand elements come from functors (so the affinity build
-// and the row scaling fuse into the operand load), the one affinity entry
-// every kernel that recomputes K uses, and the fixed-order reduction of
-// per-block partial sums.
+// fuses into the operand load), the one affinity entry every kernel that
+// recomputes K uses, Kahan's compensated add, the asynchronous copies into
+// shared memory (cp.async, and bulk copies completing on an mbarrier), and
+// the fixed-order reduction of per-block partial sums.
 //
 // Every contraction here is plain IEEE fp32 FMA on the CUDA cores: no
 // TF32, no fast-math intrinsics, and no bf16 except in the one sanctioned
@@ -117,26 +118,6 @@ struct AffinityA {
   }
 };
 
-// Element (i, r) of (diag(c) phi)^T: phi row-major (rows, ld).
-struct ScaledColsA {
-  const float* phi;
-  const float* c;
-  int ld;
-  __device__ __forceinline__ float operator()(int i, int r) const {
-    return __fmul_rn(phi[static_cast<size_t>(r) * ld + i], c[r]);
-  }
-};
-
-// Element (r, j) of diag(c) phi.
-struct ScaledRows {
-  const float* phi;
-  const float* c;
-  int ld;
-  __device__ __forceinline__ float operator()(int r, int j) const {
-    return __fmul_rn(phi[static_cast<size_t>(r) * ld + j], c[r]);
-  }
-};
-
 // sum += v with Kahan's compensation: comp carries the low part the last
 // add rounded away, so a chain of n adds rounds like O(1) adds, not O(n).
 // Explicitly rounded ops: nothing may fuse or reassociate them. A zero v
@@ -147,6 +128,74 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
   const float t = __fadd_rn(sum, y);
   comp = __fsub_rn(__fsub_rn(t, sum), y);
   sum = t;
+}
+
+// -- asynchronous copies into shared memory ---------------------------------
+
+// 16 bytes from global to shared with cp.async; with valid false the
+// destination is zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid = true) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier in shared memory that completes a phase when its one
+// arrival (the issuing thread's expect_tx) and the bulk copies' bytes
+// have landed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 1D bulk copy global -> shared, completing on `bar`'s transaction
+// count. dst, src and bytes are multiples of 16.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 namespace {

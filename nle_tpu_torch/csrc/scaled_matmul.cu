@@ -51,27 +51,9 @@ namespace {
 
 constexpr int THREADS = 256;
 
-// -- cp.async -------------------------------------------------------------
-
-// 16 bytes from global to shared; with valid false the destination is
-// zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using nle::cp_async16;
+using nle::cp_async_commit;
+using nle::cp_async_wait;
 
 __device__ __forceinline__ float4 scale4(float4 v, float c) {
   return make_float4(__fmul_rn(v.x, c), __fmul_rn(v.y, c), __fmul_rn(v.z, c),

@@ -42,115 +42,308 @@
 // probe's NSLOTS ring has no counterpart here (plain loads, no ring; K16
 // and K19 in csrc/sinkhorn_ab.cu carry the async staging).
 //
-// Layout (K3/K4/K14): each block owns a fixed range of
-// SK_ROWS_PER_BLOCK rows, staged in shared memory tr rows at a time by the
-// shared sweep. The block's s partial is a shared-memory row of mpad
-// floats: it takes any width (a dense sampling grid's nearly full rank
-// reaches mpad 2176 at p = 2112); at the 1 MP main path's mpad 640 it also
-// ran ~9% faster on the H100 than 8 register columns a thread did
-// (PERF.md). The per-block partial s goes to an (nblocks, mpad) scratch
-// and a second kernel sums it in block order, compensated: the TPU
-// accumulates s across its sequential grid in VMEM, CUDA blocks run in no
-// order, and float atomics would make training non-repeatable. A width
-// whose one-row tile no longer fits the shared memory (past ~17,000 f32
-// columns) is refused; the wrapper's MAX_MPAD is the port's one limit.
+// Layout (K3/K4/K14), redesigned for Hopper: a persistent grid of `ctas`
+// CTAs (two an SM of a 132-SM card), CTA b owning the contiguous row range
+// [b per_cta, min((b + 1) per_cta, npad)); sinkhorn_kernel.sinkhorn_plan
+// fixes (R, S, ctas, per_cta) from (npad, mpad, dtype) alone, so s and its
+// order do not depend on the card. The CTA walks its range in sub-tiles of
+// R rows; one thread copies each into a ring of S shared-memory slots with
+// cp.async.bulk, completing on the slot's mbarrier (K19's staging, csrc/
+// sinkhorn_ab.cu), S sub-tiles ahead. Per sub-tile: one warp a row forms
+// w (lanes take the row's 16-byte chunks in turn; a fixed shuffle tree),
+// x to device memory and to shared memory; one barrier (which also frees
+// the slot of the sub-tile before, re-issued at once); then each thread
+// adds its own 16-byte column chunks' chain over the R rows into the
+// CTA's s row in shared memory. x alternates two shared buffers, so that
+// is the only barrier a sub-tile. Where a row has fewer 16-byte chunks than
+// the block has threads, the s pass splits the rows among `groups` copies
+// of the chunks (row r to group r % groups), each with its partial s row,
+// added in group order at the CTA's end. The CTA's s row goes to a (ctas,
+// mpad) scratch, summed in CTA order with compensation
+// (launch_reduce_partials):
+// the TPU accumulates s across its sequential grid in VMEM, CUDA blocks
+// run in no order, and float atomics would make training non-repeatable.
+// A row must be a 16-byte multiple (the bulk copy's unit); int16 converts
+// exactly through the float bits of 2^23 + 2^15 + q (one PRMT and one add,
+// not the 16-a-clock I2F), bf16 by a shift. For 16-bit factors t sits in
+// shared memory (rounded to bf16 for K14); for f32 it is read through the
+// L1 cache, which keeps the ring at two one-row slots at MAX_MPAD.
 //
 // Bound on the H100: at the 1 MP main path (npad ~ 1.0 M, mpad = 640) each
 // half-step streams 1.3 GB (int16, bf16) or 2.6 GB (f32) for 2.6 GFLOP:
 // memory-bound; the floor is ~0.4 ms (int16, bf16) / ~0.8 ms (f32) at
-// 3.35 TB/s. This first version stages tiles with plain element loads (no
-// cp.async/TMA pipelining yet), so it sits well above that floor; K15
-// measures how far the staging alone does.
+// 3.35 TB/s. The bulk-copy ring keeps ~80 KB of the factor in flight per
+// SM with no register or instruction cost for the copy (the staging A/B
+// of csrc/sinkhorn_ab.cu on the same factor: bulk copies 1.01-1.03x
+// torch.mv, a cp.async ring 1.25-1.31x, plain loads 1.40-1.49x); K15
+// measures the plain staging's floor.
 
 #include "common.cuh"
 #include "sinkhorn_sweep.cuh"
 
 namespace {
 
-constexpr int SK_ROWS_PER_BLOCK = 1024;
 constexpr int K13_STRIPES = 8;        // the TPU kernel's (8, mpad) s block
 constexpr int K15_OUT_ROWS = 8;       // the TPU probe's (8, width) output
 constexpr int K15_WONLY_COLS = 1024;  // the probe's s[0, :1024] += w[:1024]
 
-// K3/K4/K14: SK_ROWS_PER_BLOCK rows per block.
+// K3/K4/K14's bulk-copy sweep.
+constexpr int HB_THREADS = 256;
+constexpr int HB_MAX_ROWS = 32;       // rows a sub-tile (x's shared buffers)
+constexpr int HB_MAX_SLOTS = 16;      // mbarriers in the first 128 bytes
+constexpr int HB_BARRIER_BYTES = 128;
+
+// A 16-byte chunk of a factor row as float32 values, exactly.
 template <typename T>
-__global__ void __launch_bounds__(SK_THREADS)
-    halfstep_kernel(const T* __restrict__ Q, const float* __restrict__ t,
-                    float* __restrict__ x, float* __restrict__ partial,
-                    int npad, int mpad, int tr, float eps) {
-  extern __shared__ float smem[];
-  float *t_s, *s_s, *x_s;
-  T* tile;
-  carve(smem, mpad, t_s, s_s, x_s, tile);
-  stage_vectors<T>(t, t_s, s_s, mpad);
-  const int rbeg = blockIdx.x * SK_ROWS_PER_BLOCK;
-  const int rend = min(rbeg + SK_ROWS_PER_BLOCK, npad);
-  sweep_rows<T, kHalfstep>(Q, t_s, s_s, x_s, tile, x, rbeg, rend, mpad, tr,
-                           eps, 1);
-  float* dst = partial + static_cast<size_t>(blockIdx.x) * mpad;
-  for (int j = threadIdx.x; j < mpad; j += SK_THREADS) dst[j] = s_s[j];
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int kValues = 4;
+  __device__ __forceinline__ static void load(const unsigned char* p,
+                                              float (&v)[4]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+};
+
+template <>
+struct Chunk<int16_t> {
+  static constexpr int kValues = 8;
+  // The float with bits 0x4B000000 | u16 is 2^23 + u16; u16 = q ^ 0x8000 is
+  // q + 2^15, so subtracting 2^23 + 2^15 gives q exactly.
+  __device__ __forceinline__ static void load(const unsigned char* p,
+                                              float (&v)[8]) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t b = w[k] ^ 0x80008000u;
+      v[2 * k] = __fsub_rn(__uint_as_float(__byte_perm(b, 0x4B00u, 0x5410)),
+                           8421376.0f);
+      v[2 * k + 1] = __fsub_rn(
+          __uint_as_float(__byte_perm(b, 0x4B00u, 0x5432)), 8421376.0f);
+    }
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kValues = 8;
+  __device__ __forceinline__ static void load(const unsigned char* p,
+                                              float (&v)[8]) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+    }
+  }
+};
+
+// Row groups of the s pass: as many as whole copies of a row's 16-byte
+// chunks fit the block's threads (1 from 4,096-byte rows on).
+__host__ __device__ inline int bulk_groups(int nchunks) {
+  return nchunks >= HB_THREADS ? 1 : HB_THREADS / nchunks;
+}
+
+// Shared bytes of the bulk sweep: the barriers, the ring, a partial s row
+// for each row group, t (16-bit factors) and x's two buffers.
+// sinkhorn_kernel.sinkhorn_plan computes the same.
+template <typename T>
+size_t bulk_smem_bytes(int mpad, int R, int S) {
+  const int nchunks = mpad * static_cast<int>(sizeof(T)) / 16;
+  const size_t vectors = bulk_groups(nchunks) + (sizeof(T) == 2 ? 1 : 0);
+  return HB_BARRIER_BYTES + static_cast<size_t>(S) * R * mpad * sizeof(T) +
+         4 * (vectors * mpad + 2 * HB_MAX_ROWS);
 }
 
 template <typename T>
+__global__ void __launch_bounds__(HB_THREADS)
+    halfstep_bulk_kernel(const T* __restrict__ Q, const float* __restrict__ t,
+                         float* __restrict__ x, float* __restrict__ partial,
+                         int npad, int mpad, int R, int S, int per_cta,
+                         float eps) {
+  constexpr int V = Chunk<T>::kValues;
+  constexpr bool kTShared = sizeof(T) == 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  unsigned char* ring = smem_raw + HB_BARRIER_BYTES;
+  const int row_bytes = mpad * static_cast<int>(sizeof(T));
+  const int slot_bytes = R * row_bytes;
+  const int nchunks = row_bytes / 16;
+  const int groups = bulk_groups(nchunks);
+  // s_s: [groups][mpad]
+  float* s_s = reinterpret_cast<float*>(ring + static_cast<size_t>(S) *
+                                                   slot_bytes);
+  float* t_s = s_s + groups * mpad;              // 16-bit factors only
+  float* x_s = t_s + (kTShared ? mpad : 0);      // [2][HB_MAX_ROWS]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rbeg = blockIdx.x * per_cta;
+  const int rend = min(rbeg + per_cta, npad);
+  const int ntiles = (rend - rbeg + R - 1) / R;
+
+  for (int j = tid; j < groups * mpad; j += HB_THREADS) s_s[j] = 0.0f;
+  if (kTShared) {
+    for (int j = tid; j < mpad; j += HB_THREADS) t_s[j] = operand<T>(t[j]);
+  }
+  if (tid == 0) {
+    for (int b = 0; b < S; ++b) nle::mbar_init(&bars[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Sub-tile i into slot i % S; one thread.
+  auto issue = [&](int i) {
+    const int r0 = rbeg + i * R;
+    const uint32_t bytes = static_cast<uint32_t>(min(R, rend - r0)) *
+                           static_cast<uint32_t>(row_bytes);
+    uint64_t* bar = &bars[i % S];
+    nle::mbar_expect_tx(bar, bytes);
+    nle::bulk_copy(ring + static_cast<size_t>(i % S) * slot_bytes,
+                   Q + static_cast<size_t>(r0) * mpad, bytes, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < S && i < ntiles; ++i) issue(i);
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    const int r0 = rbeg + i * R;
+    const int nr = min(R, rend - r0);
+    const unsigned char* slot = ring + static_cast<size_t>(i % S) * slot_bytes;
+    float* xb = x_s + (i & 1) * HB_MAX_ROWS;
+    nle::mbar_wait(&bars[i % S], static_cast<uint32_t>((i / S) & 1));
+    for (int r = warp; r < nr; r += HB_THREADS / 32) {
+      const unsigned char* row = slot + r * row_bytes;
+      float w = 0.0f;
+      for (int c = lane; c < nchunks; c += 32) {
+        float q[V], tv[V];
+        Chunk<T>::load(row + c * 16, q);
+#pragma unroll
+        for (int e = 0; e < V; e += 4) {
+          const float4 t4 =
+              kTShared ? *reinterpret_cast<const float4*>(t_s + c * V + e)
+                       : __ldg(reinterpret_cast<const float4*>(t + c * V + e));
+          tv[e] = t4.x;
+          tv[e + 1] = t4.y;
+          tv[e + 2] = t4.z;
+          tv[e + 3] = t4.w;
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) w = fmaf(q[e], tv[e], w);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        w = __fadd_rn(w, __shfl_xor_sync(0xffffffffu, w, off));
+      }
+      if (lane == 0) {
+        const float xv = fabsf(w) >= eps ? 1.0f / w : 0.0f;
+        xb[r] = operand<T>(xv);
+        x[r0 + r] = xv;
+      }
+    }
+    // x of this sub-tile is in xb; every thread is past sub-tile i - 1.
+    __syncthreads();
+    if (tid == 0 && i >= 1 && i - 1 + S < ntiles) issue(i - 1 + S);
+    // Item k: chunk k % nchunks of the rows k / nchunks + groups i.
+    for (int k = tid; k < groups * nchunks; k += HB_THREADS) {
+      const int g = k / nchunks;
+      const int c = k - g * nchunks;
+      float a[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) a[e] = 0.0f;
+#pragma unroll 4
+      for (int r = g; r < nr; r += groups) {
+        const float xr = xb[r];
+        float q[V];
+        Chunk<T>::load(slot + r * row_bytes + c * 16, q);
+#pragma unroll
+        for (int e = 0; e < V; ++e) a[e] = fmaf(xr, q[e], a[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < V; e += 4) {
+        float4* sp = reinterpret_cast<float4*>(s_s + g * mpad + c * V + e);
+        const float4 o = *sp;
+        *sp = make_float4(__fadd_rn(o.x, a[e]), __fadd_rn(o.y, a[e + 1]),
+                          __fadd_rn(o.z, a[e + 2]), __fadd_rn(o.w, a[e + 3]));
+      }
+    }
+  }
+  __syncthreads();
+  // The CTA's s row: the groups' partials added in group order.
+  float* dst = partial + static_cast<size_t>(blockIdx.x) * mpad;
+  for (int j = tid; j < mpad; j += HB_THREADS) {
+    float v = s_s[j];
+    for (int g = 1; g < groups; ++g) v = __fadd_rn(v, s_s[g * mpad + j]);
+    dst[j] = v;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The launch of sinkhorn_plan's (rows, slots, ctas, per_cta, smem); any
+// other plan, or a row that is not a 16-byte multiple, is refused.
+template <typename T>
 int launch_halfstep(const T* Q, const float* t, float* x, float* partial,
-                    float* s, int npad, int mpad, float eps, void* stream) {
-  if (mpad < 1 || npad < 1) {
+                    float* s, int npad, int mpad, int R, int S, int ctas,
+                    int per_cta, int smem, float eps, void* stream) {
+  if (npad < 1 || mpad < 1 || (mpad * sizeof(T)) % 16 || R < 1 ||
+      R > HB_MAX_ROWS || S < 2 || S > HB_MAX_SLOTS || ctas < 1 ||
+      per_cta < 1 || static_cast<long long>(ctas - 1) * per_cta >= npad ||
+      static_cast<long long>(ctas) * per_cta < npad ||
+      static_cast<size_t>(smem) != bulk_smem_bytes<T>(mpad, R, S) ||
+      !aligned16(Q) || !aligned16(t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  size_t smem = 0;
-  const int tr = tile_rows<T>(mpad, &smem);
-  if (tr < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      halfstep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      halfstep_bulk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblocks = (npad + SK_ROWS_PER_BLOCK - 1) / SK_ROWS_PER_BLOCK;
-  halfstep_kernel<T><<<nblocks, SK_THREADS, smem, st>>>(
-      Q, t, x, partial, npad, mpad, tr, eps);
+  halfstep_bulk_kernel<T><<<ctas, HB_THREADS, smem, st>>>(
+      Q, t, x, partial, npad, mpad, R, S, per_cta, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      nle::launch_reduce_partials(partial, s, nblocks, mpad, st));
+      nle::launch_reduce_partials(partial, s, ctas, mpad, st));
 }
 
 }  // namespace
 
-// Number of partial rows the caller's scratch must hold for npad rows
-// (K3, K4, K14).
-extern "C" int nle_sinkhorn_nblocks(int npad) {
-  return (npad + SK_ROWS_PER_BLOCK - 1) / SK_ROWS_PER_BLOCK;
-}
-
-// K3: Q (npad, mpad) int16, t (mpad,) -> x (npad,), s (mpad,); partial is
-// scratch of nle_sinkhorn_nblocks(npad) * mpad floats.
+// K3: Q (npad, mpad) int16, t (mpad,) -> x (npad,), s (mpad,) on
+// sinkhorn_plan(npad, mpad, int16) = (rows, slots, ctas, per_cta, smem);
+// partial is scratch of ctas * mpad floats.
+#define NLE_HALFSTEP_ARGS                                                  \
+  float *x, float *partial, float *s, int npad, int mpad, int rows,        \
+      int slots, int ctas, int per_cta, int smem, float eps, void *stream
 extern "C" int nle_sinkhorn_halfstep_i16(const int16_t* Q, const float* t,
-                                         float* x, float* partial, float* s,
-                                         int npad, int mpad, float eps,
-                                         void* stream) {
-  return launch_halfstep<int16_t>(Q, t, x, partial, s, npad, mpad,
-                                             eps, stream);
+                                         NLE_HALFSTEP_ARGS) {
+  return launch_halfstep<int16_t>(Q, t, x, partial, s, npad, mpad, rows,
+                                  slots, ctas, per_cta, smem, eps, stream);
 }
 
 // K4: Q (npad, mpad) float32; otherwise as above.
 extern "C" int nle_sinkhorn_halfstep_f32(const float* Q, const float* t,
-                                         float* x, float* partial, float* s,
-                                         int npad, int mpad, float eps,
-                                         void* stream) {
-  return launch_halfstep<float>(Q, t, x, partial, s, npad, mpad,
-                                           eps, stream);
+                                         NLE_HALFSTEP_ARGS) {
+  return launch_halfstep<float>(Q, t, x, partial, s, npad, mpad, rows, slots,
+                                ctas, per_cta, smem, eps, stream);
 }
 
 // K14: Q (npad, mpad) bfloat16, t float32 (rounded to bf16 in the kernel);
 // x and s float32; otherwise as above.
 extern "C" int nle_sinkhorn_halfstep_bf16(const void* Q, const float* t,
-                                          float* x, float* partial, float* s,
-                                          int npad, int mpad, float eps,
-                                          void* stream) {
+                                          NLE_HALFSTEP_ARGS) {
   return launch_halfstep<__nv_bfloat16>(
       static_cast<const __nv_bfloat16*>(Q), t, x, partial, s, npad, mpad,
-      eps, stream);
+      rows, slots, ctas, per_cta, smem, eps, stream);
 }
+#undef NLE_HALFSTEP_ARGS
 
 // K13: Q (npad, mpad) float32 with npad a multiple of `rows`, the row tile;
 // partial is scratch of (npad / rows) * mpad floats.

@@ -62,6 +62,7 @@
 
 #include <cuda_pipeline.h>
 
+#include "common.cuh"
 #include "sinkhorn_sweep.cuh"
 
 namespace {
@@ -284,48 +285,10 @@ __global__ void __launch_bounds__(SK_THREADS)
 
 // -- K19 ----------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of the given parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 1D bulk copy global -> shared, completing on `bar`'s transaction
-// count. dst, src and bytes are multiples of 16.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+using nle::bulk_copy;
+using nle::mbar_expect_tx;
+using nle::mbar_init;
+using nle::mbar_wait;
 
 // Issue sub-tile g (rows [g R, g R + R)) into `slot` as nstreams pieces;
 // one thread calls it.

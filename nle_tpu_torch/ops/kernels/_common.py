@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+SHARED_LIMIT = 232_448    # shared memory bytes one H100 block may use
+
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m

@@ -24,10 +24,13 @@ bf16 lead on K14, the int16 carrier on K3, or f32 on K4 (K13 under
 NLE_SINKHORN_KERNEL=auto), as the JAX loop resolves its knobs.
 
 On the H100 the half-step is memory-bound (1.3 GB int16 or bf16 / 2.6 GB
-f32 per call at the 1 MP main path, 2.6 GFLOP). The CUDA kernel stages row
-tiles in shared memory, forms w one warp per row, and adds the block's
-partial s while the tile is on chip; partial sums go to a scratch reduced
-in a fixed order (no float atomics, so training is bitwise repeatable). K3
+f32 per call at the 1 MP main path, 2.6 GFLOP). K3/K4/K14 run a persistent
+grid (sinkhorn_plan, from the shapes alone) whose CTAs stream their row
+ranges through a shared-memory ring filled by bulk copies on mbarriers
+(K19's staging), form w one warp per row, and add the CTA's partial s
+while the sub-tile is on chip; partial sums go to a scratch reduced in a
+fixed order (no float atomics, so training is bitwise repeatable). A row
+must be a 16-byte multiple (the bulk copy's unit). K3
 takes exact fp32 products of the int16 values, where the TPU splits them
 into bf16 pieces and drops the lo*lo term (~2^-17 relative): the port is
 tight against its plain version and differs from the TPU by that class.
@@ -52,11 +55,16 @@ take any width.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
 from nle_tpu_torch.ops.kernels import _build
-from nle_tpu_torch.ops.kernels._common import cuda_or_cpu, round_up
+from nle_tpu_torch.ops.kernels._common import (
+    SHARED_LIMIT,
+    cuda_or_cpu,
+    round_up,
+)
 from nle_tpu_torch.ops.linalg import safe_reciprocal
 
 # Widest factor K3/K4 take, the port's one width limit of the dense route
@@ -324,6 +332,72 @@ def sinkhorn_halfstep_plain(Q: torch.Tensor, t: torch.Tensor, eps: float):
     return x, colsum64(Qf, x.to(torch.bfloat16).float() if bf16 else x)
 
 
+# K3/K4/K14's bulk-copy sweep (csrc/sinkhorn.cu halfstep_bulk_kernel): a
+# persistent grid of at most SK_CTAS CTAs (two an SM of a 132-SM card; a
+# constant, so the plan and the order of s depend on the shapes alone),
+# each walking its contiguous row range in sub-tiles of `rows` rows through
+# a ring of `slots` shared-memory slots filled by bulk copies. On the H100
+# two CTAs an SM with two 40 KB slots each ran fastest of the ring and
+# sub-tile sizes tried at 1 MP and at mpad 2176 (PERF.md).
+SK_CTAS = 264
+SK_THREADS = 256
+SK_MAX_ROWS = 32          # rows of a sub-tile (x's shared buffers)
+SK_MAX_SLOTS = 16         # mbarriers in the shared memory's first 128 B
+SK_SLOT_BYTES = 40 << 10  # a sub-tile: the most rows (a power of 2) held
+SK_RING_BYTES = 96 << 10  # the ring: as many slots as this holds, 2 at least
+
+
+class SinkhornPlan(NamedTuple):
+    """K3/K4/K14's launch: CTA b owns rows [b per_cta, min((b + 1)
+    per_cta, npad)), walked `rows` at a time through `slots` bulk-copied
+    sub-tiles; shared_bytes: the slots' mbarriers, the ring, a partial s
+    row per row group (sweep_groups), t for 16-bit factors and x's two
+    buffers."""
+    rows: int
+    slots: int
+    ctas: int
+    per_cta: int
+    shared_bytes: int
+
+
+def sweep_groups(mpad: int, dtype: torch.dtype) -> int:
+    """Row groups of the sweep's s pass (csrc bulk_groups): as many whole
+    copies of a row's 16-byte chunks as the block's threads hold, each
+    summing every groups-th row into its own partial s row."""
+    chunks = mpad * torch.empty((), dtype=dtype).element_size() // 16
+    return 1 if chunks >= SK_THREADS else SK_THREADS // max(chunks, 1)
+
+
+def sinkhorn_plan(npad: int, mpad: int, dtype: torch.dtype) -> SinkhornPlan:
+    """The half-step kernels' plan for an (npad, mpad) factor of dtype: a
+    function of the shapes alone. Raises on shapes the kernel cannot take:
+    a row that is not a 16-byte multiple (the bulk copy's unit) or a width
+    whose ring and vectors do not fit one block's shared memory."""
+    if dtype not in _HALFSTEP:
+        raise TypeError(f"half-step factor dtype {dtype}: int16, float32 "
+                        "or bfloat16")
+    esize = torch.empty((), dtype=dtype).element_size()
+    row_bytes = mpad * esize
+    if npad < 1 or mpad < 1 or row_bytes % 16:
+        raise ValueError(f"the half-step kernels take rows of a 16-byte "
+                         f"multiple; got ({npad}, {mpad}) {dtype}")
+    rows = 1
+    while rows < SK_MAX_ROWS and 2 * rows * row_bytes <= SK_SLOT_BYTES:
+        rows *= 2
+    per_cta = round_up(-(-npad // SK_CTAS), rows)
+    # No more slots than a CTA has sub-tiles.
+    slots = min(SK_MAX_SLOTS, per_cta // rows,
+                SK_RING_BYTES // (rows * row_bytes))
+    slots = max(2, slots)
+    vectors = sweep_groups(mpad, dtype) + (1 if esize == 2 else 0)
+    shared = 128 + slots * rows * row_bytes + 4 * (vectors * mpad
+                                                   + 2 * SK_MAX_ROWS)
+    if shared > SHARED_LIMIT:
+        raise ValueError(f"a {mpad}-column {dtype} factor needs {shared} B "
+                         f"of shared memory (limit {SHARED_LIMIT})")
+    return SinkhornPlan(rows, slots, -(-npad // per_cta), per_cta, shared)
+
+
 def launch_sweep(fn, Q, t, x, partial, s, *args):
     """Call a sweep's C entry on (Q, t, x, partial, s, *args) on Q's device
     and current stream; returns its cudaError_t."""
@@ -351,14 +425,17 @@ def sinkhorn_halfstep(Q: torch.Tensor, t: torch.Tensor, eps: float):
         return sinkhorn_halfstep_plain(Q, t, eps)
     _check_width(Q, t)
     npad, mpad = Q.shape
+    plan = sinkhorn_plan(npad, mpad, Q.dtype)
+    if Q.data_ptr() % 16 or t.data_ptr() % 16:
+        raise ValueError("half-step operands must be 16-byte aligned")
     lib = _build.load()
     x = torch.empty((npad,), dtype=torch.float32, device=Q.device)
     s = torch.empty((mpad,), dtype=torch.float32, device=Q.device)
-    partial = torch.empty((lib.nle_sinkhorn_nblocks(npad), mpad),
-                          dtype=torch.float32, device=Q.device)
+    partial = torch.empty((plan.ctas, mpad), dtype=torch.float32,
+                          device=Q.device)
     fn, name = _HALFSTEP[Q.dtype]
     _build.check(launch_sweep(getattr(lib, fn), Q, t, x, partial, s, npad,
-                              mpad, float(eps)), name)
+                              mpad, *plan, float(eps)), name)
     _build.count_launch(name)
     return x, s
 

@@ -28,7 +28,10 @@ contractions (~1e-7 relative).
 - K11 replaces `_atb_kernel` (:369, call :411): out (R, Qpad) = K b.
 - K12 replaces `_gram_kernel` (:453, call :492) and, where the TPU's VMEM
   no longer holds the gram (dense sampling grids), the XLA scan
-  `streaming_scaled_gram_xla` (:512).
+  `streaming_scaled_gram_xla` (:512): per row chunk of stream_gram_plan,
+  phi's rows built with each entry once per column panel of up to 384
+  columns, then K6's lower-triangle gram of the chunk, the chunks added in
+  order with compensation.
 (K is written (pixels, samples) here; the JAX docstrings call the same
 products K_AB^T u and K_AB x.)
 
@@ -60,14 +63,13 @@ import torch
 
 from nle_tpu_torch.ops.kernels import _build
 from nle_tpu_torch.ops.kernels._common import cuda_or_cpu, round_up
+from nle_tpu_torch.ops.kernels.scaled_matmul_kernel import GramPlan, gram_plan
 from nle_tpu_torch.ops.linalg import safe_reciprocal
 
 TILE_Q = 512                 # Qpad alignment (the JAX package's row tile)
 P_ALIGN = 128                # Ppad alignment (every kernel's sample step)
 MAX_STREAM_P_FUSED = 1792    # K8's regime (Ppad <= this); K9 past it
 MAX_ROWS = 3                 # K10/K11 rows: one channel, or a colour frame's
-GRAM_CHUNK_ROWS = 32768      # K12 phi scratch rows (84 MB at mpad = 640)
-GRAM_NSPLIT = 16             # K12 partial grams per chunk
 PLAIN_CHUNK_ROWS = 8192      # rows of one affinity block in the plain twins
 PLAIN_CPU_ENTRIES = 1 << 18  # on the CPU, entries of one: cache-sized blocks
 # K8's kernel (csrc/streaming.cu stream_halfstep_kernel): a block holds all
@@ -124,6 +126,74 @@ def halfstep_plan(qpad: int, ppad: int) -> HalfstepPlan:
     return HalfstepPlan(threads, cols, rows, -(-qpad // per_block), per_block,
                         16 * HS_RING * HS_ROW_GRAIN
                         + 4 * 2 * rows * (1 + threads // 32))
+
+
+# K12 (csrc/streaming.cu gram_phi_kernel, then K6's kernel on each chunk):
+# a block builds the affinity of GRAM_PHI_ROWS pixel rows, GRAM_PHI_K
+# samples a step, and multiplies it into all columns of a column panel of
+# at most GRAM_PANEL_COLS (so each entry is built once per chunk up to mpad
+# 384); the Uinv slabs come through a ring of GRAM_PHI_STAGES by cp.async.
+GRAM_PHI_ROWS = 64
+GRAM_PHI_K = 16
+GRAM_PHI_STAGES = 3
+GRAM_PANEL_COLS = 384
+GRAM_COL_ALIGN = 128         # K6's tile edge: mpad a multiple of it
+# phi rows of one chunk: as many as GRAM_CHUNK_BYTES of scratch hold, in
+# whole GRAM_CHUNK_GRAIN-row pieces (K6's shortest split), so the chunk's
+# gram step fills the card (mpad 384: 174,080 rows, 44 splits x 6 tiles).
+GRAM_CHUNK_BYTES = 1 << 28
+GRAM_CHUNK_GRAIN = 2048
+
+
+class StreamGramPlan(NamedTuple):
+    """K12's launch: Qpad rows in `nchunks` chunks of `chunk` rows, the
+    last one `last` rows; each chunk's phi rows built in GRAM_PHI_ROWS-row
+    blocks over the column panels `panels` (widths, in column order), then
+    K6's gram on them by K6's plan `full` (a full chunk) or `tail` (the
+    last one)."""
+    chunk: int
+    nchunks: int
+    last: int
+    panels: tuple[int, ...]
+    full: GramPlan
+    tail: GramPlan
+
+    @property
+    def shared_bytes(self) -> int:
+        """The phi step's shared memory for its widest panel: the Uinv ring
+        and the two affinity tiles."""
+        return 4 * (GRAM_PHI_STAGES * GRAM_PHI_K * max(self.panels)
+                    + 2 * GRAM_PHI_K * GRAM_PHI_ROWS)
+
+
+def stream_gram_plan(qpad: int, ppad: int, mpad: int,
+                     chunk: int | None = None) -> StreamGramPlan:
+    """K12's plan for (Qpad, Ppad, Mpad) and the chunk rows (by default
+    GRAM_CHUNK_BYTES of phi rows, at most Qpad): a function of the shapes
+    alone, so K12's partial sums and their order do not depend on the
+    card. Raises on shapes the kernels cannot take."""
+    if qpad < GRAM_PHI_ROWS or qpad % GRAM_PHI_ROWS:
+        raise ValueError(f"Qpad {qpad} must be a positive multiple of "
+                         f"{GRAM_PHI_ROWS}")
+    if ppad < GRAM_PHI_K or ppad % GRAM_PHI_K:
+        raise ValueError(f"Ppad {ppad} must be a positive multiple of "
+                         f"{GRAM_PHI_K}")
+    if mpad < GRAM_COL_ALIGN or mpad % GRAM_COL_ALIGN:
+        raise ValueError(f"K12 takes Mpad a positive multiple of "
+                         f"{GRAM_COL_ALIGN} on the card; got {mpad}")
+    if chunk is None:
+        chunk = max(GRAM_CHUNK_GRAIN,
+                    GRAM_CHUNK_BYTES // (4 * mpad) // GRAM_CHUNK_GRAIN
+                    * GRAM_CHUNK_GRAIN)
+    if chunk < GRAM_PHI_ROWS or chunk % GRAM_PHI_ROWS:
+        raise ValueError(f"chunk {chunk} must be a positive multiple of "
+                         f"{GRAM_PHI_ROWS}")
+    chunk = min(chunk, qpad)
+    last = qpad - (qpad - 1) // chunk * chunk
+    full, rest = divmod(mpad, GRAM_PANEL_COLS)
+    panels = (GRAM_PANEL_COLS,) * full + ((rest,) if rest else ())
+    return StreamGramPlan(chunk, -(-qpad // chunk), last, panels,
+                          gram_plan(chunk, mpad), gram_plan(last, mpad))
 
 
 def halfstep_route(ppad: int) -> str:
@@ -376,10 +446,14 @@ def streaming_atb(fa_rows, fb_cols, b_rows, sw, pw):
     return out
 
 
-def streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw):
+def streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw, *,
+                          keep_phi: bool = False):
     """Sb (Mpad, Mpad) = (c phi_rest)^T (c phi_rest), phi_rest = K Uinv
     recomputed per row chunk (K12). c_row (1, Qpad) is zero on pad
-    columns; uinv_pad (Ppad, Mpad), Mpad a 64 multiple."""
+    columns; uinv_pad (Ppad, Mpad), Mpad a 64 multiple (on the card a 128
+    multiple). On the card the rows go in stream_gram_plan's chunks;
+    keep_phi also returns the phi rows of the last chunk, pixel rows
+    [Qpad - plan.last, Qpad) (the check that they are K1's)."""
     _check_layout(fa_rows, fb_cols)
     ppad, mpad = uinv_pad.shape
     if ppad != fa_rows.shape[1] or mpad % 64:
@@ -387,57 +461,94 @@ def streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw):
                          f"({fa_rows.shape[1]}, 64k)")
     if not cuda_or_cpu(fa_rows, fb_cols, c_row, uinv_pad,
                        dtype=torch.float32):
+        if keep_phi:
+            raise ValueError("keep_phi reads the kernel's scratch: card only")
         return streaming_scaled_gram_plain(fa_rows, fb_cols, c_row,
                                            uinv_pad, sw, pw)
-    lib = _build.load()
     qpad = fb_cols.shape[1]
+    plan = stream_gram_plan(qpad, ppad, mpad)
+    lib = _build.load()
     dev = fb_cols.device
-    chunk = min(GRAM_CHUNK_ROWS, qpad)
-    phi_chunk = torch.empty((chunk, mpad), dtype=torch.float32, device=dev)
-    partial = torch.empty((GRAM_NSPLIT, mpad, mpad), dtype=torch.float32,
-                          device=dev)
-    out = torch.empty((mpad, mpad), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    phi_chunk = torch.empty((plan.chunk, mpad), dtype=f32, device=dev)
+    scratch = torch.empty(max(plan.full.scratch_bytes,
+                              plan.tail.scratch_bytes) // 4,
+                          dtype=f32, device=dev)
+    part = torch.empty((mpad, mpad), dtype=f32, device=dev)
+    comp = torch.empty((mpad, mpad), dtype=f32, device=dev)
+    out = torch.empty((mpad, mpad), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         status = lib.nle_stream_gram(
             fb_cols.data_ptr(), fa_rows.data_ptr(), c_row.data_ptr(),
-            uinv_pad.data_ptr(), phi_chunk.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), qpad, ppad, mpad, chunk, GRAM_NSPLIT, float(sw),
-            float(pw), _build.stream_ptr(fb_cols))
+            uinv_pad.data_ptr(), phi_chunk.data_ptr(), scratch.data_ptr(),
+            part.data_ptr(), comp.data_ptr(), out.data_ptr(), qpad, ppad,
+            mpad, plan.chunk, plan.last, plan.full.nsplit,
+            plan.full.split_rows, plan.tail.nsplit, plan.tail.split_rows,
+            plan.full.chain_rows, float(sw), float(pw),
+            _build.stream_ptr(fb_cols))
     _build.check(status, "streaming_gram")
     _build.count_launch("streaming_gram")
-    return out
+    return (out, phi_chunk[:plan.last]) if keep_phi else out
 
 
 # -- the streaming Sinkhorn loop ---------------------------------------------
 
-def streaming_sinkhorn_vectors(fa, fb, Um, lam_m, Uinv, max_iter: int,
+def streaming_loop(halfstep, ap0, Um, lam_m, ppad: int, max_iter: int,
+                   eps: float):
+    """The streaming Sinkhorn loop around a half-step (u_pad (Ppad,) f32 ->
+    (x_rest, ap)) and the s0 pass's ap0 = K^T 1: returns (r_top, r_rest,
+    c_top, c_rest), f32.
+
+    The p-row projections around each half-step (u = Uinv t, x_top =
+    safe_recip(Um t), s = Um^T x_top + Uinv^T ap) run in float64 on the
+    f32 stage-1 values, with Uinv = Um / lambda formed in float64. With
+    eigenvalues down to 1e-10 s carries 1/lambda, and fp32 rounding of
+    these small products, repeated every half-step, moved the loop's c
+    2-10x further from its float64 twin than the kernels' own rounding does
+    (PERF.md); in float64 they cost a few p x m matvecs a half-step.
+    The JAX package runs them in fp32."""
+    f64 = torch.float64
+    p = Um.shape[0]
+    Um64 = Um.to(f64)
+    lam64 = lam_m.to(f64)
+    keep = lam64 > 0
+    Uinv64 = torch.where(keep, Um64 / torch.where(keep, lam64, 1.0), 0.0)
+
+    def half(t):
+        u_pad = torch.nn.functional.pad((Uinv64 @ t).float(), (0, ppad - p))
+        x_top = safe_reciprocal(Um64 @ t, eps)
+        x_rest, ap = halfstep(u_pad.contiguous())
+        return (x_top.float(), x_rest,
+                Um64.T @ x_top + Uinv64.T @ ap[:p].to(f64))
+
+    s = Um64.sum(dim=0) + Uinv64.T @ ap0[:p].to(f64)
+    r_top = r_rest = c_top = c_rest = None
+    for _ in range(max_iter):
+        c_top, c_rest, s = half(lam64 * s)
+        r_top, r_rest, s = half(lam64 * s)
+    return r_top, r_rest, c_top, c_rest
+
+
+def streaming_sinkhorn_vectors(fa, fb, Um, lam_m, max_iter: int,
                                eps: float, sw, pw):
     """Sinkhorn balancing without phi: (r, c), each (N,) in packed
     [selected; rest] order for N = p + q. The p sampled rows of phi are Um
-    (exact f32 matvecs); the rest rows are recomputed every half-step by
-    K8 (K9 past Ppad 1792), after one unit_x pass for s0 = phi^T 1 (K10
-    past 1792): 1 + 2 max_iter launches."""
+    (float64 projections, streaming_loop, which forms Uinv = Um / lam in
+    float64, so nle_tpu's f32 Uinv argument is not taken); the rest
+    rows are recomputed every half-step by K8 (K9 past Ppad 1792), after
+    one unit_x pass for s0 = phi^T 1 (K10 past 1792): 1 + 2 max_iter
+    launches."""
     p = Um.shape[0]
     q = fb.shape[0]
     fa_rows, fb_cols, mask = pad_stream_operands(fa, fb)
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
-
-    def halfstep(t):
-        u_pad = torch.nn.functional.pad(Uinv @ t, (0, ppad - p))
-        x_top = safe_reciprocal(Um @ t, eps)
-        x_rest, ap = streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw,
-                                        pw, eps)
-        return x_top, x_rest, Um.T @ x_top + Uinv.T @ ap[:p]
-
     _, ap0 = streaming_halfstep(fa_rows, fb_cols, mask,
                                 fa_rows.new_zeros((ppad,)), sw, pw, eps,
                                 unit_x=True)
-    s = Um.sum(dim=0) + Uinv.T @ ap0[:p]
-    r_top = fa_rows.new_ones((p,))
-    r_rest = fb_cols.new_ones((qpad,))
-    c_top = fa_rows.new_zeros((p,))
-    c_rest = fb_cols.new_zeros((qpad,))
-    for _ in range(max_iter):
-        c_top, c_rest, s = halfstep(lam_m * s)
-        r_top, r_rest, s = halfstep(lam_m * s)
+    if max_iter < 1:
+        return (torch.cat([fa_rows.new_ones((p,)), fb_cols.new_ones((q,))]),
+                fa_rows.new_zeros((p + q,)))
+    r_top, r_rest, c_top, c_rest = streaming_loop(
+        lambda u: streaming_halfstep(fa_rows, fb_cols, mask, u, sw, pw, eps),
+        ap0, Um, lam_m, ppad, max_iter, eps)
     return (torch.cat([r_top, r_rest[:q]]), torch.cat([c_top, c_rest[:q]]))

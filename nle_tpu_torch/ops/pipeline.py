@@ -251,8 +251,8 @@ def train_filter_stage2a_streaming(y, rr, cc, stage1, sw, pw, *, p: int,
     Um, lam_m, Uinv = _unpack_stage1(stage1, p)
     f = features(rr, cc, y)
     fa, fb = f[:p], f[p:]
-    r, c = streaming_sinkhorn_vectors(fa, fb, Um, lam_m, Uinv,
-                                      n_sinkhorn_iter, eps, sw, pw)
+    r, c = streaming_sinkhorn_vectors(fa, fb, Um, lam_m, n_sinkhorn_iter,
+                                      eps, sw, pw)
     # Rows m..p of the gram come from the stored Um block (rows < m are
     # masked to exact zeros); rows p..N are streamed.
     cu = _masked_top(c, Um, p, m)

@@ -7,21 +7,30 @@ grid, on one NVIDIA GPU.
 A frame is chip_smoke.py's [9c] frame (structured 2000x2000, seed 9; other
 seeds with --seeds) with 48 44 500 10 50 50: p = 2112 samples, and a rank
 cut at eigenvalues of 1e-10 (m = 1768 at seed 9), so the streaming route's
-u = Uinv t carries 1/lambda up to 1e10. The streaming Sinkhorn loop of
-train_filter(streaming=True) runs once per variant of its half-step, and
-each run's balancing vector c is held against the same loop in float64 on
-the plain PyTorch twins (c64); the dense f32 route's c (K1, then K4) is
-held too. Printed per variant: the median, 99th percentile and max over
-the rest pixels of |c - c64| / c64, and seconds. Variants:
+s carries 1/lambda up to 1e10. The streaming Sinkhorn loop runs once per
+variant of its half-step and of its p-row projections (u = Uinv t, x_top
+= 1 / (Um t), s = Um^T x_top + Uinv^T ap), and each run's balancing
+vector c is held against the same loop in float64 on the plain PyTorch
+twins (c64); the dense f32 route's c (K1, then K4) is held too. Printed
+per variant: the median, 99th percentile and max over the rest pixels of
+|c - c64| / c64, the signed mean of (c - c64) / c64, and seconds.
+Variants:
 
-- kernel: the half-step at p = 2112 (K8's one-build kernel, serving K9),
-  K10 for s0;
-- on the first frame only: plain f32 (the plain twins, cuBLAS sums), and
-  kernel w + plain ap / plain w + kernel ap, one pass each (K11 and K10:
-  which pass carries the kernel's extra error);
+- kernel: the package's loop (streaming_kernel.streaming_loop: float64
+  projections) around the half-step at p = 2112 (K8's one-build kernel,
+  serving K9), K10 for s0;
+- kernel, f32 projections: the same kernels in nle_tpu's loop, every
+  projection in fp32 (the JAX package's order);
+- on the first frame only: plain f32 (the plain twins, cuBLAS sums, f32
+  projections); kernel w + plain ap / plain w + kernel ap, one pass each
+  (K11 and K10, f32 projections: which pass carries the kernel's error);
+  plain float64 half-steps with f32 projections, and with the package's
+  float64 projections (how much of the loop's error the projections and
+  the f32 stage-1 values carry);
 - one half-step alone, on the float64 loop's u at half-steps 1, 20 and
   100 (rounded to f32): x and ap against the float64 twin on the same u
-  (median, 99th percentile and max relative error);
+  (median, 99th percentile and max of the relative error, and its signed
+  mean over the rows: (x - x64) / x64 and (ap - ap64) / |ap64|);
 
 each kernel variant once per kernel library: the package's own csrc and,
 with --base-csrc, another checkout's with the same C interface (an A/B of
@@ -31,8 +40,7 @@ accuracy from chance).
 Then, for each library in turn, twice (A, B, A, B), CUDA-event times of
 the half-step, K10 and K11 (R = 1) on the first frame's operands (p =
 2112) and at the 1 MP main path's sizes (1,011,200 rest pixels against
-640 samples), and of K3/K4 at the 1 MP main path's shape (1,011,712 x
-640). Prints one JSON line last. Imports no JAX."""
+640 samples). Prints one JSON line last. Imports no JAX."""
 
 from __future__ import annotations
 
@@ -123,9 +131,10 @@ def frame_operands(torch, dev, seed: int):
 
 def sinkhorn_loop(torch, halfstep, s0_ap, Um, lam, Uinv, q, ppad, iters,
                   eps=EPS):
-    """streaming_sinkhorn_vectors' loop with a given half-step
-    (u_pad -> (x_rest, ap)) and s0 pass (-> ap); returns (r_top (p,),
-    c (N,)) in packed order."""
+    """nle_tpu's streaming Sinkhorn loop, every projection in the operands'
+    dtype, with a given half-step (u_pad -> (x_rest, ap)) and s0 pass (->
+    ap); returns (r_top (p,), c (N,)) in packed order. On float64 operands
+    it is the float64 twin's loop."""
     from nle_tpu_torch.ops.linalg import safe_reciprocal
 
     p = Um.shape[0]
@@ -232,6 +241,7 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
     fa64, fb64, mask64 = op.fa64, op.fb64, op.mask64
 
     def run(halfstep, s0_ap, dtype=torch.float32):
+        """nle_tpu's loop (projections in dtype) around the half-step."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if dtype == torch.float64:
@@ -242,6 +252,17 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
                                  op.Uinv, q, ppad, iters)
         torch.cuda.synchronize()
         return c[p:], time.perf_counter() - t0
+
+    def run_package(halfstep, s0_ap):
+        """The package's loop (streaming_loop: float64 projections on the
+        f32 stage-1 values); the half-step's x and ap rounded to f32."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, c_rest = stk.streaming_loop(
+            lambda u: tuple(v.float() for v in halfstep(u)),
+            s0_ap().float(), op.Um, op.lam, ppad, iters, EPS)
+        torch.cuda.synchronize()
+        return c_rest[:q], time.perf_counter() - t0
 
     taken, count = [], [0]
 
@@ -260,11 +281,13 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
         rel = ((c.double() - c64) / c64).abs()
         qs = torch.quantile(rel.float(), torch.tensor(
             [0.5, 0.99], device=rel.device)).tolist()
+        mean = float(((c.double() - c64) / c64).mean())
         row = {"median": qs[0], "p99": qs[1], "max": float(rel.max()),
-               "seconds": secs}
+               "mean": mean, "seconds": secs}
         result[label] = row
-        print(f"{label:34s} vs float64: median {qs[0]:.3e} p99 {qs[1]:.3e} "
-              f"max {row['max']:.3e} ({secs:.1f} s)", flush=True)
+        print(f"{label:40s} vs float64: median {qs[0]:.3e} p99 {qs[1]:.3e} "
+              f"max {row['max']:.3e} mean {mean:+.3e} ({secs:.1f} s)",
+              flush=True)
 
     def kernel_halfstep(u):
         return stk.streaming_halfstep(fa, fb, mask, u, sw, pw, EPS)
@@ -300,9 +323,22 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
         plain_s0 = lambda: stk.streaming_ap_plain(fa, fb, mask, sw, pw)[0]  # noqa: E731
         stats("plain f32", *run(lambda u: stk.streaming_halfstep_ptiled_plain(
             fa, fb, mask, u, sw, pw, EPS), plain_s0))
+
+        def plain64(u):
+            return stk.streaming_halfstep_ptiled_plain(
+                fa64, fb64, mask64, u.double(), sw, pw, EPS)
+
+        s0_64 = lambda: stk.streaming_ap_plain(fa64, fb64, mask64, sw, pw)[0]  # noqa: E731
+        stats("plain float64 half-steps, f32 projections",
+              *run(lambda u: tuple(v.float() for v in plain64(u)),
+                   lambda: s0_64().float()))
+        stats("plain float64 half-steps, package loop",
+              *run_package(plain64, s0_64))
     for name, lib in libs.items():
         use(lib)
-        stats(f"kernel [{name}]", *run(kernel_halfstep, kernel_s0))
+        stats(f"kernel [{name}]", *run_package(kernel_halfstep, kernel_s0))
+        stats(f"kernel [{name}], f32 projections",
+              *run(kernel_halfstep, kernel_s0))
         if full:
             stats(f"kernel w + plain ap [{name}]", *run(
                 lambda u: (lambda x: (x, plain_ap(x)))(kernel_w(u)),
@@ -324,17 +360,20 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
             for what, got, want in (("x", x[:q], x64[:q]),
                                     ("ap", ap[:p], ap64[:p])):
                 live = want != 0
-                rel = ((got.double()[live] - want[live]) / want[live]).abs()
+                signed = (got.double()[live] - want[live]) / want[live].abs()
+                rel = signed.abs()
                 qs = torch.quantile(rel.float(), torch.tensor(
                     [0.5, 0.99], device=rel.device)).tolist()
                 row[what] = {"median": qs[0], "p99": qs[1],
-                             "max": float(rel.max())}
+                             "max": float(rel.max()),
+                             "mean": float(signed.mean())}
             result["one_step"].setdefault(f"half-step {k}", {})[name] = row
             print(f"one half-step {k:3d} [{name}] vs float64: x median "
                   f"{row['x']['median']:.3e} p99 {row['x']['p99']:.3e} max "
-                  f"{row['x']['max']:.3e}; ap median {row['ap']['median']:.3e}"
-                  f" p99 {row['ap']['p99']:.3e} max {row['ap']['max']:.3e}",
-                  flush=True)
+                  f"{row['x']['max']:.3e} mean {row['x']['mean']:+.3e}; ap "
+                  f"median {row['ap']['median']:.3e} p99 "
+                  f"{row['ap']['p99']:.3e} max {row['ap']['max']:.3e} mean "
+                  f"{row['ap']['mean']:+.3e}", flush=True)
         del x64, ap64
     use(libs["this"])
     op.fa64 = op.fb64 = op.mask64 = None
@@ -357,7 +396,6 @@ def main() -> int:
     dev = torch.device("cuda")
     import nle_tpu_torch  # noqa: F401  (pins fp32 precision)
     from nle_tpu_torch.ops.kernels import _build
-    from nle_tpu_torch.ops.kernels import sinkhorn_kernel as sk
     from nle_tpu_torch.ops.kernels import streaming_kernel as stk
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -381,9 +419,10 @@ def main() -> int:
             op = frame
     # Per library: the kernel loop's median over the frames.
     for name in libs:
-        medians = [f"{r[f'kernel [{name}]']['median']:.3e}"
-                   for r in result["frames"].values()]
-        print(f"kernel [{name}] median by frame: {', '.join(medians)}")
+        for label in (f"kernel [{name}]", f"kernel [{name}], f32 projections"):
+            medians = [f"{r[label]['median']:.3e}"
+                       for r in result["frames"].values()]
+            print(f"{label} median by frame: {', '.join(medians)}")
 
     fa, fb, mask, p = op.fa_rows, op.fb_cols, op.mask, op.p
     ppad, sw, pw = fa.shape[1], op.sw, op.pw
@@ -412,11 +451,6 @@ def main() -> int:
     b1s = b1[:, :p1].contiguous()
     mask1 = mask[:, :qs1].contiguous()
     u1 = b1[0, :p1].contiguous()
-    npad, mpad = 1011712, 640
-    Q16 = torch.randint(-32767, 32768, (npad, mpad), device=dev,
-                        dtype=torch.int16)
-    Q32 = torch.rand((npad, mpad), device=dev)
-    t = torch.rand(mpad, device=dev) * 1e-6
     times = {}
     for rep in range(2):   # A, B, A, B
         for name, lib in libs.items():
@@ -430,9 +464,7 @@ def main() -> int:
                     ("K8 1MP", lambda: stk.streaming_halfstep(
                         fa1, fb1, mask1, u1, sw, pw, EPS)),
                     ("K10 R=1 1MP", lambda: stk.streaming_ap(fa1, fb1, x1s, sw, pw)),
-                    ("K11 R=1 1MP", lambda: stk.streaming_atb(fa1, fb1, b1s, sw, pw)),
-                    ("K3 1MP", lambda: sk.sinkhorn_halfstep(Q16, t, EPS)),
-                    ("K4 1MP", lambda: sk.sinkhorn_halfstep(Q32, t, EPS))):
+                    ("K11 R=1 1MP", lambda: stk.streaming_atb(fa1, fb1, b1s, sw, pw))):
                 row.setdefault(key, []).append(ms(fn))
     use(libs["this"])
     for name, row in times.items():

@@ -220,8 +220,8 @@ def test_streaming_sinkhorn_matches_jax(small_channel):
     _build.reset_launches()
     ft = torch.from_numpy(f)
     r, c = tsk.streaming_sinkhorn_vectors(
-        ft[:p], ft[p:], torch.from_numpy(Um), torch.from_numpy(lam),
-        torch.from_numpy(Uinv), 10, EPS, sw, pw)
+        ft[:p], ft[p:], torch.from_numpy(Um), torch.from_numpy(lam), 10,
+        EPS, sw, pw)
     assert r.shape == c.shape == (grid.n_pixels,)
     np.testing.assert_allclose(r.numpy(), np.asarray(rj), rtol=1e-4)
     np.testing.assert_allclose(c.numpy(), np.asarray(cj), rtol=1e-4)
