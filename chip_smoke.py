@@ -8,7 +8,10 @@
    all started together) and prints the build time and ptxas'
    register/spill lines, and the SASS instructions of each streaming
    kernel's entry loop per entry; K8's one-build kernel must hold one
-   MUFU.EX2 per entry its row groups build (one barrier a group);
+   MUFU.EX2 per entry its row groups build (one barrier a group), and the
+   affinity core (csrc/affinity_core.cuh: K1, K2's contract, K12's phi
+   step) one per entry a column panel in its main loop, whose FFMA share
+   it prints;
 3. checks each kernel against its plain PyTorch version on the card at the
    1 MP main path's shapes (real data: the rock2-parameter frame below),
    each within a stated error bound (the streaming kernels K8, K10 and
@@ -25,7 +28,8 @@
    must be bitwise symmetric and repeatable, the phi rows of its last
    chunk bitwise K1's for the same pixels, and its phi step's main loop
    must hold one MUFU.EX2 per entry it builds (each entry built once per
-   column panel: once at mpad 384);
+   column panel: once at mpad 384); K1's builds an entry and MUFU.EX2 an
+   entry are read from a profiled call;
 4. runs a small frame on device="cuda" and device="cpu" (>= 45 dB between
    them) and twice on the card (bitwise equal), and edits on the card with
    the filter the CPU trained;
@@ -78,7 +82,8 @@
    timed, and their entry loops counted into K9's row; (b) NLEFilter(device="cuda") at 1 MP with
    40 30 500 10 50 50 (p = 1200): K1 at K2's contract, K3, K6, K7, its
    edit >= 45 dB from the assembled f32 route's (K4), and K1 held and
-   timed at p = 1200 (the K2 row); (c) train_filter(streaming=True), the
+   timed at p = 1200 (the K2 row), and K12's phi rows on the same pixels
+   and Uinv bitwise K1's; (c) train_filter(streaming=True), the
    default dense route (K3) and the f32 dense route (K4) on the 2000x2000
    frame with 48 44 500 10 50 50, whose rank is cut at eigenvalues of
    1e-10, and the streaming route's float64 plain twin on the same frame,
@@ -108,8 +113,9 @@
    peak <= DENSE_PEAK_PER_PHI_BYTE x phi; the bf16 route's PSNR against
    the K4 route is printed, ungated (not golden-safe); (c) K15's table
    through the port's probe tool (nle_tpu_torch/tools/bench_sk_dmaonly.py):
-   dmaonly / wonly / wpart at chunks 512 and 1024 and the half-step
-   kernels' ms and GB/s at the same shape, against dmaonly at chunk 1024;
+   dmaonly / wonly / wpart at chunks 512 and 1024 (on K4's bulk-copy
+   sweep) and the half-step kernels' ms and GB/s at the same shape, each
+   against K4 and against dmaonly at chunk 1024;
 11. the A/B staging probes of tools/ at [10c]'s shape (npad 1,011,712,
    mpad 640, phi normal x 0.05 + 0.1 from seed 0): K16 (bench_sk_unroll,
    chunks 512 and 1024), K17 (parts3d, mxu_row0), K18 (vpu, xonly) and
@@ -598,18 +604,21 @@ def kernel_grids(prof, needles) -> list:
     return [(name, grid) for _, name, grid in sorted(found)]
 
 
-# K12's launches in a profile: its phi step (one gram_phi_kernel<TN> launch
-# for each panel width a chunk takes, grid (rows / GRAM_PHI_ROWS, panels))
-# and the in-order add that closes each chunk.
-K12_TRACE = ("gram_phi_kernel", "gram_chunk_add_kernel")
+# K12's launches in a profile: its phi step (one launch of the affinity
+# core, affinity_panel_kernel<TN>, for each panel width a
+# chunk takes, grid (chunk rows / rows, panels)) and the in-order add that
+# closes each chunk. K1's launches are the core's alone (CORE_TRACE).
+CORE_TRACE = ("affinity_panel_kernel",)
+K12_TRACE = CORE_TRACE + ("gram_chunk_add_kernel",)
 
 
 def phi_builds(grids) -> list:
     """K12's phi step per chunk from a profile's K12_TRACE launches: for
     each chunk (closed by its gram_chunk_add_kernel launch), [(TN, blocks
-    down the rows, column panels)] of its gram_phi_kernel launches. A
+    down the rows, column panels)] of its affinity core launches. A
     block builds each entry of its rows once for every panel of its grid,
-    so the panels of a chunk's launches summed are its builds an entry."""
+    so the panels of a chunk's launches summed are its builds an entry.
+    Without chunk adds (K1's profile) the launches are one chunk."""
     import re
 
     chunks, cur = [], []
@@ -618,8 +627,11 @@ def phi_builds(grids) -> list:
             chunks.append(cur)
             cur = []
         else:
-            cur.append((int(re.search(r"gram_phi_kernel<(\d+)>",
+            cur.append((int(re.search(r"affinity_panel_kernel<(\d+)>",
                                       name).group(1)), gx, gy))
+    if cur and not chunks and not any("gram_chunk_add" in n for n, _ in
+                                      grids):
+        chunks, cur = [cur], []
     if cur or not chunks or not all(chunks):
         raise AssertionError(f"K12's trace is not phi launches closed by "
                              f"chunk adds: {grids}")
@@ -627,8 +639,8 @@ def phi_builds(grids) -> list:
 
 
 def phi_expf(chunks, ex2_build: dict) -> tuple:
-    """(builds an entry, MUFU.EX2 an entry) of K12's phi step, the most
-    over the chunks: each launch's panels times the MUFU.EX2 its
+    """(builds an entry, MUFU.EX2 an entry) of K12's phi step (or K1), the
+    most over the chunks: each launch's panels times the MUFU.EX2 its
     instantiation's SASS issues for one build (ex2_build, by TN; the EX2
     count is None without cuobjdump). A launch's blocks must cover the same
     rows as the chunk's other launches."""
@@ -647,25 +659,27 @@ def phi_expf(chunks, ex2_build: dict) -> tuple:
 
 def k12_expf(row: dict, suffix: str, chunks, ex2_build: dict, mpad: int,
              where: str) -> None:
-    """Put K12's measured builds an entry and MUFU.EX2 an entry (phi_expf)
+    """Put K12's (or K1's) measured builds an entry and MUFU.EX2 an entry
+    (phi_expf)
     into its kernels-line row under expf_per_entry + suffix; fail where
-    Mpad fits one panel (GRAM_PANEL_COLS) and an entry was built more than
+    Mpad fits one panel (AFF_PANEL_COLS) and an entry was built more than
     once a chunk, or where a build issued other than one MUFU.EX2."""
-    from nle_tpu_torch.ops.kernels.streaming_kernel import GRAM_PANEL_COLS
+    from nle_tpu_torch.ops.kernels.affinity_kernel import AFF_PANEL_COLS
 
     builds, ex2 = phi_expf(chunks, ex2_build)
     row["builds_per_entry" + suffix] = builds
     row["expf_per_entry" + suffix] = ex2
-    print(f"  K12 in {where}: {len(chunks)} chunk(s), {builds} build(s) of "
+    print(f"  {row['name']} in {where}: {len(chunks)} chunk(s), {builds} "
+          f"build(s) of "
           f"each entry a chunk at mpad {mpad}, "
           f"{'not measured (no cuobjdump)' if ex2 is None else ex2} "
           "MUFU.EX2 an entry")
-    if mpad <= GRAM_PANEL_COLS and builds != 1:
-        raise AssertionError(f"K12 in {where}: {builds} builds an entry at "
-                             f"mpad {mpad}")
+    if mpad <= AFF_PANEL_COLS and builds != 1:
+        raise AssertionError(f"{row['name']} in {where}: {builds} builds "
+                             f"an entry at mpad {mpad}")
     if ex2 is not None and ex2 != builds:
-        raise AssertionError(f"K12 in {where}: {ex2} MUFU.EX2 an entry for "
-                             f"{builds} build(s)")
+        raise AssertionError(f"{row['name']} in {where}: {ex2} MUFU.EX2 an "
+                             f"entry for {builds} build(s)")
 
 
 def profile_grids(torch, fn, needles) -> list:
@@ -747,22 +761,19 @@ def recompose(lab, edit_packed, perm):
     return lab_to_bgr_u8_np(out)
 
 
-# K12's phi step in its three column-panel widths (8 x TN outputs a
-# thread, TN = 12, 8, 4): its main loop builds GRAM_PHI_K x GRAM_PHI_ROWS
-# entries a step over 256 threads, one MUFU.EX2 each.
-GRAM_PHI_KEYS = ("gram_phi_kernelILi12E", "gram_phi_kernelILi8E",
-                 "gram_phi_kernelILi4E")
-
 # Mangled-name pieces of the kernels whose entry loop chip_smoke counts:
 # K8's one-build kernel in each of its instantiations (cols, rows; the
 # csrc's HS_TILES), K10 (R = 1), K11 (R = 1) and the two-pass K9's first
-# pass (K11's kernel with the reciprocal; its second pass is K10's).
+# pass (K11's kernel with the reciprocal; its second pass is K10's); and
+# the affinity core (K1, K2's contract, K12's phi step) in its three
+# column-panel widths (8 x TN outputs a thread, TN = 12, 8, 4), whose main
+# loop builds AFF_BUILD entries a thread a step, one MUFU.EX2 each.
 SASS_KEYS = ("stream_halfstep_kernelILi4ELi8E",
              "stream_halfstep_kernelILi4ELi4E",
              "stream_halfstep_kernelILi8ELi4E",
              "stream_halfstep_kernelILi8ELi2E", "stream_ap_kernelILi1E",
-             "stream_atb_kernelILi1ELb0E", "stream_atb_kernelILi1ELb1E",
-             *GRAM_PHI_KEYS)
+             "stream_atb_kernelILi1ELb0E", "stream_atb_kernelILi1ELb1E")
+CORE_KEYS = tuple(f"affinity_panel_kernelILi{tn}E" for tn in (12, 8, 4))
 
 
 def sass_per_entry(lib_path: str) -> dict:
@@ -770,7 +781,7 @@ def sass_per_entry(lib_path: str) -> dict:
     kernel's inner loop: the SASS instructions of the innermost loop that
     holds the exp (MUFU.EX2), over the number of exps in it. Returns
     {kernel: (instructions, exps, barriers, instructions of the finalizing
-    warp's branch)}; empty when cuobjdump is missing."""
+    warp's branch, FFMAs)}; empty when cuobjdump is missing."""
     import re
     import shutil
 
@@ -784,9 +795,10 @@ def sass_per_entry(lib_path: str) -> dict:
     out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=120).stdout
     found = {}
+    keys = SASS_KEYS + CORE_KEYS
     for chunk in out.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        key = next((k for k in SASS_KEYS if k in name), None)
+        key = next((k for k in keys if k in name), None)
         if key is None:
             continue
         # Instructions read "/*addr*/ [@P] OP args ;"; a branch names its
@@ -822,7 +834,9 @@ def sass_per_entry(lib_path: str) -> dict:
         found[key] = (len(body),
                       sum("MUFU.EX2" in insts[k] for k in body),
                       sum("BAR.SYNC" in insts[k] for k in body),
-                      sum(k in final for k in body))
+                      sum(k in final for k in body),
+                      sum(insts[k].split()[0].startswith("FFMA")
+                          for k in body))
     return found
 
 
@@ -1775,25 +1789,25 @@ def main() -> int:
     # Thread instructions the card issues per second: 132 SMs x 4
     # schedulers x 32 lanes x the maximum SM clock.
     issue_rate = 132 * 128 * float(clock) * 1e6
-    from nle_tpu_torch.ops.kernels.streaming_kernel import (
-        GRAM_PHI_K,
-        GRAM_PHI_ROWS,
-    )
-    gram_build = GRAM_PHI_K * GRAM_PHI_ROWS // 256
-    ex2_build = {}    # K12's phi step: MUFU.EX2 a build of an entry, by TN
-    for key in GRAM_PHI_KEYS:
+    from nle_tpu_torch.ops.kernels.affinity_kernel import AFF_BUILD
+    ex2_build = {}    # the affinity core: MUFU.EX2 a build of an entry, by TN
+    core_sass = {}    # its main loop: (instructions, FFMAs), by TN
+    for key in CORE_KEYS:
         if key not in sass:
             continue
-        ninst, nexp, nbar, _ = sass.pop(key)
-        ex2_build[int(key.split("ILi")[1][:-1])] = nexp / gram_build
-        print(f"  sass: {key} (K12's phi step) main loop {ninst} "
-              f"instructions and {nbar} barrier a step; {nexp} MUFU.EX2 for "
-              f"the {gram_build} entries a thread builds a step = "
-              f"{nexp / gram_build:.2f} per entry a build")
-        if nexp != gram_build:
-            raise AssertionError(f"{key}: {nexp} MUFU.EX2 for {gram_build} "
+        ninst, nexp, nbar, _, nffma = sass.pop(key)
+        tn = int(key.split("ILi")[1].split("E")[0])
+        ex2_build[tn] = nexp / AFF_BUILD
+        core_sass[tn] = (ninst, nffma)
+        print(f"  sass: {key} (the affinity core: K1, K2's contract, K12's "
+              f"phi step) main loop {ninst} instructions, {nffma} FFMA "
+              f"({nffma / ninst:.3f} of them), {nbar} barrier a step; "
+              f"{nexp} MUFU.EX2 for the {AFF_BUILD} entries a thread builds "
+              f"a step = {nexp / AFF_BUILD:.2f} per entry a panel")
+        if nexp != AFF_BUILD:
+            raise AssertionError(f"{key}: {nexp} MUFU.EX2 for {AFF_BUILD} "
                                  "entries: not one a build")
-    for key, (ninst, nexp, nbar, nfinal) in sass.items():
+    for key, (ninst, nexp, nbar, nfinal, _) in sass.items():
         print(f"  sass: {key} inner loop {ninst} instructions for {nexp} "
               f"affinity entries = {ninst / nexp:.1f} per entry "
               f"(max SM clock {clock} MHz)")
@@ -1863,6 +1877,18 @@ def main() -> int:
                   f"{len(keys)} expf per entry -> issue time {issue_ms:.3f} ms")
         return rows[-1]
 
+    def k1_core(row, fn, mpad_, where):
+        """K1's builds an entry and MUFU.EX2 an entry, measured as for
+        K12 (the launch grids of one profiled call times the SASS's
+        MUFU.EX2 a build), and the core's main-loop FFMA share (TN = 12,
+        the full panel's instantiation)."""
+        k12_expf(row, "", phi_builds(profile_grids(torch, fn, CORE_TRACE)),
+                 ex2_build, mpad_, where)
+        if 12 in core_sass:
+            ninst, nffma = core_sass[12]
+            row["core_main_loop_sass"] = ninst
+            row["core_main_loop_ffma_share"] = nffma / ninst
+
     eps = 1e-10
     phib = affinity_matmul_kernel(fa, fb, Uinv, sw, pw, out_rows=npad_b)
     want = affinity_matmul_plain(fa, fb, Uinv, sw, pw, out_rows=npad_b)
@@ -1883,6 +1909,20 @@ def main() -> int:
                fa, fb, Uinv, sw, pw, out_rows=npad_b)),
            4 * (3 * nb + p * mb + npad_b * mpad),
            2 * nb * p * mb + ENTRY_FLOPS * nb * p)
+    k1_core(rows[-1], lambda: affinity_matmul_kernel(
+        fa, fb, Uinv, sw, pw, out_rows=npad_b), mpad, "[3] 1 MP")
+    # K1 at [9b]'s p = 1200 operands profiled here, before the long
+    # profiled calls of [6]-[9a]: a profile taken after them saw no device
+    # events on the H100 machine (why is not known: PERF.md section 7).
+    # [9b] puts these fields into the K2 row, which says where they came
+    # from in builds_measured_at.
+    op12 = path_operands(torch, L, P1200_ARGS, dev)
+    k2_core = {"name": "affinity_matmul_ptiled"}
+    k1_core(k2_core, lambda: affinity_matmul_kernel(
+        op12.fa, op12.fb, op12.Uinv, op12.sw, op12.pw,
+        out_rows=split_row_pad(op12.n - op12.p)), op12.mpad, "[9b] p = 1200")
+    del op12, k2_core["name"]
+    k2_core["builds_measured_at"] = "[3]: the p = 1200 operands, profiled"
 
     Um_pad = torch.nn.functional.pad(Um, (0, mpad - mb))
     lam_pad = torch.nn.functional.pad(lam, (0, mpad - mb))
@@ -2227,7 +2267,15 @@ def main() -> int:
            4 * (3 * nb1 + op.p * op.mb + npad1 * op.mpad),
            2 * nb1 * op.p * op.mb + ENTRY_FLOPS * nb1 * op.p,
            launch=("dense_p1200_1mp", "affinity_matmul"))
-    del op, out
+    rows[-1].update(k2_core)
+    # K12's phi rows on the same pixels and Uinv are K1's bits (one core).
+    from nle_tpu_torch.ops.kernels.streaming_kernel import pad_stream_operands
+    fa_r, fb_c, mask1 = pad_stream_operands(op.fa, op.fb)
+    uinv1 = torch.nn.functional.pad(op.Uinv, (0, op.mpad - op.mb, 0,
+                                              fa_r.shape[1] - op.p))
+    hold_gram(torch, op, "[9b] p = 1200", fa_r, fb_c, mask1,
+              uinv1.contiguous())
+    del op, out, fa_r, fb_c, mask1, uinv1
     torch.cuda.empty_cache()
 
     # [9c] streaming vs dense at p = 2112, the rank cut at eigenvalues of

@@ -1,9 +1,7 @@
-// Shared device code of the port's kernels: K1's register-tiled fp32 GEMM
-// tile whose operand elements come from functors (so the affinity build
-// fuses into the operand load), the one affinity entry every kernel that
-// recomputes K uses, Kahan's compensated add, the asynchronous copies into
-// shared memory (cp.async, and bulk copies completing on an mbarrier), and
-// the fixed-order reduction of per-block partial sums.
+// Shared device code of the port's kernels: the one affinity entry every
+// kernel that builds K uses, Kahan's compensated add, the asynchronous
+// copies into shared memory (cp.async, and bulk copies completing on an
+// mbarrier), and the fixed-order reduction of per-block partial sums.
 //
 // Every contraction here is plain IEEE fp32 FMA on the CUDA cores: no
 // TF32, no fast-math intrinsics, and no bf16 except in the one sanctioned
@@ -20,68 +18,6 @@
 #include <cstdint>
 
 namespace nle {
-
-constexpr int BM = 64;   // output tile rows
-constexpr int BN = 64;   // output tile columns
-constexpr int BK = 16;   // contraction step staged in shared memory
-constexpr int TM = 4;    // rows per thread
-constexpr int TN = 4;    // columns per thread
-constexpr int GEMM_THREADS = (BM / TM) * (BN / TN);  // 256
-
-// acc[i][j] += sum_{k0 <= k < k1} a(row0 + ty*TM + i, k) * b(k, col0 + tx*TN + j)
-// with (k1 - k0) % BK == 0. kFastA picks the thread order of the A load:
-// true walks k fastest (A stored row-major by output row), false walks the
-// output row fastest (A stored row-major by k, as for a transposed operand)
-// — whichever keeps neighbouring threads on neighbouring addresses.
-template <bool kFastA, class AFn, class BFn>
-__device__ __forceinline__ void gemm_tile(const AFn& a, const BFn& b, int row0,
-                                          int col0, int k0, int k1,
-                                          float (&acc)[TM][TN]) {
-  // +4 pads the A tile so the k-fastest store pattern spreads over banks.
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-  for (int kk = k0; kk < k1; kk += BK) {
-#pragma unroll
-    for (int e = tid; e < BM * BK; e += GEMM_THREADS) {
-      const int r = kFastA ? e / BK : e % BM;
-      const int k = kFastA ? e % BK : e / BM;
-      As[k][r] = a(row0 + r, kk + k);
-    }
-#pragma unroll
-    for (int e = tid; e < BK * BN; e += GEMM_THREADS) {
-      const int k = e / BN;
-      const int c = e % BN;
-      Bs[k][c] = b(kk + k, col0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float av[TM];
-      float bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[k][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// Dense row-major operand element B[k, c].
-struct DenseB {
-  const float* B;
-  int ld;
-  __device__ __forceinline__ float operator()(int k, int c) const {
-    return B[static_cast<size_t>(k) * ld + c];
-  }
-};
 
 // The ONE Gaussian affinity entry of the port, shared by K1 and the
 // streaming kernels K8-K12, so the streaming passes recompute exactly the
@@ -102,21 +38,6 @@ __device__ __forceinline__ float affinity(float br, float bc, float by,
       __fadd_rn(__fmul_rn(sw, d2s), __fmul_rn(pw, __fmul_rn(dy, dy)));
   return expf(-arg);
 }
-
-// Affinity operand element K[r, k] from (3, qpad) pixel features and
-// (3, ppad) sample features, both stored as rows (row, col, y).
-struct AffinityA {
-  const float* fb;
-  const float* fa;
-  int qpad;
-  int ppad;
-  float sw;
-  float pw;
-  __device__ __forceinline__ float operator()(int r, int k) const {
-    return affinity(fb[r], fb[qpad + r], fb[2 * qpad + r], fa[k],
-                    fa[ppad + k], fa[2 * ppad + k], sw, pw);
-  }
-};
 
 // sum += v with Kahan's compensation: comp carries the low part the last
 // add rounded away, so a chain of n adds rounds like O(1) adds, not O(n).

@@ -33,14 +33,15 @@
 // holds, over the probe's chunks of `chunk` rows added in order, dmaonly
 // sum_i Q[i chunk, :]; wonly the chunk-folded w, sum_c w_c[:L] with L =
 // min(1024, chunk) (the probe's s[0, :1024] += w[:, :1024]); wpart
-// sum_c w_c^T Q_c. Every other element is 0. It runs K13's tiled sweep
-// with one block per chunk (the probe's unit of staging and of summation),
-// each block's partial to a (nchunks, mpad) scratch, then one accumulator
-// in chunk order, which is the probe's own order: dmaonly is exact against
-// it. dmaonly stages every row and adds only the rows whose global index
-// is a multiple of chunk, a runtime value, so every byte stays loaded; the
-// probe's NSLOTS ring has no counterpart here (plain loads, no ring; K16
-// and K19 in csrc/sinkhorn_ab.cu carry the async staging).
+// sum_c w_c^T Q_c. Every other element is 0. It runs on K3/K4/K14's bulk
+// sweep below, the staging K4's half-step uses, with the plan's CTA row
+// ranges rounded to whole chunks (sinkhorn_plan's chunk): each chunk's
+// partial (the probe's unit of summation) goes to a (nchunks, mpad)
+// scratch, then one accumulator in chunk order, which is the probe's own
+// order: dmaonly is exact against it. dmaonly stages every row by bulk
+// copy and adds each chunk's row 0, wonly forms w and no s, wpart both:
+// so the three time the half-step's staging, its w pass and its s pass.
+// The probe's NSLOTS (its DMA ring depth) is the plan's ring of slots.
 //
 // Layout (K3/K4/K14), redesigned for Hopper: a persistent grid of `ctas`
 // CTAs (two an SM of a 132-SM card), CTA b owning the contiguous row range
@@ -76,7 +77,7 @@
 // SM with no register or instruction cost for the copy (the staging A/B
 // of csrc/sinkhorn_ab.cu on the same factor: bulk copies 1.01-1.03x
 // torch.mv, a cp.async ring 1.25-1.31x, plain loads 1.40-1.49x); K15
-// measures the plain staging's floor.
+// splits this sweep's time into staging, w and s.
 
 #include "common.cuh"
 #include "sinkhorn_sweep.cuh"
@@ -162,14 +163,23 @@ size_t bulk_smem_bytes(int mpad, int R, int S) {
          4 * (vectors * mpad + 2 * HB_MAX_ROWS);
 }
 
-template <typename T>
+// The bulk sweep over CTA b's rows [b per_cta, min((b + 1) per_cta,
+// npad)) in sub-tiles of R rows (layout above). kMode: the half-step
+// (K3/K4/K14: x = safe_recip(w), s partial from x, one partial the CTA:
+// chunk = per_cta) or a K15 probe mode on f32 (one partial a chunk of
+// `chunk` rows, to row (its last row) / chunk of the scratch: dmaonly
+// stages every row and adds each chunk's row 0, forming no w; wonly
+// writes w = Q t itself as x and forms no s; wpart forms s from w).
+template <typename T, int kMode>
 __global__ void __launch_bounds__(HB_THREADS)
     halfstep_bulk_kernel(const T* __restrict__ Q, const float* __restrict__ t,
                          float* __restrict__ x, float* __restrict__ partial,
                          int npad, int mpad, int R, int S, int per_cta,
-                         float eps) {
+                         int chunk, float eps) {
   constexpr int V = Chunk<T>::kValues;
   constexpr bool kTShared = sizeof(T) == 2;
+  constexpr bool kW = kMode != kDmaOnly;    // the w pass
+  constexpr bool kS = kMode != kWOnly;      // the s pass and its partials
   extern __shared__ __align__(128) unsigned char smem_raw[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
   unsigned char* ring = smem_raw + HB_BARRIER_BYTES;
@@ -217,7 +227,7 @@ __global__ void __launch_bounds__(HB_THREADS)
     const unsigned char* slot = ring + static_cast<size_t>(i % S) * slot_bytes;
     float* xb = x_s + (i & 1) * HB_MAX_ROWS;
     nle::mbar_wait(&bars[i % S], static_cast<uint32_t>((i / S) & 1));
-    for (int r = warp; r < nr; r += HB_THREADS / 32) {
+    for (int r = warp; kW && r < nr; r += HB_THREADS / 32) {
       const unsigned char* row = slot + r * row_bytes;
       float w = 0.0f;
       for (int c = lane; c < nchunks; c += 32) {
@@ -241,7 +251,8 @@ __global__ void __launch_bounds__(HB_THREADS)
         w = __fadd_rn(w, __shfl_xor_sync(0xffffffffu, w, off));
       }
       if (lane == 0) {
-        const float xv = fabsf(w) >= eps ? 1.0f / w : 0.0f;
+        const float xv = kMode != kHalfstep ? w
+                         : fabsf(w) >= eps ? 1.0f / w : 0.0f;
         xb[r] = operand<T>(xv);
         x[r0 + r] = xv;
       }
@@ -249,6 +260,7 @@ __global__ void __launch_bounds__(HB_THREADS)
     // x of this sub-tile is in xb; every thread is past sub-tile i - 1.
     __syncthreads();
     if (tid == 0 && i >= 1 && i - 1 + S < ntiles) issue(i - 1 + S);
+    if (!kS) continue;
     // Item k: chunk k % nchunks of the rows k / nchunks + groups i.
     for (int k = tid; k < groups * nchunks; k += HB_THREADS) {
       const int g = k / nchunks;
@@ -256,13 +268,18 @@ __global__ void __launch_bounds__(HB_THREADS)
       float a[V];
 #pragma unroll
       for (int e = 0; e < V; ++e) a[e] = 0.0f;
+      if (kMode == kDmaOnly) {
+        // A chunk's row 0 starts a sub-tile (chunk is a multiple of R).
+        if (g == 0 && r0 % chunk == 0) Chunk<T>::load(slot + c * 16, a);
+      } else {
 #pragma unroll 4
-      for (int r = g; r < nr; r += groups) {
-        const float xr = xb[r];
-        float q[V];
-        Chunk<T>::load(slot + r * row_bytes + c * 16, q);
+        for (int r = g; r < nr; r += groups) {
+          const float xr = xb[r];
+          float q[V];
+          Chunk<T>::load(slot + r * row_bytes + c * 16, q);
 #pragma unroll
-        for (int e = 0; e < V; ++e) a[e] = fmaf(xr, q[e], a[e]);
+          for (int e = 0; e < V; ++e) a[e] = fmaf(xr, q[e], a[e]);
+        }
       }
 #pragma unroll
       for (int e = 0; e < V; e += 4) {
@@ -272,19 +289,55 @@ __global__ void __launch_bounds__(HB_THREADS)
                           __fadd_rn(o.z, a[e + 2]), __fadd_rn(o.w, a[e + 3]));
       }
     }
-  }
-  __syncthreads();
-  // The CTA's s row: the groups' partials added in group order.
-  float* dst = partial + static_cast<size_t>(blockIdx.x) * mpad;
-  for (int j = tid; j < mpad; j += HB_THREADS) {
-    float v = s_s[j];
-    for (int g = 1; g < groups; ++g) v = __fadd_rn(v, s_s[g * mpad + j]);
-    dst[j] = v;
+    if ((r0 + nr - rbeg) % chunk == 0 || r0 + nr == rend) {
+      // The partial's last sub-tile: its s row, the groups' partials added
+      // in group order, to row (r0 + nr - 1) / chunk, and a fresh start.
+      __syncthreads();
+      float* dst = partial + static_cast<size_t>((r0 + nr - 1) / chunk) * mpad;
+      for (int j = tid; j < mpad; j += HB_THREADS) {
+        float v = s_s[j];
+        s_s[j] = 0.0f;
+        for (int g = 1; g < groups; ++g) {
+          v = __fadd_rn(v, s_s[g * mpad + j]);
+          s_s[g * mpad + j] = 0.0f;
+        }
+        dst[j] = v;
+      }
+    }
   }
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Whether (R, S, ctas, per_cta, smem) is sinkhorn_plan's for the shape:
+// every row covered once by whole sub-tiles, the ring and the vectors in
+// the shared bytes it names, 16-byte rows and operands.
+template <typename T>
+bool plan_ok(const T* Q, const float* t, int npad, int mpad, int R, int S,
+             int ctas, int per_cta, int smem) {
+  return npad >= 1 && mpad >= 1 && (mpad * sizeof(T)) % 16 == 0 && R >= 1 &&
+         R <= HB_MAX_ROWS && S >= 2 && S <= HB_MAX_SLOTS && ctas >= 1 &&
+         per_cta >= 1 && per_cta % R == 0 &&
+         static_cast<long long>(ctas - 1) * per_cta < npad &&
+         static_cast<long long>(ctas) * per_cta >= npad &&
+         static_cast<size_t>(smem) == bulk_smem_bytes<T>(mpad, R, S) &&
+         aligned16(Q) && aligned16(t);
+}
+
+template <typename T, int kMode>
+cudaError_t launch_bulk(const T* Q, const float* t, float* x, float* partial,
+                        int npad, int mpad, int R, int S, int ctas,
+                        int per_cta, int chunk, int smem, float eps,
+                        cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      halfstep_bulk_kernel<T, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  halfstep_bulk_kernel<T, kMode><<<ctas, HB_THREADS, smem, st>>>(
+      Q, t, x, partial, npad, mpad, R, S, per_cta, chunk, eps);
+  return cudaGetLastError();
 }
 
 // The launch of sinkhorn_plan's (rows, slots, ctas, per_cta, smem); any
@@ -293,22 +346,13 @@ template <typename T>
 int launch_halfstep(const T* Q, const float* t, float* x, float* partial,
                     float* s, int npad, int mpad, int R, int S, int ctas,
                     int per_cta, int smem, float eps, void* stream) {
-  if (npad < 1 || mpad < 1 || (mpad * sizeof(T)) % 16 || R < 1 ||
-      R > HB_MAX_ROWS || S < 2 || S > HB_MAX_SLOTS || ctas < 1 ||
-      per_cta < 1 || static_cast<long long>(ctas - 1) * per_cta >= npad ||
-      static_cast<long long>(ctas) * per_cta < npad ||
-      static_cast<size_t>(smem) != bulk_smem_bytes<T>(mpad, R, S) ||
-      !aligned16(Q) || !aligned16(t)) {
+  if (!plan_ok(Q, t, npad, mpad, R, S, ctas, per_cta, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      halfstep_bulk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  halfstep_bulk_kernel<T><<<ctas, HB_THREADS, smem, st>>>(
-      Q, t, x, partial, npad, mpad, R, S, per_cta, eps);
-  err = cudaGetLastError();
+  cudaError_t err = launch_bulk<T, kHalfstep>(Q, t, x, partial, npad, mpad, R,
+                                              S, ctas, per_cta, per_cta, smem,
+                                              eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       nle::launch_reduce_partials(partial, s, ctas, mpad, st));
@@ -363,14 +407,20 @@ extern "C" int nle_sinkhorn_tiled_f32(const float* Q, const float* t,
 // dmaonly (row 0 = sum_i Q[i * chunk, :]), 2 wonly (row 0, columns < L =
 // min(1024, chunk): sum_c w_c[:L], w_c = Q_c t) or 3 wpart (row 0 =
 // sum_c w_c^T Q_c), the chunks added in order; every other element 0. Q
-// float32 with npad a multiple of chunk; x (npad,) holds w (wonly, wpart);
-// partial is scratch of (npad / chunk) * mpad floats. wonly needs
-// min(1024, max(mpad, chunk)) == L, as the TPU probe traces only then.
+// float32 with npad a multiple of chunk, on the bulk sweep of
+// sinkhorn_plan(npad, mpad, float32, chunk) = (rows, slots, ctas, per_cta,
+// smem), whose per_cta is a whole number of chunks; x (npad,) holds w
+// (wonly, wpart); partial is scratch of (npad / chunk) * mpad floats.
+// wonly needs min(1024, max(mpad, chunk)) == L, as the TPU probe traces
+// only then.
 extern "C" int nle_sinkhorn_probe_f32(const float* Q, const float* t,
                                       float* x, float* partial, float* out,
                                       int npad, int mpad, int chunk, int mode,
-                                      void* stream) {
-  if (chunk < 1 || npad % chunk != 0) {
+                                      int rows, int slots, int ctas,
+                                      int per_cta, int smem, void* stream) {
+  if (chunk < 1 || npad % chunk != 0 || chunk % rows != 0 ||
+      per_cta % chunk != 0 ||
+      !plan_ok(Q, t, npad, mpad, rows, slots, ctas, per_cta, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int width = mpad > chunk ? mpad : chunk;
@@ -379,23 +429,26 @@ extern "C" int nle_sinkhorn_probe_f32(const float* Q, const float* t,
   cudaError_t err;
   switch (mode) {
     case kDmaOnly:
-      err = launch_tiled<kDmaOnly>(Q, t, x, partial, npad, mpad, chunk, 0.0f,
-                                   st);
+      err = launch_bulk<float, kDmaOnly>(Q, t, x, partial, npad, mpad, rows,
+                                         slots, ctas, per_cta, chunk, smem,
+                                         0.0f, st);
       break;
     case kWOnly:
       if ((width < K15_WONLY_COLS ? width : K15_WONLY_COLS) != fold) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-      err = launch_tiled<kWOnly>(Q, t, x, partial, npad, mpad, chunk, 0.0f,
-                                 st);
+      err = launch_bulk<float, kWOnly>(Q, t, x, partial, npad, mpad, rows,
+                                       slots, ctas, per_cta, chunk, smem,
+                                       0.0f, st);
       if (err != cudaSuccess) return static_cast<int>(err);
       // w viewed as (npad / chunk, chunk): the first L entries of each
       // chunk, added in chunk order.
       return static_cast<int>(launch_ordered_reduce(
           x, chunk, npad / chunk, fold, 1, out, K15_OUT_ROWS, width, st));
     case kWPart:
-      err = launch_tiled<kWPart>(Q, t, x, partial, npad, mpad, chunk, 0.0f,
-                                 st);
+      err = launch_bulk<float, kWPart>(Q, t, x, partial, npad, mpad, rows,
+                                       slots, ctas, per_cta, chunk, smem,
+                                       0.0f, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,10 +1,10 @@
-// The Sinkhorn sweep shared by csrc/sinkhorn.cu (K3/K4/K13/K14/K15) and
+// The tiled Sinkhorn sweep shared by csrc/sinkhorn.cu (K13) and
 // csrc/sinkhorn_ab.cu (K17/K18): one read of a row range of the factor
 // through shared memory, forming
 //   x = safe_recip(Q t, eps)     |w| >= eps -> 1/w, else 0
 //   s = Q^T x                    the block's partial, a shared-memory row
-// or, for the probes, parts of that work; and the second pass that sums
-// per-tile partials in a fixed order.
+// or x alone (K18's xonly); and the second pass that sums per-tile
+// partials in a fixed order (also K3/K4/K14's and K15's).
 //
 // Layout: rows are staged in shared memory tr rows at a time with plain
 // element loads. One warp per row forms w (lanes stride the columns, a
@@ -24,8 +24,8 @@ constexpr int SK_THREADS = 256;
 constexpr int SK_MAX_TR = 32;         // rows staged per tile
 constexpr int SK_SMEM_LIMIT = 200 * 1024;
 
-// What a sweep computes: the half-step (K3/K4/K13/K14/K17), a K15 probe,
-// or K18's xonly (x, no s).
+// What a sweep computes: the half-step (K3/K4/K13/K14/K17), a K15 probe
+// (csrc/sinkhorn.cu's bulk sweep), or K18's xonly (x, no s).
 enum Mode { kHalfstep = 0, kDmaOnly = 1, kWOnly = 2, kWPart = 3, kXOnly = 4 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -49,59 +49,47 @@ __device__ __forceinline__ float operand<__nv_bfloat16>(float v) {
 
 // Rows [rbeg, rend) of Q through shared memory, tr rows at a time: w per
 // row (one warp), x to device memory and x_s, then the block's s partial
-// s_s[j] += x_r Q[r, j] (one thread per column). kMode drops parts of the
-// work: dmaonly adds only the rows whose global index is a multiple of
-// `touch` (a runtime value, so the compiler cannot drop the tile's stores),
-// wonly writes w itself as x and forms no s, wpart forms s from w, xonly
-// writes x and forms no s. Every thread of the block calls it.
+// s_s[j] += x_r Q[r, j] (one thread per column); xonly forms no s. Every
+// thread of the block calls it.
 template <typename T, int kMode>
 __device__ __forceinline__ void sweep_rows(const T* __restrict__ Q,
                                            const float* t_s, float* s_s,
                                            float* x_s, T* tile,
                                            float* __restrict__ x, int rbeg,
                                            int rend, int mpad, int tr,
-                                           float eps, int touch) {
+                                           float eps) {
+  static_assert(kMode == kHalfstep || kMode == kXOnly, "a tiled sweep");
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  constexpr bool kRecip = kMode == kHalfstep || kMode == kXOnly;
-  constexpr bool kSum = kMode == kHalfstep || kMode == kWPart ||
-                        kMode == kDmaOnly;
+  constexpr bool kSum = kMode == kHalfstep;
   for (int r0 = rbeg; r0 < rend; r0 += tr) {
     const int nr = min(tr, rend - r0);
     const T* src = Q + static_cast<size_t>(r0) * mpad;
     for (int e = tid; e < nr * mpad; e += SK_THREADS) tile[e] = src[e];
     __syncthreads();
-    if (kMode != kDmaOnly) {
-      for (int r = warp; r < nr; r += SK_THREADS / 32) {
-        const T* row = tile + r * mpad;
-        float w = 0.0f;
-        for (int j = lane; j < mpad; j += 32) {
-          w = fmaf(to_f32(row[j]), t_s[j], w);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          w += __shfl_xor_sync(0xffffffffu, w, off);
-        }
-        if (lane == 0) {
-          const float xv = kRecip ? (fabsf(w) >= eps ? 1.0f / w : 0.0f) : w;
-          x_s[r] = operand<T>(xv);
-          x[r0 + r] = xv;
-        }
+    for (int r = warp; r < nr; r += SK_THREADS / 32) {
+      const T* row = tile + r * mpad;
+      float w = 0.0f;
+      for (int j = lane; j < mpad; j += 32) {
+        w = fmaf(to_f32(row[j]), t_s[j], w);
       }
-      __syncthreads();
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        w += __shfl_xor_sync(0xffffffffu, w, off);
+      }
+      if (lane == 0) {
+        const float xv = fabsf(w) >= eps ? 1.0f / w : 0.0f;
+        x_s[r] = operand<T>(xv);
+        x[r0 + r] = xv;
+      }
     }
+    __syncthreads();
     if (kSum) {
       for (int j = tid; j < mpad; j += SK_THREADS) {
         float a = s_s[j];
-        if (kMode == kDmaOnly) {
-          for (int r = (touch - r0 % touch) % touch; r < nr; r += touch) {
-            a += to_f32(tile[r * mpad + j]);
-          }
-        } else {
-          for (int r = 0; r < nr; ++r) {
-            a = fmaf(x_s[r], to_f32(tile[r * mpad + j]), a);
-          }
+        for (int r = 0; r < nr; ++r) {
+          a = fmaf(x_s[r], to_f32(tile[r * mpad + j]), a);
         }
         s_s[j] = a;
       }
@@ -132,8 +120,7 @@ __device__ __forceinline__ void stage_vectors(const float* __restrict__ t,
 }
 
 // One block per tile of `rows` rows, its s partial to row blockIdx.x of
-// the (ntiles, mpad) scratch: K13 (kHalfstep), K15 (the probes, rows = the
-// TPU probe's chunk, touch = chunk), K17 (kHalfstep) and K18's xonly.
+// the (ntiles, mpad) scratch: K13 and K17 (kHalfstep), and K18's xonly.
 template <int kMode>
 __global__ void __launch_bounds__(SK_THREADS)
     tiled_sweep_kernel(const float* __restrict__ Q,
@@ -146,8 +133,8 @@ __global__ void __launch_bounds__(SK_THREADS)
   stage_vectors<float>(t, t_s, s_s, mpad);
   const int rbeg = blockIdx.x * rows;
   sweep_rows<float, kMode>(Q, t_s, s_s, x_s, tile, x, rbeg, rbeg + rows,
-                           mpad, tr, eps, rows);
-  if (kMode == kHalfstep || kMode == kWPart || kMode == kDmaOnly) {
+                           mpad, tr, eps);
+  if (kMode == kHalfstep) {
     float* dst = partial + static_cast<size_t>(blockIdx.x) * mpad;
     for (int j = threadIdx.x; j < mpad; j += SK_THREADS) dst[j] = s_s[j];
   }

@@ -44,12 +44,13 @@
 // sequential grid in VMEM, which CUDA blocks cannot do.
 //
 // K12 per row chunk (streaming_kernel.stream_gram_plan): the chunk's phi
-// rows into a scratch, each affinity entry built once per column panel of
-// up to 384 columns (once at the capacity paths' mpad 384) and multiplied
-// by an 8 x 12-a-thread fp32 core fed by a cp.async ring of Uinv slabs
-// (gram_phi_kernel); then K6's lower-triangle gram of diag(c) phi over its
-// planned splits (csrc/scaled_matmul.cu), mirrored; then that chunk's gram
-// added into Sb with compensation.
+// rows into a scratch by the affinity core K1 runs on (csrc/
+// affinity_core.cuh: each entry built once per column panel of up to 384
+// columns, once at the capacity paths' mpad 384, and multiplied by an
+// 8 x 12-a-thread fp32 core fed by a cp.async ring of Uinv slabs); then
+// K6's lower-triangle gram of diag(c) phi over its planned splits
+// (csrc/scaled_matmul.cu), mirrored; then that chunk's gram added into Sb
+// with compensation.
 //
 // Long fp32 chains are compensated (nle::kahan_add): the sums over rows
 // (K8's and K10's 32-row chains, every kernel's block partials) and over
@@ -61,6 +62,17 @@
 // sums do, compensated ones 5.6x closer (PERF.md).
 
 #include "common.cuh"
+
+// K12, step 1 of a row chunk: its phi rows = K Uinv, by the affinity core
+// (csrc/affinity_core.cuh through K1's C entry, csrc/affinity.cu): each
+// entry built once per column panel of up to 384 columns (once at the
+// capacity paths' mpad 384), one fmaf chain an output in increasing
+// sample index, so these rows are bitwise K1's for the same pixels.
+extern "C" int nle_affinity_matmul(const float* fb, const float* fa,
+                                   const float* B, float* out, int qpad,
+                                   int ppad, int mpad, int r0, int rows,
+                                   int q_true, float sw, float pw,
+                                   void* stream);
 
 namespace {
 
@@ -75,6 +87,7 @@ constexpr int ST_ATB_CHUNK = 2048;
 // partial sums (and their order) do not depend on the card.
 constexpr int ST_MAX_BLOCKS = 1056;
 constexpr int ST_ROW_GRAIN = 32;
+constexpr int ST_P_GRAIN = 16;   // Ppad's grain (the affinity core's step)
 
 inline int rows_per_block(int qpad) {
   int per = (qpad + ST_MAX_BLOCKS - 1) / ST_MAX_BLOCKS;
@@ -530,174 +543,6 @@ __global__ void __launch_bounds__(ST_THREADS)
   }
 }
 
-// K12, step 1 of a row chunk: phi rows [r0, r0 + rows) = K Uinv into the
-// (chunk, mpad) scratch, each affinity entry built once per column panel.
-// Block (x, y) owns the GP_ROWS-row panel x of the chunk across the NC =
-// 32 TN columns of panel y (all of mpad up to GP_MAX_COLS = 384). Each
-// step of GP_K samples:
-//   - every thread builds GP_K * GP_ROWS / GP_THREADS = 4 entries of the
-//     panel's (GP_K, GP_ROWS) affinity tile into shared memory (one
-//     nle::affinity each, for the step after the one being multiplied);
-//   - the (GP_K, NC) slab of Uinv arrives by 16-byte cp.async in a ring of
-//     GP_STAGES slabs, two steps ahead;
-//   - thread (ty, tx) adds the step into its 8 x TN outputs (rows ty * 8 +
-//     i, columns g * 128 + tx * 4 + j): per sample 2 + TN / 4 shared float4
-//     loads (the A pair a broadcast) for 8 TN FMAs.
-// One barrier a step. Every output is one fmaf chain in increasing sample
-// index from 0, K1's order (common.cuh gemm_tile) on K1's entries: these
-// rows are bitwise those K1 writes.
-constexpr int GP_ROWS = 64;
-constexpr int GP_K = 16;
-constexpr int GP_THREADS = 256;
-constexpr int GP_STAGES = 3;
-constexpr int GP_MAX_COLS = 384;
-constexpr int GP_BUILD = GP_K * GP_ROWS / GP_THREADS;   // entries a thread
-static_assert(GP_THREADS % GP_ROWS == 0 && GP_K * GP_ROWS % GP_THREADS == 0,
-              "whole entries a thread");
-
-template <int TN>
-constexpr int gp_smem_bytes() {
-  return 4 * (GP_STAGES * GP_K * 32 * TN + 2 * GP_K * GP_ROWS);
-}
-
-template <int TN>
-__global__ void __launch_bounds__(GP_THREADS, 1)
-    gram_phi_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
-                    const float* __restrict__ uinv, float* __restrict__ phi,
-                    int qpad, int ppad, int mpad, int r0, int col_base,
-                    float sw, float pw) {
-  static_assert(TN % 4 == 0 && 32 * TN <= GP_MAX_COLS, "TN 4, 8 or 12");
-  constexpr int NC = 32 * TN;
-  constexpr int NG = TN / 4;          // float4 column groups a thread
-  extern __shared__ __align__(16) float smem[];
-  float* bs = smem;                                  // [stage][k][NC]
-  float* as = smem + GP_STAGES * GP_K * NC;          // [buf][k][row]
-  const int tid = threadIdx.x;
-  const int lrow0 = blockIdx.x * GP_ROWS;            // row in the chunk
-  const int col0 = col_base + blockIdx.y * NC;
-  const int nk = ppad / GP_K;
-
-  // The entries this thread builds: pixel row br of the panel, samples
-  // bk .. bk + GP_BUILD of each step (a warp shares its samples).
-  const int br = tid % GP_ROWS;
-  const int bk = tid / GP_ROWS * GP_BUILD;
-  const int pix = r0 + lrow0 + br;
-  const float pr = fb[pix], pc = fb[qpad + pix], py = fb[2 * qpad + pix];
-  auto build = [&](int step) {
-    float* dst = as + (step & 1) * GP_K * GP_ROWS;
-#pragma unroll
-    for (int e = 0; e < GP_BUILD; ++e) {
-      const int j = step * GP_K + bk + e;
-      dst[(bk + e) * GP_ROWS + br] =
-          nle::affinity(pr, pc, py, __ldg(fa + j), __ldg(fa + ppad + j),
-                        __ldg(fa + 2 * ppad + j), sw, pw);
-    }
-  };
-  auto issue = [&](int step) {
-    if (step < nk) {
-      float* dst = bs + (step % GP_STAGES) * GP_K * NC;
-      const float* src = uinv + static_cast<size_t>(step) * GP_K * mpad + col0;
-#pragma unroll
-      for (int e = tid; e < GP_K * NC / 4; e += GP_THREADS) {
-        const int k = e / (NC / 4);
-        const int q = (e % (NC / 4)) * 4;
-        nle::cp_async16(dst + k * NC + q,
-                        src + static_cast<size_t>(k) * mpad + q);
-      }
-    }
-    nle::cp_async_commit();
-  };
-
-  const int ty = tid / 32;
-  const int tx = tid % 32;
-  float acc[8][TN];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  issue(0);
-  issue(1);
-  build(0);
-  for (int it = 0; it < nk; ++it) {
-    nle::cp_async_wait<GP_STAGES - 2>();
-    __syncthreads();   // slab it and tile it landed; step it - 1 is read
-    issue(it + 2);
-    if (it + 1 < nk) build(it + 1);
-    const float* A = as + (it & 1) * GP_K * GP_ROWS + ty * 8;
-    const float* B = bs + (it % GP_STAGES) * GP_K * NC + tx * 4;
-#pragma unroll
-    for (int k = 0; k < GP_K; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(A + k * GP_ROWS);
-      const float4 a1 = *reinterpret_cast<const float4*>(A + k * GP_ROWS + 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float bv[TN];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(B + k * NC + g * 128);
-        bv[4 * g] = b.x;
-        bv[4 * g + 1] = b.y;
-        bv[4 * g + 2] = b.z;
-        bv[4 * g + 3] = b.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  nle::cp_async_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* dst = phi + static_cast<size_t>(lrow0 + ty * 8 + i) * mpad + col0 +
-                 tx * 4;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      *reinterpret_cast<float4*>(dst + g * 128) =
-          make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
-                      acc[i][4 * g + 3]);
-    }
-  }
-}
-
-template <int TN>
-cudaError_t launch_phi(const float* fb, const float* fa, const float* uinv,
-                       float* phi, int qpad, int ppad, int mpad, int r0,
-                       int rows, int col_base, int panels, float sw, float pw,
-                       cudaStream_t st) {
-  constexpr int bytes = gp_smem_bytes<TN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      gram_phi_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  gram_phi_kernel<TN><<<dim3(rows / GP_ROWS, panels), GP_THREADS, bytes, st>>>(
-      fb, fa, uinv, phi, qpad, ppad, mpad, r0, col_base, sw, pw);
-  return cudaGetLastError();
-}
-
-// K12, step 1 over all of mpad: full GP_MAX_COLS panels, then one of the
-// remaining 128 or 256 columns.
-cudaError_t launch_phi_chunk(const float* fb, const float* fa,
-                             const float* uinv, float* phi, int qpad, int ppad,
-                             int mpad, int r0, int rows, float sw, float pw,
-                             cudaStream_t st) {
-  const int full = mpad / GP_MAX_COLS;
-  const int rest = mpad % GP_MAX_COLS;
-  cudaError_t err = cudaSuccess;
-  if (full) {
-    err = launch_phi<12>(fb, fa, uinv, phi, qpad, ppad, mpad, r0, rows, 0,
-                         full, sw, pw, st);
-  }
-  if (err == cudaSuccess && rest == 256) {
-    err = launch_phi<8>(fb, fa, uinv, phi, qpad, ppad, mpad, r0, rows,
-                        full * GP_MAX_COLS, 1, sw, pw, st);
-  } else if (err == cudaSuccess && rest == 128) {
-    err = launch_phi<4>(fb, fa, uinv, phi, qpad, ppad, mpad, r0, rows,
-                        full * GP_MAX_COLS, 1, sw, pw, st);
-  }
-  return err;
-}
-
 // K12, step 3 of a chunk: Sb += the chunk's gram, with compensation (comp
 // holds each element's carried low part), in chunk order. The first chunk
 // starts both from zero, the last writes Sb = sum - comp.
@@ -720,7 +565,7 @@ __global__ void gram_chunk_add_kernel(const float* __restrict__ part,
 
 bool bad_stream_shape(int qpad, int ppad) {
   return qpad < ST_ROW_GRAIN || qpad % ST_ROW_GRAIN || ppad < 1 ||
-         ppad % nle::BK;
+         ppad % ST_P_GRAIN;
 }
 
 // Even split of n into the fewest pieces of at most `most`, each a
@@ -879,21 +724,23 @@ extern "C" int nle_scaled_gram(const float* phi, const float* c,
 // K12. fb (3, qpad), fa (3, ppad), c (qpad,) zero on pad rows, uinv (ppad,
 // mpad) -> out (mpad, mpad). The launch takes
 // streaming_kernel.stream_gram_plan(qpad, ppad, mpad) as it is: chunks of
-// `chunk` rows (the last `last` rows), and K6's split plan (nsplit,
-// split_rows; chain_rows) for a full chunk and for the last one. Per chunk:
-// phi rows into phi_chunk (chunk, mpad); K6's lower-triangle gram of
-// diag(c) phi over the plan's splits, summed in split order and mirrored,
-// into part (mpad, mpad) (K6's scratch: gram_scratch); part added into out
-// in chunk order with compensation (comp, mpad * mpad floats).
+// `chunk` rows (the last `last` rows) and K6's split plan (nsplit, split_rows; chain_rows) for a
+// full chunk and for the last one. Per chunk: phi rows into phi_chunk
+// (chunk, mpad); K6's lower-triangle gram of diag(c) phi over the plan's
+// splits, summed in split order and mirrored, into part (mpad, mpad)
+// (K6's scratch: gram_scratch); part added into out in chunk order with
+// compensation (comp, mpad * mpad floats).
 extern "C" int nle_stream_gram(
     const float* fb, const float* fa, const float* c, const float* uinv,
     float* phi_chunk, float* gram_scratch, float* part, float* comp,
     float* out, int qpad, int ppad, int mpad, int chunk, int last,
     int nsplit, int split_rows, int last_nsplit, int last_split_rows,
     int chain_rows, float sw, float pw, void* stream) {
-  if (qpad < GP_ROWS || qpad % GP_ROWS || ppad < GP_K || ppad % GP_K ||
-      mpad < 128 || mpad % 128 || chunk < GP_ROWS || chunk % GP_ROWS ||
-      last < GP_ROWS || last % GP_ROWS || last > chunk ||
+  // The core's C entry refuses Qpad and a chunk that are not whole blocks
+  // of its rows at the first chunk, before anything is launched (the last
+  // chunk is then whole blocks too).
+  if (qpad < 1 || ppad < ST_P_GRAIN || ppad % ST_P_GRAIN || mpad < 128 ||
+      mpad % 128 || chunk < 1 || last < 1 || last > chunk ||
       (qpad - last) % chunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -902,17 +749,17 @@ extern "C" int nle_stream_gram(
   for (int r0 = 0; r0 < qpad; r0 += chunk) {
     const bool is_last = r0 + last == qpad;
     const int rows = is_last ? last : chunk;
-    cudaError_t err = launch_phi_chunk(fb, fa, uinv, phi_chunk, qpad, ppad,
-                                       mpad, r0, rows, sw, pw, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int status = nle_scaled_gram(
+    int status = nle_affinity_matmul(fb, fa, uinv, phi_chunk, qpad, ppad,
+                                     mpad, r0, rows, qpad, sw, pw, stream);
+    if (status != 0) return status;
+    status = nle_scaled_gram(
         phi_chunk, c + r0, gram_scratch, part, rows, mpad,
         is_last ? last_nsplit : nsplit, is_last ? last_split_rows : split_rows,
         chain_rows, stream);
     if (status != 0) return status;
     gram_chunk_add_kernel<<<(n + 255) / 256, 256, 0, st>>>(
         part, out, comp, n, r0 == 0, is_last);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     if (is_last) break;
   }

@@ -154,7 +154,7 @@ def _compile(so: str) -> None:
 def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "nle_affinity_matmul": [p, p, p, p, i, i, i, i, f, f, p],
+        "nle_affinity_matmul": [p, p, p, p, i, i, i, i, i, i, f, f, p],
         "nle_sinkhorn_halfstep_i16": [p, p, p, p, p, i, i, i, i, i, i, i, f,
                                        p],
         "nle_sinkhorn_halfstep_f32": [p, p, p, p, p, i, i, i, i, i, i, i, f,
@@ -162,7 +162,8 @@ def _declare(lib) -> None:
         "nle_sinkhorn_halfstep_bf16": [p, p, p, p, p, i, i, i, i, i, i, i, f,
                                        p],
         "nle_sinkhorn_tiled_f32": [p, p, p, p, p, i, i, i, f, p],
-        "nle_sinkhorn_probe_f32": [p, p, p, p, p, i, i, i, i, p],
+        "nle_sinkhorn_probe_f32": [p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                   p],
         "nle_ab_unroll": [p, p, p, p, p, i, i, i, i, f, p],
         "nle_ab_tiles": [p, p, p, p, p, i, i, i, i, f, p],
         "nle_ab_2stream": [p, p, p, i, i, i, i, i, p],

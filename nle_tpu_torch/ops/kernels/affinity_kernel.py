@@ -1,23 +1,26 @@
-"""K1: fused Gaussian-affinity x matrix product (CUDA, csrc/affinity.cu).
+"""K1: fused Gaussian-affinity x matrix product (CUDA, csrc/affinity.cu on
+the affinity core csrc/affinity_core.cuh).
 
 Replaces nle_tpu/ops/pallas/affinity_kernel.py:113 `_kernel` (via
 `affinity_matmul_pallas`, call at :226) and its p > 1024 variant
 `_kernel_ptiled` (K2, :128, call at :252):
     out (q, m) = exp(-(sw (dr^2 + dc^2) + pw dy^2)) @ B
 with dr, dc, dy raw integer feature differences, squared before scaling.
-The (rows, p) affinity block lives only in shared memory; K_AB never
-reaches device memory.
+The affinity block lives only in shared memory; K_AB never reaches device
+memory.
 
 On the H100 the product is compute-bound (0.77 TFLOP fp32 FMA + 0.6 G expf
-at the 1 MP main path, ~41 MB of traffic). The first version is a plain
-register-tiled fp32 SGEMM with the affinity generated in the operand load;
-accuracy rules (IEEE expf, no FMA contraction in the argument, fp32 FMA
-contraction, no TF32) are in the source. The TPU needs K2 once a whole
-(p, m) B block no longer fits its VMEM; this kernel streams B through
-shared memory 16 samples at a time at any p, so one kernel serves both
-contracts: the dense phi_b at p > 1024 and the streaming stage 2b's
-V tail (B = W = Uinv GrT) on dense sampling grids. Each output sums its p
-terms in one increasing chain, whatever p is.
+at the 1 MP main path, ~41 MB of traffic). The core (affinity_plan) builds
+each affinity entry once per column panel of up to AFF_PANEL_COLS columns
+and multiplies it into 8 x TN fp32 outputs a thread (TN = 12 on a full
+panel), the B slabs arriving through a cp.async ring; K12's phi step runs
+on the same core. Accuracy rules (IEEE expf, no FMA contraction in the
+argument, fp32 FMA contraction, no TF32) are in the source. The TPU needs
+K2 once a whole (p, m) B block no longer fits its VMEM; here B streams
+through shared memory AFF_K samples at a time at any p, so one kernel
+serves both contracts: the dense phi_b at p > 1024 and the streaming stage
+2b's V tail (B = W = Uinv GrT) on dense sampling grids. Each output sums
+its p terms in one increasing fmaf chain, whatever p and the plan are.
 
 Dispatch rule (the same for every kernel of the port): a CPU tensor goes
 to the plain PyTorch version; a CUDA tensor goes to the kernel or raises.
@@ -25,15 +28,65 @@ to the plain PyTorch version; a CUDA tensor goes to the kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from nle_tpu_torch.ops.affinity import affinity_block
 from nle_tpu_torch.ops.kernels import _build
 from nle_tpu_torch.ops.kernels._common import cuda_or_cpu, round_up
 
-ROW_TILE = 64     # output rows per block
-P_TILE = 16       # contraction step; p pads to a multiple of it
 COL_TILE = 128    # mpad granularity (the JAX package's lane padding)
+# The affinity core (csrc/affinity_core.cuh, whose AC_* constants mirror
+# these): AFF_K samples a step; column panels of at most AFF_PANEL_COLS
+# (32 TN columns, TN = 12, 8 or 4); AFF_ROWS pixel rows a block, 4 threads
+# a row, each building AFF_BUILD entries a step and owning 8 rows x TN
+# columns; a ring of AFF_STAGES slabs of B.
+AFF_K = 16
+AFF_PANEL_COLS = 384
+AFF_ROWS = 64
+AFF_STAGES = 3
+AFF_BUILD = 4
+P_TILE = AFF_K       # p pads to a multiple of the core's step
+ROW_TILE = AFF_ROWS  # K1's out_rows, K12's Qpad and chunks: whole blocks
+
+
+class AffinityPlan(NamedTuple):
+    """The core's launch for (Qpad, Ppad, Mpad): column panels `panels`
+    (widths, in column order; a block builds each entry of its rows once
+    a panel), `rows` pixel rows a block of 4 * rows threads, a ring of
+    `stages` B slabs of AFF_K samples; shared_bytes for the widest
+    panel (the ring and two affinity tiles)."""
+    panels: tuple[int, ...]
+    rows: int
+    stages: int
+
+    @property
+    def threads(self) -> int:
+        return 4 * self.rows
+
+    @property
+    def shared_bytes(self) -> int:
+        return 4 * (self.stages * AFF_K * max(self.panels)
+                    + 2 * AFF_K * self.rows)
+
+
+def affinity_plan(qpad: int, ppad: int, mpad: int) -> AffinityPlan:
+    """The affinity core's plan: full AFF_PANEL_COLS panels, then one of
+    the remaining 128 or 256 columns; a function of the shapes alone.
+    Raises on shapes the kernel cannot take."""
+    if qpad < AFF_ROWS or qpad % AFF_ROWS:
+        raise ValueError(f"Qpad {qpad} must be a positive multiple of "
+                         f"{AFF_ROWS}")
+    if ppad < AFF_K or ppad % AFF_K:
+        raise ValueError(f"Ppad {ppad} must be a positive multiple of "
+                         f"{AFF_K}")
+    if mpad < COL_TILE or mpad % COL_TILE:
+        raise ValueError(f"the affinity core takes Mpad a positive multiple "
+                         f"of {COL_TILE}; got {mpad}")
+    full, rest = divmod(mpad, AFF_PANEL_COLS)
+    return AffinityPlan((AFF_PANEL_COLS,) * full + ((rest,) if rest else ()),
+                        AFF_ROWS, AFF_STAGES)
 
 
 def _pad_out(out: torch.Tensor, out_rows: int, mpad: int) -> torch.Tensor:
@@ -70,9 +123,10 @@ def affinity_matmul_kernel(fa: torch.Tensor, fb: torch.Tensor,
     # The operands are copied into padded staging buffers: any strides do.
     if not cuda_or_cpu(fa, fb, B, dtype=torch.float32, contiguous=False):
         return affinity_matmul_plain(fa, fb, B, sw, pw, out_rows)
-    lib = _build.load()
     ppad = round_up(max(p, 1), P_TILE)
     qpad = out_rows if out_rows is not None else round_up(max(q, 1), ROW_TILE)
+    affinity_plan(qpad, ppad, mpad)    # raises on shapes the core refuses
+    lib = _build.load()
     fa_s = fa.new_zeros((3, ppad))
     fa_s[:, :p] = fa.T
     fb_s = fb.new_zeros((3, qpad))
@@ -80,10 +134,11 @@ def affinity_matmul_kernel(fa: torch.Tensor, fb: torch.Tensor,
     Bp = B.new_zeros((ppad, mpad))
     Bp[:p, :m] = B
     out = torch.empty((qpad, mpad), dtype=torch.float32, device=fb.device)
+    # The core's C entry on all Qpad rows (r0 0), the tail from q on zero.
     with torch.cuda.device(fb.device):
-        status = lib.nle_affinity_matmul(
+        _build.check(lib.nle_affinity_matmul(
             fb_s.data_ptr(), fa_s.data_ptr(), Bp.data_ptr(), out.data_ptr(),
-            qpad, q, ppad, mpad, float(sw), float(pw), _build.stream_ptr(fb))
-    _build.check(status, "affinity_matmul")
+            qpad, ppad, mpad, 0, qpad, q, float(sw), float(pw),
+            _build.stream_ptr(fb_s)), "affinity_matmul")
     _build.count_launch("affinity_matmul")
     return out if out_rows is not None else out[:q, :m]

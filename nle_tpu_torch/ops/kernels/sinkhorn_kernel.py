@@ -368,11 +368,14 @@ def sweep_groups(mpad: int, dtype: torch.dtype) -> int:
     return 1 if chunks >= SK_THREADS else SK_THREADS // max(chunks, 1)
 
 
-def sinkhorn_plan(npad: int, mpad: int, dtype: torch.dtype) -> SinkhornPlan:
+def sinkhorn_plan(npad: int, mpad: int, dtype: torch.dtype,
+                  chunk: int | None = None) -> SinkhornPlan:
     """The half-step kernels' plan for an (npad, mpad) factor of dtype: a
-    function of the shapes alone. Raises on shapes the kernel cannot take:
-    a row that is not a 16-byte multiple (the bulk copy's unit) or a width
-    whose ring and vectors do not fit one block's shared memory."""
+    function of the shapes alone. chunk (K15's probe): each CTA's row
+    range a whole number of `chunk` rows, each of whole sub-tiles. Raises
+    on shapes the kernel cannot take: a row that is not a 16-byte multiple
+    (the bulk copy's unit) or a width whose ring and vectors do not fit
+    one block's shared memory."""
     if dtype not in _HALFSTEP:
         raise TypeError(f"half-step factor dtype {dtype}: int16, float32 "
                         "or bfloat16")
@@ -384,7 +387,12 @@ def sinkhorn_plan(npad: int, mpad: int, dtype: torch.dtype) -> SinkhornPlan:
     rows = 1
     while rows < SK_MAX_ROWS and 2 * rows * row_bytes <= SK_SLOT_BYTES:
         rows *= 2
-    per_cta = round_up(-(-npad // SK_CTAS), rows)
+    if chunk is not None:
+        if chunk < 1:
+            raise ValueError(f"chunk {chunk} must be positive")
+        while chunk % rows:
+            rows //= 2
+    per_cta = round_up(-(-npad // SK_CTAS), chunk or rows)
     # No more slots than a CTA has sub-tiles.
     slots = min(SK_MAX_SLOTS, per_cta // rows,
                 SK_RING_BYTES // (rows * row_bytes))
@@ -579,7 +587,8 @@ def sinkhorn_probe_plain(phi: torch.Tensor, t: torch.Tensor, variant: str,
 def sinkhorn_probe(phi: torch.Tensor, t: torch.Tensor, variant: str,
                    chunk: int) -> torch.Tensor:
     """K15: the TPU probe of tools/bench_sk_dmaonly.py on an f32 phi
-    (npad, mpad), one block per chunk; returns what sinkhorn_probe_plain
+    (npad, mpad), on K4's bulk-copy sweep with each CTA's rows whole
+    chunks (sinkhorn_plan's chunk); returns what sinkhorn_probe_plain
     returns."""
     if phi.dtype != torch.float32:
         raise TypeError(f"probe factor dtype {phi.dtype}: float32 only")
@@ -588,6 +597,9 @@ def sinkhorn_probe(phi: torch.Tensor, t: torch.Tensor, variant: str,
     if not cuda_or_cpu(phi, t):
         return sinkhorn_probe_plain(phi, t, variant, chunk)
     _check_width(phi, t)
+    plan = sinkhorn_plan(npad, mpad, phi.dtype, chunk)
+    if phi.data_ptr() % 16 or t.data_ptr() % 16:
+        raise ValueError("probe operands must be 16-byte aligned")
     lib = _build.load()
     x = torch.empty((npad,), dtype=torch.float32, device=phi.device)
     out = torch.empty((PROBE_ROWS, width), dtype=torch.float32,
@@ -597,7 +609,7 @@ def sinkhorn_probe(phi: torch.Tensor, t: torch.Tensor, variant: str,
     name = f"sinkhorn_probe_{variant}"
     _build.check(launch_sweep(lib.nle_sinkhorn_probe_f32, phi, t, x, partial,
                               out, npad, mpad, chunk,
-                              PROBE_VARIANTS[variant]), name)
+                              PROBE_VARIANTS[variant], *plan), name)
     _build.count_launch(name)
     return out
 

@@ -63,6 +63,11 @@ import torch
 
 from nle_tpu_torch.ops.kernels import _build
 from nle_tpu_torch.ops.kernels._common import cuda_or_cpu, round_up
+from nle_tpu_torch.ops.kernels.affinity_kernel import (
+    ROW_TILE,
+    AffinityPlan,
+    affinity_plan,
+)
 from nle_tpu_torch.ops.kernels.scaled_matmul_kernel import GramPlan, gram_plan
 from nle_tpu_torch.ops.linalg import safe_reciprocal
 
@@ -128,16 +133,10 @@ def halfstep_plan(qpad: int, ppad: int) -> HalfstepPlan:
                         + 4 * 2 * rows * (1 + threads // 32))
 
 
-# K12 (csrc/streaming.cu gram_phi_kernel, then K6's kernel on each chunk):
-# a block builds the affinity of GRAM_PHI_ROWS pixel rows, GRAM_PHI_K
-# samples a step, and multiplies it into all columns of a column panel of
-# at most GRAM_PANEL_COLS (so each entry is built once per chunk up to mpad
-# 384); the Uinv slabs come through a ring of GRAM_PHI_STAGES by cp.async.
-GRAM_PHI_ROWS = 64
-GRAM_PHI_K = 16
-GRAM_PHI_STAGES = 3
-GRAM_PANEL_COLS = 384
-GRAM_COL_ALIGN = 128         # K6's tile edge: mpad a multiple of it
+# K12 (csrc/streaming.cu nle_stream_gram): each chunk's phi rows by the
+# affinity core K1 runs on (affinity_kernel.affinity_plan: each entry built
+# once per column panel of at most AFF_PANEL_COLS, so once per chunk up to
+# mpad 384), then K6's kernel on the chunk.
 # phi rows of one chunk: as many as GRAM_CHUNK_BYTES of scratch hold, in
 # whole GRAM_CHUNK_GRAIN-row pieces (K6's shortest split), so the chunk's
 # gram step fills the card (mpad 384: 174,080 rows, 44 splits x 6 tiles).
@@ -147,23 +146,26 @@ GRAM_CHUNK_GRAIN = 2048
 
 class StreamGramPlan(NamedTuple):
     """K12's launch: Qpad rows in `nchunks` chunks of `chunk` rows, the
-    last one `last` rows; each chunk's phi rows built in GRAM_PHI_ROWS-row
-    blocks over the column panels `panels` (widths, in column order), then
-    K6's gram on them by K6's plan `full` (a full chunk) or `tail` (the
-    last one)."""
+    last one `last` rows; each chunk's phi rows by the affinity core's
+    plan `phi`, then K6's gram on them by K6's plan `full` (a full chunk)
+    or `tail` (the last one)."""
     chunk: int
     nchunks: int
     last: int
-    panels: tuple[int, ...]
+    phi: AffinityPlan
     full: GramPlan
     tail: GramPlan
+
+    @property
+    def panels(self) -> tuple[int, ...]:
+        """The phi step's column panels (widths, in column order)."""
+        return self.phi.panels
 
     @property
     def shared_bytes(self) -> int:
         """The phi step's shared memory for its widest panel: the Uinv ring
         and the two affinity tiles."""
-        return 4 * (GRAM_PHI_STAGES * GRAM_PHI_K * max(self.panels)
-                    + 2 * GRAM_PHI_K * GRAM_PHI_ROWS)
+        return self.phi.shared_bytes
 
 
 def stream_gram_plan(qpad: int, ppad: int, mpad: int,
@@ -171,28 +173,22 @@ def stream_gram_plan(qpad: int, ppad: int, mpad: int,
     """K12's plan for (Qpad, Ppad, Mpad) and the chunk rows (by default
     GRAM_CHUNK_BYTES of phi rows, at most Qpad): a function of the shapes
     alone, so K12's partial sums and their order do not depend on the
-    card. Raises on shapes the kernels cannot take."""
-    if qpad < GRAM_PHI_ROWS or qpad % GRAM_PHI_ROWS:
+    card. Qpad and the chunk are whole ROW_TILE-row pieces (the affinity
+    core's blocks). Raises on shapes the kernels cannot take."""
+    if qpad < ROW_TILE or qpad % ROW_TILE:
         raise ValueError(f"Qpad {qpad} must be a positive multiple of "
-                         f"{GRAM_PHI_ROWS}")
-    if ppad < GRAM_PHI_K or ppad % GRAM_PHI_K:
-        raise ValueError(f"Ppad {ppad} must be a positive multiple of "
-                         f"{GRAM_PHI_K}")
-    if mpad < GRAM_COL_ALIGN or mpad % GRAM_COL_ALIGN:
-        raise ValueError(f"K12 takes Mpad a positive multiple of "
-                         f"{GRAM_COL_ALIGN} on the card; got {mpad}")
+                         f"{ROW_TILE}")
+    phi = affinity_plan(qpad, ppad, mpad)
     if chunk is None:
         chunk = max(GRAM_CHUNK_GRAIN,
                     GRAM_CHUNK_BYTES // (4 * mpad) // GRAM_CHUNK_GRAIN
                     * GRAM_CHUNK_GRAIN)
-    if chunk < GRAM_PHI_ROWS or chunk % GRAM_PHI_ROWS:
+    if chunk < ROW_TILE or chunk % ROW_TILE:
         raise ValueError(f"chunk {chunk} must be a positive multiple of "
-                         f"{GRAM_PHI_ROWS}")
+                         f"{ROW_TILE}")
     chunk = min(chunk, qpad)
     last = qpad - (qpad - 1) // chunk * chunk
-    full, rest = divmod(mpad, GRAM_PANEL_COLS)
-    panels = (GRAM_PANEL_COLS,) * full + ((rest,) if rest else ())
-    return StreamGramPlan(chunk, -(-qpad // chunk), last, panels,
+    return StreamGramPlan(chunk, -(-qpad // chunk), last, phi,
                           gram_plan(chunk, mpad), gram_plan(last, mpad))
 
 

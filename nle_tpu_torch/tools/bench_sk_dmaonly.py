@@ -5,25 +5,26 @@ asks for).
     python -m nle_tpu_torch.tools.bench_sk_dmaonly [--npad N] [--mpad M]
         [--sweeps S] [--seed K] [--chunks 512,1024]
 
-K15 (csrc/sinkhorn.cu) is the TPU tool's probe: one block per chunk of
-`chunk` rows sweeps the f32 factor (npad, mpad) as K13 does, with parts of
-the work dropped, and returns the probe's (8, max(mpad, chunk)) block:
+K15 (csrc/sinkhorn.cu) is the TPU tool's probe on the half-step's own
+bulk-copy sweep (K3/K4/K14's: persistent CTAs, rows staged by
+cp.async.bulk into a ring of shared-memory slots, each CTA's rows whole
+chunks of `chunk` rows), with parts of the work dropped, and returns the
+probe's (8, max(mpad, chunk)) block:
     dmaonly  every row staged in shared memory, row 0 of each chunk summed
     wonly    w = phi t per row, folded by chunk (its first 1024 entries)
     wpart    w, then sum_c w_c^T phi_c
-so a half-step's time splits into the staging, the w pass and the s pass.
-One row per variant and chunk (--chunks, default the JAX tool's CHUNKS
-512,1024; wonly does not trace on the TPU where min(1024, max(mpad,
-chunk)) != min(1024, chunk), and its row says so). The JAX tool's NSLOTS
-(its DMA ring depth) has no counterpart: K15 stages with plain loads and
-no ring; K16 and K19 (bench_sk_unroll, bench_sk_2stream) carry the async
-staging. Then the half-step kernels themselves at the same shape: K4 and
-K13 on the f32 factor, K14 on its bf16 copy, K3 on its per-column int16
-copy. Each line gives ms per sweep (CUDA events over `sweeps` launches,
-the least of three runs) and the rate in GB/s of the factor's bytes, as
-the JAX tools report them. The defaults are the 1 MP main path's
-assembled shape (npad 1,011,712 = 832 x 1216 padded to 2048 rows, mpad
-640).
+so K4's half-step time splits into the staging, the w pass and the s
+pass (each line also gives its ratio to K4's time). One row per variant
+and chunk (--chunks, default the JAX tool's CHUNKS 512,1024; wonly does
+not trace on the TPU where min(1024, max(mpad, chunk)) != min(1024,
+chunk), and its row says so). The JAX tool's NSLOTS (its DMA ring depth)
+is the sweep's ring of slots, which sinkhorn_plan sizes from the shape.
+Then the half-step kernels themselves at the same shape: K4 and K13 on
+the f32 factor, K14 on its bf16 copy, K3 on its per-column int16 copy.
+Each line gives ms per sweep (CUDA events over `sweeps` launches, the
+least of three runs) and the rate in GB/s of the factor's bytes, as the
+JAX tools report them. The defaults are the 1 MP main path's assembled
+shape (npad 1,011,712 = 832 x 1216 padded to 2048 rows, mpad 640).
 
 The factor is made on the card from --seed (normal, x 0.05, as the JAX
 tool makes it); the kernels' times do not depend on its values. Needs an
@@ -95,10 +96,17 @@ def probe_table(torch, npad: int = NPAD, mpad: int = MPAD, sweeps: int = 10,
     return rows
 
 
+def k4_ratio(rows, row) -> float | None:
+    """The row's time over K4's half-step at the same shape."""
+    k4 = next((r["ms"] for r in rows if r["kernel"] == "K4"), None)
+    return None if k4 is None or row["ms"] is None else row["ms"] / k4
+
+
 def format_rows(rows) -> list[str]:
     return [f"{r['kernel']:4s} {r['what']:26s} {r['dtype']:8s} "
             + ("does not trace on the TPU" if r["ms"] is None else
-               f"{r['ms']:8.3f} ms/sweep {r['gb_s']:8.1f} GB/s")
+               f"{r['ms']:8.3f} ms/sweep {r['gb_s']:8.1f} GB/s "
+               f"{k4_ratio(rows, r):6.3f} x K4")
             for r in rows]
 
 

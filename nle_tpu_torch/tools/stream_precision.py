@@ -21,12 +21,15 @@ Variants:
   serving K9), K10 for s0;
 - kernel, f32 projections: the same kernels in nle_tpu's loop, every
   projection in fp32 (the JAX package's order);
+- plain float64 half-steps with f32 projections, and with the package's
+  float64 projections: half-steps with no rounding of their own, so the
+  loop's c where no summation order inside a kernel could do better (how
+  much of the loop's error the projections and the f32 stage-1 values
+  carry);
 - on the first frame only: plain f32 (the plain twins, cuBLAS sums, f32
   projections); kernel w + plain ap / plain w + kernel ap, one pass each
-  (K11 and K10, f32 projections: which pass carries the kernel's error);
-  plain float64 half-steps with f32 projections, and with the package's
-  float64 projections (how much of the loop's error the projections and
-  the f32 stage-1 values carry);
+  (K11 and K10, f32 projections: which pass carries the two-pass
+  kernel's error);
 - one half-step alone, on the float64 loop's u at half-steps 1, 20 and
   100 (rounded to f32): x and ap against the float64 twin on the same u
   (median, 99th percentile and max of the relative error, and its signed
@@ -324,16 +327,19 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
         stats("plain f32", *run(lambda u: stk.streaming_halfstep_ptiled_plain(
             fa, fb, mask, u, sw, pw, EPS), plain_s0))
 
-        def plain64(u):
-            return stk.streaming_halfstep_ptiled_plain(
-                fa64, fb64, mask64, u.double(), sw, pw, EPS)
+    # Half-steps without their fp32 rounding (x and ap in float64, rounded
+    # once to f32): where any summation order inside the kernel could at
+    # best bring the loop's c.
+    def plain64(u):
+        return stk.streaming_halfstep_ptiled_plain(
+            fa64, fb64, mask64, u.double(), sw, pw, EPS)
 
-        s0_64 = lambda: stk.streaming_ap_plain(fa64, fb64, mask64, sw, pw)[0]  # noqa: E731
-        stats("plain float64 half-steps, f32 projections",
-              *run(lambda u: tuple(v.float() for v in plain64(u)),
-                   lambda: s0_64().float()))
-        stats("plain float64 half-steps, package loop",
-              *run_package(plain64, s0_64))
+    s0_64 = lambda: stk.streaming_ap_plain(fa64, fb64, mask64, sw, pw)[0]  # noqa: E731
+    stats("plain float64 half-steps, f32 projections",
+          *run(lambda u: tuple(v.float() for v in plain64(u)),
+               lambda: s0_64().float()))
+    stats("plain float64 half-steps, package loop",
+          *run_package(plain64, s0_64))
     for name, lib in libs.items():
         use(lib)
         stats(f"kernel [{name}]", *run_package(kernel_halfstep, kernel_s0))

@@ -93,7 +93,7 @@ def test_gram_plan_covers_rows_columns_and_tiles_once(qpad, ppad, mpad,
     assert 0 < plan.last <= plan.chunk
     cols = np.cumsum((0,) + plan.panels)
     assert _covered_once(cols[:-1], cols[1:], mpad)
-    assert all(w % GRAM_TILE == 0 and w <= tsk.GRAM_PANEL_COLS
+    assert all(w % GRAM_TILE == 0 and w <= tak.AFF_PANEL_COLS
                for w in plan.panels)
     for rows, k6 in ((plan.chunk, plan.full), (plan.last, plan.tail)):
         a = [k * k6.split_rows for k in range(k6.nsplit)]
@@ -113,18 +113,20 @@ def test_gram_plan_builds_each_entry_once_up_to_384_columns(mpad, builds):
     columns: one build an entry per chunk up to Mpad 384 (the [7] and
     [9a] capacity rows), ceil(Mpad / 384) past it."""
     plan = tsk.stream_gram_plan(4096, 640, mpad)
-    assert len(plan.panels) == builds == -(-mpad // tsk.GRAM_PANEL_COLS)
+    assert len(plan.panels) == builds == -(-mpad // tak.AFF_PANEL_COLS)
 
 
 @pytest.mark.parametrize("qpad,ppad,mpad", GRAM_SHAPES)
 def test_gram_plan_fits_a_hopper_block(qpad, ppad, mpad):
-    """The phi step's shared memory (a three-slab Uinv ring and two
-    affinity tiles) fits a block, and the chunk's scratch stays near
-    GRAM_CHUNK_BYTES; the chunk is a whole number of K6's shortest
+    """The phi step's shared memory (the affinity core's ring of Uinv slabs
+    and two affinity tiles) fits a block, and the chunk's scratch stays
+    near GRAM_CHUNK_BYTES; the chunk is a whole number of K6's shortest
     splits unless it is all of Qpad."""
     plan = tsk.stream_gram_plan(qpad, ppad, mpad)
     widest = max(plan.panels)
-    assert plan.shared_bytes == 4 * (3 * 16 * widest + 2 * 16 * 64)
+    assert plan.phi == tak.affinity_plan(qpad, ppad, mpad)
+    assert plan.shared_bytes == 4 * (plan.phi.stages * 16 * widest
+                                     + 2 * 16 * plan.phi.rows)
     assert plan.shared_bytes <= SMEM_LIMIT
     assert 4 * plan.chunk * mpad <= tsk.GRAM_CHUNK_BYTES
     assert plan.chunk == qpad or plan.chunk % tsk.GRAM_CHUNK_GRAIN == 0
@@ -155,16 +157,20 @@ def test_gram_plan_raises_on_shapes_the_kernels_cannot_take(qpad, ppad,
 
 
 def test_gram_plan_mirrors_the_kernel_source():
-    """The plan's constants are csrc/streaming.cu's: the block's rows, the
+    """K12's phi step is the affinity core's (csrc/affinity_core.cuh, K1's
+    C entry), whose constants the plan mirrors: the block's rows, the
     samples a step, the ring's slabs and the widest column panel, whose
-    8 x 12 outputs a thread give 96 FMAs for 5 shared float4 loads."""
+    8 x 12 outputs a thread give 96 FMAs for 5 shared float4 loads; then
+    K6's gram."""
+    core = _read("affinity_core.cuh")
+    plan = tsk.stream_gram_plan(4096, 640, 640)
+    assert _const(core, "AC_ROWS") == plan.phi.rows
+    assert _const(core, "AC_K") == tak.AFF_K
+    assert _const(core, "AC_STAGES") == plan.phi.stages
+    assert _const(core, "AC_MAX_COLS") == tak.AFF_PANEL_COLS == 32 * 12
     src = _read("streaming.cu")
-    assert _const(src, "GP_ROWS") == tsk.GRAM_PHI_ROWS
-    assert _const(src, "GP_K") == tsk.GRAM_PHI_K
-    assert _const(src, "GP_STAGES") == tsk.GRAM_PHI_STAGES
-    assert _const(src, "GP_MAX_COLS") == tsk.GRAM_PANEL_COLS
-    assert _const(src, "GP_THREADS") == 256
-    assert "launch_phi<12>" in src and "launch_phi<8>" in src
+    assert "nle_affinity_matmul(fb, fa, uinv, phi_chunk" in src
+    assert "gram_phi_kernel" not in src
     assert "nle_scaled_gram(" in src
 
 
