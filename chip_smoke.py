@@ -7,7 +7,8 @@
 2. builds the CUDA kernels from nle_tpu_torch/csrc (one nvcc per source,
    all started together) and prints the build time and ptxas'
    register/spill lines, and the SASS instructions of each streaming
-   kernel's entry loop per entry; K8's one-build kernel must hold one
+   kernel's entry loop per entry (every needle of SASS_KEYS and CORE_KEYS
+   must find its loop); K8's one-build kernel must hold one
    MUFU.EX2 per entry its row groups build (one barrier a group), and the
    affinity core (csrc/affinity_core.cuh: K1, K2's contract, K12's phi
    step) one per entry a column panel in its main loop, whose FFMA share
@@ -52,10 +53,11 @@
    its peak device memory must stay below 256 B/pixel; the warm run prints
    train and apply seconds. Then K8 (unit_x and a real half-step), K10,
    K11 and K12 are held against their float64 plain versions on this
-   frame's own operands (q ~ 32 M rest pixels, mpad 384), and K8 and K12
-   timed there; the profiled warm call must launch K8's one-build kernel once
-   per half-step, the reduction of its partials, and no two-pass K9 (also
-   in [9a]; a profile without device events fails);
+   frame's own operands (q ~ 32 M rest pixels, mpad 384), and K8, K10,
+   K11 and K12 timed there; the profiled warm call must launch K8's
+   one-build kernel once per half-step, the reduction of its partials, no
+   two-pass K9, K10's kernel twice (the s0 pass and the apply) and K11's
+   once (also in [9a]; a profile without device events fails);
 8. cross-path checks: (a) the factored path on the card vs the CPU
    (>= 45 dB) and twice on the card (bitwise) on a 128x192 frame; (b) the
    factored path vs the dense main path at 1 MP (>= 45 dB); (c)
@@ -90,8 +92,14 @@
    each pair >= 45 dB: streaming vs dense f32, dense vs dense f32, the
    twin vs dense f32 (the streaming algebra without its rounding lands on
    the dense route), and the streaming kernels vs the twin (>= TWIN_DB);
-   and the streaming loop's c against the twin's (median over the rest
-   pixels <= LOOP_C_TOL, the two-pass K9's reading there); (d) the dense
+   the streaming loop's c against the twin's (median over the rest
+   pixels <= LOOP_C_TOL, the two-pass K9's reading there), and nle_tpu's
+   fp32 loop's c around the same kernels (a reading); and K8's gate: on
+   the frames of GATE_SEEDS, at each of stream_precision.ONE_STEP's
+   half-steps of the float64 loop, one half-step's x and ap by K8's
+   one-build kernel and by K9's two passes at the same Ppad against
+   float64 on the same u, K8's median over the half-steps (of the median
+   relative error) at or below K9's, for x and for ap; (d) the dense
    route past 2048 factor columns on a real train: the same frame with
    48 44 500 5 50 50 (m = 2078, mb 2112, mpad 2176) through the auto rule
    on the int16 route (K3) and the f32 route (K4), >= 45 dB apart, then K1
@@ -571,6 +579,107 @@ def hold_two_pass(torch, _build, t, eps: float, sass: dict,
     return out
 
 
+# [9c] K8's gate: one half-step on the float64 loop's u,
+# on these frames (structured 2000 x 2000, GRID_ARGS, as
+# tools/stream_precision.py runs them).
+GATE_SEEDS = (9, 1, 2, 3)
+GATE_ROUTES = ("K8 one build", "K9 two passes")
+
+
+def one_step_errors(torch, fa_rows, fb_cols, mask, taps: dict, p: int, sw,
+                    pw, eps: float) -> dict:
+    """One half-step on each tapped u (f32, the float64 loop's input at
+    stream_precision.ONE_STEP's half-steps): x and ap[:p] by K8's one-build
+    kernel and by K9's two passes at the same Ppad, each against halfstep64
+    (the half-step in float64) on the same u. Returns {route: {"x": [...],
+    "ap": [...]}}, per tapped half-step in order the median over the rows
+    (samples) with a nonzero float64 value of |got - want| / |want|."""
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        _affinity_rows,
+        streaming_halfstep_ptiled,
+        two_pass_halfstep,
+    )
+    from nle_tpu_torch.tools.stream_precision import (
+        affinity64_rows,
+        halfstep64,
+    )
+
+    f64 = torch.float64
+    fa64, fb64 = fa_rows.to(f64), fb_cols.to(f64)
+    # halfstep64's entries are the plain version's bits on these integer
+    # features (its matmuls exact): checked here on the card.
+    rows = min(4096, fb64.shape[1])
+    if not torch.equal(affinity64_rows(torch, fa64, fb64, 0, rows, sw, pw),
+                       _affinity_rows(fa64, fb64, 0, rows, sw, pw)):
+        raise AssertionError("halfstep64's entries differ from the plain "
+                             "version's in float64")
+    half = halfstep64(torch, fa64, fb64, mask.to(f64), sw, pw, eps)
+    routes = dict(zip(GATE_ROUTES, (streaming_halfstep_ptiled,
+                                    two_pass_halfstep)))
+    out = {r: {"x": [], "ap": []} for r in routes}
+    for _, u in sorted(taps.items()):
+        x64, ap64 = half(u.to(f64))
+        for route, fn in routes.items():
+            x, ap = fn(fa_rows, fb_cols, mask, u, sw, pw, eps)
+            for what, got, want in (("x", x, x64), ("ap", ap[:p], ap64[:p])):
+                live = want != 0
+                rel = ((got.to(f64)[live] - want[live]) / want[live]).abs()
+                out[route][what].append(float(rel.median()))
+        del x64, ap64
+    return out
+
+
+def gate_frame(torch, dev, seed: int) -> dict:
+    """one_step_errors on seed's frame: its float64 loop (halfstep64 in
+    stream_precision.sinkhorn_loop) tapped at the ONE_STEP half-steps."""
+    from nle_tpu_torch.tools.stream_precision import (
+        ARGS,
+        frame_operands,
+        halfstep64,
+        sinkhorn_loop,
+        tapped,
+    )
+
+    op = frame_operands(torch, dev, seed)
+    half = halfstep64(torch, op.fa64, op.fb64, op.mask64, op.sw, op.pw, 1e-10)
+    taps = {}
+    sinkhorn_loop(torch, tapped(half, taps), lambda: half(None)[1], op.Um64,
+                  op.lam64, op.Uinv64, op.q, op.fa_rows.shape[1], ARGS[4])
+    del half
+    return one_step_errors(torch, op.fa_rows, op.fb_cols, op.mask, taps,
+                           op.p, op.sw, op.pw, 1e-10)
+
+
+def halfstep_gate(frames: dict) -> dict:
+    """K8's gate on {seed: one_step_errors}: on every frame the median over
+    the tapped half-steps of K8's relative error to float64 is at or below
+    the two-pass K9's, for x and for ap. Prints each frame's readings;
+    raises on a frame that fails. Returns the readings."""
+    k8, k9 = GATE_ROUTES
+    failed = []
+    rows = {}
+    for seed, errs in frames.items():
+        row = rows[f"seed {seed}"] = {}
+        for what in ("x", "ap"):
+            a = float(np.median(errs[k8][what]))
+            b = float(np.median(errs[k9][what]))
+            row[what] = {"k8": a, "k9": b,
+                         "k8_by_step": errs[k8][what],
+                         "k9_by_step": errs[k9][what]}
+            print(f"  K8 gate, seed {seed}, {what}: one build {a:.4e}, two "
+                  f"passes {b:.4e} (median over half-steps of the median "
+                  f"relative error; by step "
+                  f"{', '.join(f'{v:.3e}' for v in errs[k8][what])} / "
+                  f"{', '.join(f'{v:.3e}' for v in errs[k9][what])})")
+            if not a <= b:
+                failed.append(f"seed {seed} {what}: {a:.4e} > {b:.4e}")
+    if failed:
+        raise AssertionError("[9c] K8's one half-step is further from "
+                             "float64 than the two-pass K9's: "
+                             + "; ".join(failed))
+    return rows
+
+
 # Host-side stages of one train_and_enhance call (utils.logging.stage
 # names, each a torch.profiler range).
 STAGES = ("BGR to Lab", "Computing kernel", "Nystrom approximation + Sinkhorn",
@@ -761,15 +870,16 @@ def recompose(lab, edit_packed, perm):
     return lab_to_bgr_u8_np(out)
 
 
-# Mangled-name pieces of the kernels whose entry loop chip_smoke counts:
-# K8's one-build kernel in each of its instantiations (cols, rows; the
-# csrc's HS_TILES), K10 (R = 1), K11 (R = 1) and the two-pass K9's first
-# pass (K11's kernel with the reciprocal; its second pass is K10's); and
-# the affinity core (K1, K2's contract, K12's phi step) in its three
-# column-panel widths (8 x TN outputs a thread, TN = 12, 8, 4), whose main
-# loop builds AFF_BUILD entries a thread a step, one MUFU.EX2 each.
-SASS_KEYS = ("stream_halfstep_kernelILi4ELi8E",
-             "stream_halfstep_kernelILi4ELi4E",
+# Mangled-name pieces of the kernels whose entry loop chip_smoke counts
+# (each must be found, or [2] fails): K8's one-build kernel in each of its
+# instantiations (cols, rows; the csrc's HS_TILES), K10 (R = 1: a step of
+# 4 rows x 5 columns a thread, AP_TILES), K11 (R = 1: 16 samples x 4 rows
+# a thread, AT_TILES) and the two-pass K9's first pass (K11's kernel with
+# the reciprocal; its second pass is K10's); and the affinity core (K1,
+# K2's contract, K12's phi step) in its three column-panel widths (8 x TN
+# outputs a thread, TN = 12, 8, 4), whose main loop builds AFF_BUILD
+# entries a thread a step, one MUFU.EX2 each.
+SASS_KEYS = ("stream_halfstep_kernelILi4ELi4E",
              "stream_halfstep_kernelILi8ELi4E",
              "stream_halfstep_kernelILi8ELi2E", "stream_ap_kernelILi1E",
              "stream_atb_kernelILi1ELb0E", "stream_atb_kernelILi1ELb1E")
@@ -972,6 +1082,16 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
         raise AssertionError(f"{tag}: {built} one-build launches for "
                              f"{2 * iters} half-steps, {reduced} reductions, "
                              f"{two_pass} two-pass")
+    # K10's kernel runs twice a call, the s0 pass (counted as K8's launch
+    # up to Ppad 1792) and the apply's projection; K11's once, the apply.
+    profiled = {"streaming_ap": sum(n for _, n, k in kernels
+                                    if "stream_ap_kernel" in k),
+                "streaming_atb": sum(n for _, n, k in kernels
+                                     if "stream_atb_kernel<1, false>" in k)}
+    print(f"  K10's kernel x{profiled['streaming_ap']}, K11's "
+          f"x{profiled['streaming_atb']} in the profiled call")
+    if profiled != {"streaming_ap": 2, "streaming_atb": 1}:
+        raise AssertionError(f"{tag}: K10/K11 kernel launches {profiled}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     L = bgr_to_lab_u8_np(big)[..., 0].astype(np.float32)
@@ -980,7 +1100,7 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
     del L
     errs, timing = hold_streaming(torch, op, 1e-10, f"{mp:.0f} MP")
     timing.update(p=op.p, mb=op.mb, mpad=op.mpad, sw=op.sw, pw=op.pw,
-                  phi_chunks=phi_chunks)
+                  phi_chunks=phi_chunks, profiled=profiled)
     del op
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1782,6 +1902,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
     sass = sass_per_entry(_build.library_path())
+    missing = [k for k in SASS_KEYS + CORE_KEYS if k not in sass]
+    if missing:
+        raise AssertionError(f"[2] no entry loop found for {missing} (no "
+                             "cuobjdump, or a needle matches no kernel)")
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60,
@@ -1823,8 +1947,6 @@ def main() -> int:
             if nexp != entries:
                 raise AssertionError(f"{key}: {nexp} MUFU.EX2 for {entries} "
                                      "entries: not one build per entry")
-    if not sass:
-        print("  sass: not measured (no cuobjdump)")
 
     # -- [3] each kernel against its plain version at main-path shapes ----
     h, w = MAIN_SHAPE
@@ -2122,6 +2244,32 @@ def main() -> int:
           f"{k8['ms_32mp']:.3f} ms, plain {k8['plain_ms_32mp']:.3f} ms, "
           f"bound {k8['bound_ms_32mp']:.4f} ms ({k8['bound_by_32mp']}), "
           f"entry-loop issue {k8.get('issue_ms_32mp', float('nan')):.3f} ms")
+    # K10 and K11 at 32 MP, the apply's two kernels (K10's also the s0
+    # pass): launches are the profiled call's.
+    X7, b7 = t["X"], t["b"]
+    for name, fn, plain in (
+            ("streaming_ap",
+             lambda: streaming_ap(fa_rows, fb_cols, X7, sw7, pw7),
+             lambda: streaming_ap_plain(fa_rows, fb_cols, X7, sw7, pw7)),
+            ("streaming_atb",
+             lambda: streaming_atb(fa_rows, fb_cols, b7, sw7, pw7),
+             lambda: streaming_atb_plain(fa_rows, fb_cols, b7, sw7, pw7))):
+        row = next(r for r in rows if r["name"] == name)
+        row["ms_32mp"] = cuda_ms(torch, fn, reps=10)
+        row["plain_ms_32mp"] = cuda_ms(torch, plain, reps=1)
+        row["bound_ms_32mp"], row["bound_by_32mp"] = bound_ms(
+            4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries)
+        row["launches_profiled_32mp"] = t["profiled"][name]
+        key = ("stream_ap_kernelILi1E" if name == "streaming_ap"
+               else "stream_atb_kernelILi1ELb0E")
+        row["issue_ms_32mp"] = (entries * sass[key][0] / sass[key][1]
+                                / issue_rate * 1e3)
+        print(f"[7] {name} at 32 MP: kernel {row['ms_32mp']:.3f} ms, plain "
+              f"{row['plain_ms_32mp']:.3f} ms, bound "
+              f"{row['bound_ms_32mp']:.4f} ms ({row['bound_by_32mp']}), "
+              f"entry-loop issue {row['issue_ms_32mp']:.3f} ms, launches of "
+              f"its kernel in the profiled call "
+              f"{row['launches_profiled_32mp']}")
     # K12 at 32 MP, once a train.
     k12 = next(r for r in rows if r["name"] == "streaming_gram")
     c_row, uinv_pad, mb7, mpad7 = t["c_row"], t["uinv_pad"], t["mb"], t["mpad"]
@@ -2137,7 +2285,7 @@ def main() -> int:
           f"{k12['bound_ms_32mp']:.4f} ms ({k12['bound_by_32mp']})")
     k12_expf(k12, "_32mp", t["phi_chunks"], ex2_build, mpad7,
              "[7] the profiled 32 MP call")
-    del t, fa_rows, fb_cols, mask, u, c_row, uinv_pad
+    del t, fa_rows, fb_cols, mask, u, c_row, uinv_pad, X7, b7
     torch.cuda.empty_cache()
     stream_counts = cross_paths(torch, NLEFilter, _build, img, warm)
     near_threshold(torch, NLEFilter, _build)
@@ -2175,6 +2323,7 @@ def main() -> int:
            4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries,
            sass_key="stream_ap_kernelILi1E", entries=entries,
            launch=(grid_launch, "streaming_ap"))
+    rows[-1]["launches_profiled"] = t["profiled"]["streaming_ap"]
     record(f"streaming_atb@ppad{ppad}", "nle_tpu_torch/csrc/streaming.cu",
            "nle_tpu/ops/pallas/streaming_kernel.py:369",
            grid_errs["streaming_atb"],
@@ -2184,6 +2333,7 @@ def main() -> int:
            4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries,
            sass_key="stream_atb_kernelILi1ELb0E", entries=entries,
            launch=(grid_launch, "streaming_atb"))
+    rows[-1]["launches_profiled"] = t["profiled"]["streaming_atb"]
     c_row, uinv_pad, mbg, mpg = t["c_row"], t["uinv_pad"], t["mb"], t["mpad"]
     record(f"streaming_gram@ppad{ppad}", "nle_tpu_torch/csrc/streaming.cu",
            "nle_tpu/ops/pallas/streaming_kernel.py:453",
@@ -2286,8 +2436,9 @@ def main() -> int:
                     ("dense f32", False, "off")))
     gs_counts, gd_counts = c9["streaming"], c9["dense"]
     t0 = time.perf_counter()
+    taps9 = {}
     edit64, c64 = streaming_edit_f64(torch, Lg, grid, GRID_ARGS, WEIGHTS,
-                                     dev)
+                                     dev, taps=taps9)
     outs["float64 twin"] = recompose(lab, edit64, grid.perm)
     print(f"  the streaming route's float64 plain twin: "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2303,8 +2454,33 @@ def main() -> int:
     if not loop_c <= LOOP_C_TOL:
         raise AssertionError(f"[9c] loop c median {loop_c:.3e} > "
                              f"{LOOP_C_TOL}")
-    del edit64, c64, c9k, rel, op, lab, Lg, grid
+    # A reading, ungated: the same kernels in nle_tpu's loop, every
+    # p-row projection in fp32 (a chaotic function of every rounding).
+    from nle_tpu_torch.tools.stream_precision import sinkhorn_loop
+    fa9, fb9, mask9 = pad_stream_operands(op.fa, op.fb)
+    _, c32 = sinkhorn_loop(
+        torch, lambda u: streaming_halfstep(fa9, fb9, mask9, u, op.sw, op.pw,
+                                            1e-10),
+        lambda: streaming_ap(fa9, fb9, mask9, op.sw, op.pw)[0], op.Um,
+        op.lam, op.Uinv, op.n - op.p, fa9.shape[1], GRID_ARGS[4])
+    c32_rel = float(((c32[op.p:].double() - c64[op.p:]) / c64[op.p:]).abs()
+                    .median())
+    print(f"  nle_tpu's fp32 loop around the same kernels: c median "
+          f"{c32_rel:.3e} from the twin's (a reading, ungated)")
+    # K8's gate: one half-step on the float64 loop's u, against float64,
+    # no further than the two-pass K9's at the same Ppad, on every frame.
+    t0 = time.perf_counter()
+    frames = {GATE_SEEDS[0]: one_step_errors(torch, fa9, fb9, mask9, taps9,
+                                             op.p, op.sw, op.pw, 1e-10)}
+    del edit64, c64, c9k, c32, rel, op, lab, Lg, grid, fa9, fb9, mask9, taps9
     torch.cuda.empty_cache()
+    for seed in GATE_SEEDS[1:]:
+        frames[seed] = gate_frame(torch, dev, seed)
+        torch.cuda.empty_cache()
+    k8 = next(r for r in rows if r["name"] == "streaming_halfstep")
+    k8["one_step_gate_9c"] = halfstep_gate(frames)
+    k8["fp32_loop_c_9c"] = c32_rel
+    print(f"  K8 gate on seeds {GATE_SEEDS}: {time.perf_counter() - t0:.1f} s")
     for a, b, what in (
             ("streaming", "dense f32", "the two f32 routes"),
             ("dense", "dense f32", "the int16 carrier, K3 vs K4"),

@@ -64,6 +64,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                : "memory");
 }
 
+// 4 bytes from global to shared with cp.async (through L1): scatters a
+// row layout into an interleaved one, which 16-byte copies cannot.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -21,11 +21,15 @@
 // Bound on the H100: K8, K10 and K11 do O(1) work per affinity entry — the
 // IEEE expf and a dozen rounded adds and multiplies — against 16 B of
 // features per pixel, so they are bound by instruction issue on the CUDA
-// cores, not by bytes. Each keeps its sample-side operands on chip (the
-// thread's own sample columns in registers, or the sample rows in shared
-// memory), reads each pixel's features once per pass, and builds every
-// entry exactly once per pass. K12 is fp32 FMA work (the phi build,
-// 2 q p mpad, plus the gram, q mpad^2), compute-bound like K1 and K6.
+// cores, not by bytes. Each keeps its sample-side operands on chip (K8
+// and K10: the thread's own consecutive sample columns in registers and
+// the pixel rows staged in shared memory a few 32-row chunks ahead; K11:
+// its own pixel rows in registers and the samples staged interleaved in
+// shared memory), so the entry loops hold no device load and every shared
+// load is a broadcast that feeds several entries. Each reads each pixel's
+// features once per pass (per p-tile) and builds every entry exactly once
+// per pass. K12 is fp32 FMA work (the phi build, 2 q p mpad, plus the
+// gram, q mpad^2), compute-bound like K1 and K6.
 //
 // K8/K9: each entry is built once per half-step (one expf). A block
 // keeps all ppad sample columns in its threads' registers (4 or 8 a
@@ -76,12 +80,6 @@ extern "C" int nle_affinity_matmul(const float* fb, const float* fa,
 
 namespace {
 
-constexpr int ST_THREADS = 256;
-constexpr int ST_MAXC = 7;                          // sample columns per thread
-constexpr int ST_MAX_PPAD = ST_THREADS * ST_MAXC;   // 1792: K10's p-tile
-// K9-pass-1/K11 samples staged in shared memory at a time: (3 + R) * 2048
-// floats is 48 KB at R = 3.
-constexpr int ST_ATB_CHUNK = 2048;
 // Blocks of K8/K10: at most 8 per SM of a 132-SM card, each walking a
 // contiguous range of whole 32-row groups. A function of qpad alone, so the
 // partial sums (and their order) do not depend on the card.
@@ -100,92 +98,158 @@ inline int ap_blocks(int qpad) {
   return (qpad + per - 1) / per;
 }
 
-// The thread's sample columns j = j0 + tid + c * blockDim.x, c < ST_MAXC,
-// with their features in registers (zero from jend on; those columns are
-// never read back).
-struct SampleCols {
-  float r[ST_MAXC], c[ST_MAXC], y[ST_MAXC];
-  __device__ __forceinline__ void load(const float* fa, int ppad, int j0,
-                                       int jend) {
+// G consecutive floats of a staged row array, as one shared load (the
+// step's first row is a multiple of G).
+template <int G>
+__device__ __forceinline__ void load_rows(const float* src, float (&v)[G]) {
+  if constexpr (G == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (G == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    v[0] = t.x; v[1] = t.y;
+  } else {
 #pragma unroll
-    for (int k = 0; k < ST_MAXC; ++k) {
-      const int j = j0 + threadIdx.x + k * blockDim.x;
-      const bool in = j < jend;
-      r[k] = in ? fa[j] : 0.0f;
-      c[k] = in ? fa[ppad + j] : 0.0f;
-      y[k] = in ? fa[2 * ppad + j] : 0.0f;
-    }
+    for (int g = 0; g < G; ++g) v[g] = src[g];
   }
-};
+}
 
 // K10, K8's unit_x pass (R = 1, x = mask) and K9's pass 2 (R = 1):
 // ap[k, j] = sum_i x[k, i] K[i, j] over this block's rows, into
-// partial[blockIdx.x, k, j]. Block (x, y) owns a row range and the p-tile
-// of ptile samples from y * ptile (one tile, the whole ppad, up to 1792).
-// Each thread owns its sample columns and walks the rows in increasing
-// order; a row whose x entries are all zero (the pad rows) adds exact zeros
-// and is skipped. The sum is two-level, each 32-row group's fp32 chain
-// added to the block's with compensation (kahan_add): a block owns ~4,000
-// rows at 4 MP and ~30,000 at 32 MP, and the streaming route divides ap's
-// rounding by eigenvalues down to 1e-10 (PERF.md). A column's sum
-// does not depend on the tiling of the samples.
+// partial[blockIdx.x, k, j]. Block (x, y) owns the row range of
+// rows_per_block(qpad) from x * per_block and the p-tile of ptile samples
+// from y * ptile (streaming_kernel.ap_plan: one tile up to C x most
+// threads). Thread t owns the C consecutive columns j0 + t C + c, with
+// their features in registers (zero past the tile: those columns are built
+// and never written, so no entry pays a bounds test). Warp 0 stages the
+// pixel rows' (r, c, y, x_0 .. x_{R-1}) into a ring of AP_RING 32-row
+// chunks in shared memory with cp.async, two chunks ahead (one barrier a
+// chunk); every warp reads G rows of each array as one broadcast load, so
+// a row's loads are shared by its C entries a thread and no device load
+// sits in the entry loop. Each column sums its rows in increasing order,
+// two-level: a 32-row chunk as one fp32 fmaf chain, each chain added into
+// the block's sum with compensation (kahan_add): a block owns ~4,000 rows
+// at 4 MP and ~30,000 at 32 MP, and the streaming route divides ap's
+// rounding by eigenvalues down to 1e-10 (PERF.md). Rows whose x entries
+// are zero (the pad rows) add exact zeros (fmaf(0, a, s) is s: a is finite
+// and a chain never holds -0), so the sums are bitwise those of a loop that
+// skips them, and a column's sum depends on neither the tiling of the
+// samples nor the plan's C and G.
+constexpr int AP_RING = 3;
+
+// The instantiations K10's kernel has, one per R: (R, C columns a thread,
+// G rows a step, most threads a block), streaming_kernel.AP_TILES. The
+// launch bound caps the registers: 64 at R = 1 (eight 128-thread blocks
+// an SM at Ppad 640, 32 warps), 128 at R = 2, 3.
+#define AP_TILES(X) X(1, 5, 4, 1024) X(2, 4, 4, 512) X(3, 4, 2, 512)
+
 template <int R>
-__global__ void __launch_bounds__(ST_THREADS)
+struct ApTile;
+#define AP_TILE_BOUND(RR, CC, GG, MT)     \
+  template <>                             \
+  struct ApTile<RR> {                     \
+    static constexpr int kCols = CC;      \
+    static constexpr int kRows = GG;      \
+    static constexpr int kMaxThreads = MT; \
+  };
+AP_TILES(AP_TILE_BOUND)
+#undef AP_TILE_BOUND
+
+template <int R>
+__global__ void __launch_bounds__(ApTile<R>::kMaxThreads)
     stream_ap_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
                      const float* __restrict__ X, float* __restrict__ partial,
                      int qpad, int ppad, int ptile, int per_block, float sw,
                      float pw) {
+  constexpr int C = ApTile<R>::kCols;
+  constexpr int G = ApTile<R>::kRows;
+  constexpr int kArrays = 3 + R;                    // r, c, y, x_0 ..
+  constexpr int kChunk = kArrays * ST_ROW_GRAIN;    // floats a chunk
+  extern __shared__ float4 ap_smem4[];
+  float* ring = reinterpret_cast<float*>(ap_smem4);  // [AP_RING][kArrays][32]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int j0 = blockIdx.y * ptile;
-  // Columns of this tile: the thread's column c is live while
-  // tid + c * blockDim.x < ntile, the same test as with one tile.
-  const int ntile = min(ptile, ppad - j0);
-  SampleCols s;
-  s.load(fa, ppad, j0, j0 + ntile);
-  float acc[R][ST_MAXC], comp[R][ST_MAXC];
+  const int jend = min(j0 + ptile, ppad);
+  float sr[C], sc[C], sy[C];
+  float acc[R][C], comp[R][C];
 #pragma unroll
-  for (int k = 0; k < R; ++k)
+  for (int c = 0; c < C; ++c) {
+    const int j = j0 + tid * C + c;
+    const bool in = j < jend;
+    sr[c] = in ? fa[j] : 0.0f;
+    sc[c] = in ? fa[ppad + j] : 0.0f;
+    sy[c] = in ? fa[2 * ppad + j] : 0.0f;
 #pragma unroll
-    for (int c = 0; c < ST_MAXC; ++c) acc[k][c] = comp[k][c] = 0.0f;
+    for (int k = 0; k < R; ++k) acc[k][c] = comp[k][c] = 0.0f;
+  }
   const int rbeg = blockIdx.x * per_block;
-  const int rend = min(rbeg + per_block, qpad);
-  for (int g = rbeg; g < rend; g += ST_ROW_GRAIN) {
-    float part[R][ST_MAXC];
+  // Whole chunks: qpad and per_block are multiples of ST_ROW_GRAIN.
+  const int nchunks = (min(rbeg + per_block, qpad) - rbeg) / ST_ROW_GRAIN;
+  // Chunk k into its ring slot: lane l copies 16-byte pieces of the
+  // chunk's kArrays row arrays (8 a row array).
+  auto stage = [&](int k) {
+    float* dst = ring + (k % AP_RING) * kChunk;
+    const size_t r0 = static_cast<size_t>(rbeg) + k * ST_ROW_GRAIN;
+    for (int e = lane; e < kArrays * 8; e += 32) {
+      const int a = e >> 3;
+      const int off = (e & 7) * 4;
+      const float* src = a < 3 ? fb + static_cast<size_t>(a) * qpad
+                               : X + static_cast<size_t>(a - 3) * qpad;
+      nle::cp_async16(dst + a * ST_ROW_GRAIN + off, src + r0 + off);
+    }
+  };
+  if (tid < 32) {
 #pragma unroll
-    for (int k = 0; k < R; ++k)
+    for (int k = 0; k < AP_RING - 1; ++k) {
+      if (k < nchunks) stage(k);
+      nle::cp_async_commit();
+    }
+  }
+  for (int k = 0; k < nchunks; ++k) {
+    if (tid < 32) nle::cp_async_wait<AP_RING - 2>();
+    __syncthreads();   // chunk k landed; every warp is done with chunk k - 1
+    if (tid < 32) {    // into chunk k - 1's slot
+      if (k + AP_RING - 1 < nchunks) stage(k + AP_RING - 1);
+      nle::cp_async_commit();
+    }
+    const float* rows = ring + (k % AP_RING) * kChunk;
+    float part[R][C];
 #pragma unroll
-      for (int c = 0; c < ST_MAXC; ++c) part[k][c] = 0.0f;
-    for (int i = g; i < g + ST_ROW_GRAIN; ++i) {
-      float xv[R];
-      bool live = false;
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int k = 0; k < R; ++k) {
-        xv[k] = X[static_cast<size_t>(k) * qpad + i];
-        live |= xv[k] != 0.0f;
-      }
-      if (!live) continue;  // block-uniform
-      const float br = fb[i], bc = fb[qpad + i], by = fb[2 * qpad + i];
+      for (int c = 0; c < C; ++c) part[r][c] = 0.0f;
+#pragma unroll 1
+    for (int i = 0; i < ST_ROW_GRAIN; i += G) {
+      float br[G], bc[G], by[G], xv[R][G];
+      load_rows<G>(rows + i, br);
+      load_rows<G>(rows + ST_ROW_GRAIN + i, bc);
+      load_rows<G>(rows + 2 * ST_ROW_GRAIN + i, by);
 #pragma unroll
-      for (int c = 0; c < ST_MAXC; ++c) {
-        if (threadIdx.x + c * blockDim.x < ntile) {
+      for (int r = 0; r < R; ++r) load_rows<G>(rows + (3 + r) * ST_ROW_GRAIN + i, xv[r]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
           const float a =
-              nle::affinity(br, bc, by, s.r[c], s.c[c], s.y[c], sw, pw);
+              nle::affinity(br[g], bc[g], by[g], sr[c], sc[c], sy[c], sw, pw);
 #pragma unroll
-          for (int k = 0; k < R; ++k) part[k][c] = fmaf(xv[k], a, part[k][c]);
+          for (int r = 0; r < R; ++r) part[r][c] = fmaf(xv[r][g], a, part[r][c]);
         }
       }
     }
 #pragma unroll
-    for (int k = 0; k < R; ++k)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < ST_MAXC; ++c) nle::kahan_add(acc[k][c], comp[k][c], part[k][c]);
+      for (int c = 0; c < C; ++c) nle::kahan_add(acc[r][c], comp[r][c], part[r][c]);
   }
-  float* dst = partial + static_cast<size_t>(blockIdx.x) * R * ppad + j0;
+  float* dst = partial + static_cast<size_t>(blockIdx.x) * R * ppad;
 #pragma unroll
-  for (int c = 0; c < ST_MAXC; ++c) {
-    const int j = threadIdx.x + c * blockDim.x;
-    if (j < ntile) {
+  for (int c = 0; c < C; ++c) {
+    const int j = j0 + tid * C + c;
+    if (j < jend) {
 #pragma unroll
-      for (int k = 0; k < R; ++k) dst[k * ppad + j] = __fsub_rn(acc[k][c], comp[k][c]);
+      for (int r = 0; r < R; ++r) dst[r * ppad + j] = __fsub_rn(acc[r][c], comp[r][c]);
     }
   }
 }
@@ -468,76 +532,161 @@ __global__ void __launch_bounds__(HsTile<C, G>::kMaxThreads)
 }
 
 // K11, and K9's pass 1 (kRecip, R = 1, b = u): out[k, i] = sum_j K[i, j]
-// b[k, j]. One thread per pixel row, the sample features and the b rows
-// staged in shared memory pchunk samples at a time (read as broadcasts).
-// Each row sums its samples in increasing j, two-level: a group of
-// ST_ROW_GRAIN samples as one fp32 chain, each group's sum added to the
+// b[k, j]. Thread t of a block owns G pixel rows of each step of AT_THREADS
+// x G rows (rows step * span + g * AT_THREADS + t), their features in
+// registers (zero past qpad: those rows are built and never written).
+// The samples go to shared memory interleaved, one float4 (r, c, y, b_0)
+// per sample and a float2 (b_1, b_2) for R > 1, so one broadcast load
+// feeds G entries. They are staged pchunk samples at a time
+// (streaming_kernel.atb_plan: all of ppad at once up to ST_ATB_CHUNK) by
+// 4-byte cp.async copies from every thread, which scatter the feature
+// rows into the interleaved layout; past one chunk a double-buffered ring
+// copies the next chunk while the block builds this one (one barrier a
+// chunk). Blocks stride over the steps. Each row sums its samples in
+// increasing j, two-level: a group of ST_ROW_GRAIN samples (at multiples
+// of 32 from sample 0) as one fp32 chain, each group's sum added to the
 // row's with compensation (kahan_add). On the streaming route u = Uinv t
 // carries 1/lambda up to 1e10 and w = K u cancels, so the rounding of a
 // 2176-term chain would reach x at full weight. The row's sums stay in
 // registers across chunks (pchunk does not change them) and a zero group
 // sum is a no-op (pad samples do not change them), so they depend on
-// neither pchunk nor ppad. kRecip ends with x = mask * safe_recip(w, eps).
-// Rows are independent: no cross-block pass. Blocks stride over 256-row
-// groups, restaging the chunks for each when there is more than one.
+// neither pchunk, nor ppad, nor the plan. kRecip ends with x = mask *
+// safe_recip(w, eps). Rows are independent: no cross-block pass.
+constexpr int AT_THREADS = 256;
+constexpr int AT_MIN_BLOCKS = 4;    // an SM's blocks the registers hold
+constexpr int ST_ATB_CHUNK = 1536;  // samples a chunk at most
+
+// The rows a thread owns, by R (streaming_kernel.AT_TILES): the launch
+// bound caps the registers at 64.
+#define AT_TILES(X) X(1, 4) X(2, 2) X(3, 2)
+
+template <int R>
+struct AtTile;
+#define AT_TILE_ROWS(RR, GG) \
+  template <>                \
+  struct AtTile<RR> {        \
+    static constexpr int kRows = GG; \
+  };
+AT_TILES(AT_TILE_ROWS)
+#undef AT_TILE_ROWS
+
 template <int R, bool kRecip>
-__global__ void __launch_bounds__(ST_THREADS)
+__global__ void __launch_bounds__(AT_THREADS, AT_MIN_BLOCKS)
     stream_atb_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
                       const float* __restrict__ b,
                       const float* __restrict__ mask, float* __restrict__ out,
                       int qpad, int ppad, int pchunk, float sw, float pw,
                       float eps) {
-  extern __shared__ float smem[];
-  float* fa_s = smem;                // (3, pchunk)
-  float* b_s = smem + 3 * pchunk;    // (R, pchunk)
-  const bool restage = pchunk < ppad;
-  for (int i0 = blockIdx.x * ST_THREADS; i0 < qpad;
-       i0 += gridDim.x * ST_THREADS) {
-    const int i = i0 + threadIdx.x;
-    const bool row = i < qpad;
-    const float br = row ? fb[i] : 0.0f;
-    const float bc = row ? fb[qpad + i] : 0.0f;
-    const float by = row ? fb[2 * qpad + i] : 0.0f;
-    float acc[R], comp[R];
+  constexpr int G = AtTile<R>::kRows;
+  constexpr int span = AT_THREADS * G;
+  extern __shared__ float4 atb_smem4[];
+  const int tid = threadIdx.x;
+  const int nchunks = (ppad + pchunk - 1) / pchunk;
+  const int nbuf = nchunks > 1 ? 2 : 1;
+  float4* s4 = atb_smem4;                                  // [nbuf][pchunk]
+  float2* s2 = reinterpret_cast<float2*>(s4 + nbuf * pchunk);
+  const int nsteps = (qpad + span - 1) / span;
+  const int bid = blockIdx.x;
+  const int nblocks = gridDim.x;
+  const int mine = bid < nsteps ? (nsteps - 1 - bid) / nblocks + 1 : 0;
+  const int total = mine * nchunks;   // (step, chunk) pairs, chunk fastest
+  if (total == 0) return;             // block-uniform
+  auto stage = [&](int ch, int buf) {
+    const int jb = ch * pchunk;
+    const int nj = min(pchunk, ppad - jb);
+    float* d4 = reinterpret_cast<float*>(s4 + buf * pchunk);
+    float* d2 = reinterpret_cast<float*>(s2 + buf * pchunk);
+    for (int e = tid; e < nj; e += AT_THREADS) {
+      const int j = jb + e;
+      nle::cp_async4(d4 + 4 * e, fa + j);
+      nle::cp_async4(d4 + 4 * e + 1, fa + ppad + j);
+      nle::cp_async4(d4 + 4 * e + 2, fa + 2 * ppad + j);
+      nle::cp_async4(d4 + 4 * e + 3, b + j);
 #pragma unroll
-    for (int k = 0; k < R; ++k) acc[k] = comp[k] = 0.0f;
-    for (int j0 = 0; j0 < ppad; j0 += pchunk) {
-      const int nj = min(pchunk, ppad - j0);
-      if (restage || i0 == blockIdx.x * ST_THREADS) {  // block-uniform
-        __syncthreads();  // the previous chunk's readers are done
-        for (int e = threadIdx.x; e < nj; e += ST_THREADS) {
-#pragma unroll
-          for (int d = 0; d < 3; ++d) fa_s[d * pchunk + e] = fa[d * ppad + j0 + e];
-#pragma unroll
-          for (int k = 0; k < R; ++k) b_s[k * pchunk + e] = b[k * ppad + j0 + e];
-        }
-        __syncthreads();
-      }
-      if (!row) continue;
-      for (int g = 0; g < nj; g += ST_ROW_GRAIN) {
-        const int gend = min(g + ST_ROW_GRAIN, nj);
-        float part[R];
-#pragma unroll
-        for (int k = 0; k < R; ++k) part[k] = 0.0f;
-        for (int j = g; j < gend; ++j) {
-          const float a = nle::affinity(br, bc, by, fa_s[j], fa_s[pchunk + j],
-                                        fa_s[2 * pchunk + j], sw, pw);
-#pragma unroll
-          for (int k = 0; k < R; ++k) part[k] = fmaf(a, b_s[k * pchunk + j], part[k]);
-        }
-#pragma unroll
-        for (int k = 0; k < R; ++k) nle::kahan_add(acc[k], comp[k], part[k]);
+      for (int k = 1; k < R; ++k) {
+        nle::cp_async4(d2 + 2 * e + k - 1, b + static_cast<size_t>(k) * ppad + j);
       }
     }
-    if (!row) continue;
-    if (kRecip) {
-      // Pad rows have real affinities: the mask kills them here.
-      const float w = __fsub_rn(acc[0], comp[0]);
-      out[i] = (fabsf(w) >= eps ? 1.0f / w : 0.0f) * mask[i];
-    } else {
+  };
+  stage(0, 0);
+  nle::cp_async_commit();
+  float br[G], bc[G], by[G], acc[R][G], comp[R][G];
+  int i0 = 0;
+  for (int s = 0; s < total; ++s) {
+    const int ch = s % nchunks;
+    const int buf = nchunks > 1 ? (s & 1) : 0;
+    if (nchunks > 1 || s == 0) {
+      nle::cp_async_wait<0>();
+      __syncthreads();   // this chunk landed; the other buffer is free
+      if (nchunks > 1 && s + 1 < total) {
+        stage((s + 1) % nchunks, (s + 1) & 1);
+        nle::cp_async_commit();
+      }
+    }
+    if (ch == 0) {
+      i0 = (bid + (s / nchunks) * nblocks) * span + tid;
 #pragma unroll
-      for (int k = 0; k < R; ++k) {
-        out[static_cast<size_t>(k) * qpad + i] = __fsub_rn(acc[k], comp[k]);
+      for (int g = 0; g < G; ++g) {
+        const int i = i0 + g * AT_THREADS;
+        const bool row = i < qpad;
+        br[g] = row ? fb[i] : 0.0f;
+        bc[g] = row ? fb[qpad + i] : 0.0f;
+        by[g] = row ? fb[2 * qpad + i] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < R; ++k) acc[k][g] = comp[k][g] = 0.0f;
+      }
+    }
+    const int nj = min(pchunk, ppad - ch * pchunk);
+    const float4* c4 = s4 + buf * pchunk;
+    const float2* c2 = s2 + buf * pchunk;
+    for (int g0 = 0; g0 < nj; g0 += ST_ROW_GRAIN) {
+      const int gend = min(g0 + ST_ROW_GRAIN, nj);
+      float part[R][G];
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+#pragma unroll
+        for (int g = 0; g < G; ++g) part[k][g] = 0.0f;
+      // ST_P_GRAIN samples a step: chunks and ppad are whole steps.
+      for (int j = g0; j < gend; j += ST_P_GRAIN) {
+#pragma unroll
+        for (int t = 0; t < ST_P_GRAIN; ++t) {
+          const float4 sv = c4[j + t];
+          float bv[R];
+          bv[0] = sv.w;
+          if constexpr (R > 1) {
+            const float2 b12 = c2[j + t];
+            bv[1] = b12.x;
+            if constexpr (R > 2) bv[2] = b12.y;
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float a = nle::affinity(br[g], bc[g], by[g], sv.x, sv.y,
+                                          sv.z, sw, pw);
+#pragma unroll
+            for (int k = 0; k < R; ++k) part[k][g] = fmaf(a, bv[k], part[k][g]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+#pragma unroll
+        for (int g = 0; g < G; ++g) nle::kahan_add(acc[k][g], comp[k][g], part[k][g]);
+    }
+    if (ch == nchunks - 1) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int i = i0 + g * AT_THREADS;
+        if (i >= qpad) continue;
+        if constexpr (kRecip) {
+          // Pad rows have real affinities: the mask kills them here.
+          const float w = __fsub_rn(acc[0][g], comp[0][g]);
+          out[i] = (fabsf(w) >= eps ? 1.0f / w : 0.0f) * mask[i];
+        } else {
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            out[static_cast<size_t>(k) * qpad + i] = __fsub_rn(acc[k][g], comp[k][g]);
+          }
+        }
       }
     }
   }
@@ -568,59 +717,73 @@ bool bad_stream_shape(int qpad, int ppad) {
          ppad % ST_P_GRAIN;
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // Even split of n into the fewest pieces of at most `most`, each a
-// multiple of 32 (the last may be shorter): n itself when n <= most and a
-// multiple of 32, as every Ppad of pad_stream_operands is up to 1792.
+// multiple of 32 (the last may be shorter).
 inline int even_piece(int n, int most) {
   const int pieces = (n + most - 1) / most;
   const int per = (n + pieces - 1) / pieces;
   return (per + 31) / 32 * 32;
 }
 
-// Threads of a K10 block for a p-tile of ptile samples: just enough warps
-// that each thread owns close to ST_MAXC sample columns, so the per-row
-// loads and checks are shared by as many entries as the registers allow.
-inline int ap_threads(int ptile) {
-  const int per = (ptile + ST_MAXC - 1) / ST_MAXC;
-  return (per + 31) / 32 * 32;
-}
-
+// K10's launch as streaming_kernel.ap_plan(qpad, ppad, R) gives it
+// (threads, cols, rows, ptile, tiles, blocks, per_block, shared bytes),
+// refused unless it is the instantiation's and covers every column once
+// with the fewest threads a tile and every row in rows_per_block(qpad)'s
+// ranges (the sum order); X and fb 16-byte aligned (cp.async).
 template <int R>
 cudaError_t launch_ap(const float* fb, const float* fa, const float* X,
-                      float* partial, float* ap, int qpad, int ppad, float sw,
-                      float pw, cudaStream_t st) {
-  const int nblocks = ap_blocks(qpad);
-  const int ptile = even_piece(ppad, ST_MAX_PPAD);
-  const dim3 grid(nblocks, (ppad + ptile - 1) / ptile);
-  stream_ap_kernel<R><<<grid, ap_threads(ptile), 0, st>>>(
-      fb, fa, X, partial, qpad, ppad, ptile, rows_per_block(qpad), sw, pw);
+                      float* partial, float* ap, int qpad, int ppad,
+                      int threads, int cols, int rows, int ptile, int tiles,
+                      int blocks, int per_block, int smem, float sw, float pw,
+                      cudaStream_t st) {
+  using T = ApTile<R>;
+  if (bad_stream_shape(qpad, ppad) || cols != T::kCols || rows != T::kRows ||
+      ptile < cols || ptile % cols || tiles != (ppad + ptile - 1) / ptile ||
+      threads != (ptile / cols + 31) / 32 * 32 || threads > T::kMaxThreads ||
+      per_block != rows_per_block(qpad) || blocks != ap_blocks(qpad) ||
+      smem != static_cast<int>(sizeof(float)) * AP_RING * (3 + R) *
+                  ST_ROW_GRAIN ||
+      !aligned16(fb) || !aligned16(X)) {
+    return cudaErrorInvalidValue;
+  }
+  stream_ap_kernel<R><<<dim3(blocks, tiles), threads, smem, st>>>(
+      fb, fa, X, partial, qpad, ppad, ptile, per_block, sw, pw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return nle::launch_reduce_partials(partial, ap, nblocks, R * ppad, st);
+  return nle::launch_reduce_partials(partial, ap, blocks, R * ppad, st);
 }
 
+// K11's launch as streaming_kernel.atb_plan(qpad, ppad, R) gives it
+// (threads, rows, blocks, pchunk, shared bytes), refused unless it is the
+// instantiation's with ppad in even ST_ATB_CHUNK pieces.
 template <int R, bool kRecip>
 cudaError_t launch_atb(const float* fb, const float* fa, const float* b,
                        const float* mask, float* out, int qpad, int ppad,
-                       float sw, float pw, float eps, cudaStream_t st) {
-  const int pchunk = even_piece(ppad, ST_ATB_CHUNK);
-  const int smem = static_cast<int>(sizeof(float)) * (3 + R) * pchunk;
+                       int threads, int rows, int blocks, int pchunk,
+                       int smem, float sw, float pw, float eps,
+                       cudaStream_t st) {
+  const int nbuf = pchunk < ppad ? 2 : 1;
+  if (bad_stream_shape(qpad, ppad) || threads != AT_THREADS ||
+      rows != AtTile<R>::kRows || blocks < 1 ||
+      pchunk != even_piece(ppad, ST_ATB_CHUNK) ||
+      smem != nbuf * pchunk *
+                  static_cast<int>(sizeof(float4) + (R > 1 ? sizeof(float2) : 0))) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       stream_atb_kernel<R, kRecip>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  int groups = (qpad + ST_THREADS - 1) / ST_THREADS;
-  groups = groups > ST_MAX_BLOCKS ? ST_MAX_BLOCKS : groups;
-  stream_atb_kernel<R, kRecip><<<groups, ST_THREADS, smem, st>>>(
+  stream_atb_kernel<R, kRecip><<<blocks, threads, smem, st>>>(
       fb, fa, b, mask, out, qpad, ppad, pchunk, sw, pw, eps);
   return cudaGetLastError();
 }
 
 }  // namespace
-
-// Rows of the (nblocks, R * ppad) partial scratch K10 and the two-pass K9
-// need for qpad rows.
-extern "C" int nle_stream_nblocks(int qpad) { return ap_blocks(qpad); }
 
 // K8 and K9 (one build of each entry; K8's unit_x pass is K10 with X =
 // mask). fb (3, qpad), fa (3, ppad), mask (qpad,), u (ppad,) -> x
@@ -659,59 +822,62 @@ extern "C" int nle_stream_halfstep_onebuild(
 
 // K9's two passes, for ppad past the one-build kernel's 4096 (the
 // wrapper's dispatch by shape): K8's contract without unit_x, at any
-// ppad; pass 1 writes x, pass 2 is K10 on it; partial is scratch of
-// nle_stream_nblocks(qpad) * ppad floats.
-extern "C" int nle_stream_halfstep_ptiled(const float* fb, const float* fa,
-                                          const float* mask, const float* u,
-                                          float* x, float* partial, float* ap,
-                                          int qpad, int ppad, float sw,
-                                          float pw, float eps, void* stream) {
-  if (bad_stream_shape(qpad, ppad)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// ppad; pass 1 (K11's kernel, atb_plan(qpad, ppad, 1)) writes x, pass 2
+// is K10's (ap_plan(qpad, ppad, 1)) on it; partial is scratch of the ap
+// plan's blocks * ppad floats.
+extern "C" int nle_stream_halfstep_ptiled(
+    const float* fb, const float* fa, const float* mask, const float* u,
+    float* x, float* partial, float* ap, int qpad, int ppad, int at_threads,
+    int at_rows, int at_blocks, int pchunk, int at_smem, int threads,
+    int cols, int rows, int ptile, int tiles, int blocks, int per_block,
+    int smem, float sw, float pw, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_atb<1, true>(fb, fa, u, mask, x, qpad, ppad, sw, pw,
-                                        eps, st);
+  cudaError_t err = launch_atb<1, true>(fb, fa, u, mask, x, qpad, ppad,
+                                        at_threads, at_rows, at_blocks,
+                                        pchunk, at_smem, sw, pw, eps, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_ap<1>(fb, fa, x, partial, ap, qpad, ppad, sw, pw, st));
+  return static_cast<int>(launch_ap<1>(fb, fa, x, partial, ap, qpad, ppad,
+                                       threads, cols, rows, ptile, tiles,
+                                       blocks, per_block, smem, sw, pw, st));
 }
 
 // K10. X (R, qpad) -> ap (R, ppad), 1 <= R <= 3 (one channel, or the three
-// of a colour frame); partial is scratch of
-// nle_stream_nblocks(qpad) * R * ppad floats.
+// of a colour frame), on ap_plan(qpad, ppad, R); partial is scratch of its
+// blocks * R * ppad floats.
 extern "C" int nle_stream_ap(const float* fb, const float* fa, const float* X,
                              float* partial, float* ap, int qpad, int ppad,
-                             int R, float sw, float pw, void* stream) {
-  if (bad_stream_shape(qpad, ppad)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                             int R, int threads, int cols, int rows,
+                             int ptile, int tiles, int blocks, int per_block,
+                             int smem, float sw, float pw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (R) {
-    case 1: err = launch_ap<1>(fb, fa, X, partial, ap, qpad, ppad, sw, pw, st); break;
-    case 2: err = launch_ap<2>(fb, fa, X, partial, ap, qpad, ppad, sw, pw, st); break;
-    case 3: err = launch_ap<3>(fb, fa, X, partial, ap, qpad, ppad, sw, pw, st); break;
-    default: err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define AP_LAUNCH(RR, CC, GG, MT)                                          \
+  if (R == RR) {                                                          \
+    err = launch_ap<RR>(fb, fa, X, partial, ap, qpad, ppad, threads, cols, \
+                        rows, ptile, tiles, blocks, per_block, smem, sw, pw, \
+                        st);                                              \
   }
+  AP_TILES(AP_LAUNCH)
+#undef AP_LAUNCH
   return static_cast<int>(err);
 }
 
-// K11. b (R, ppad) -> out (R, qpad), 1 <= R <= 3.
+// K11. b (R, ppad) -> out (R, qpad), 1 <= R <= 3, on atb_plan(qpad, ppad,
+// R).
 extern "C" int nle_stream_atb(const float* fb, const float* fa, const float* b,
-                              float* out, int qpad, int ppad, int R, float sw,
-                              float pw, void* stream) {
-  if (bad_stream_shape(qpad, ppad)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                              float* out, int qpad, int ppad, int R,
+                              int threads, int rows, int blocks, int pchunk,
+                              int smem, float sw, float pw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (R) {
-    case 1: err = launch_atb<1, false>(fb, fa, b, nullptr, out, qpad, ppad, sw, pw, 0.0f, st); break;
-    case 2: err = launch_atb<2, false>(fb, fa, b, nullptr, out, qpad, ppad, sw, pw, 0.0f, st); break;
-    case 3: err = launch_atb<3, false>(fb, fa, b, nullptr, out, qpad, ppad, sw, pw, 0.0f, st); break;
-    default: err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define AT_LAUNCH(RR, GG)                                                  \
+  if (R == RR) {                                                          \
+    err = launch_atb<RR, false>(fb, fa, b, nullptr, out, qpad, ppad,       \
+                                threads, rows, blocks, pchunk, smem, sw,  \
+                                pw, 0.0f, st);                            \
   }
+  AT_TILES(AT_LAUNCH)
+#undef AT_LAUNCH
   return static_cast<int>(err);
 }
 

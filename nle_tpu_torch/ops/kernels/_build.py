@@ -169,13 +169,13 @@ def _declare(lib) -> None:
         "nle_ab_2stream": [p, p, p, i, i, i, i, i, p],
         "nle_scaled_gram": [p, p, p, p, i, i, i, i, i, p],
         "nle_scaled_matmul": [p, p, p, p, i, i, i, p],
-        "nle_stream_nblocks": [i],
         "nle_stream_halfstep_onebuild": [p, p, p, p, p, p, p, i, i, i, i, i,
                                          i, i, i, f, f, f, p],
-        "nle_stream_halfstep_ptiled": [p, p, p, p, p, p, p, i, i, f, f, f,
-                                       p],
-        "nle_stream_ap": [p, p, p, p, p, i, i, i, f, f, p],
-        "nle_stream_atb": [p, p, p, p, i, i, i, f, f, p],
+        # qpad, ppad, atb_plan's 5 numbers, ap_plan's 8.
+        "nle_stream_halfstep_ptiled": [p, p, p, p, p, p, p] + [i] * 15
+                                      + [f, f, f, p],
+        "nle_stream_ap": [p, p, p, p, p] + [i] * 11 + [f, f, p],
+        "nle_stream_atb": [p, p, p, p] + [i] * 8 + [f, f, p],
         "nle_stream_gram": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                             i, i, i, f, f, p],
     }

@@ -116,21 +116,139 @@ def halfstep_plan(qpad: int, ppad: int) -> HalfstepPlan:
     """K8's kernel's plan for (Qpad, Ppad): a function of the shapes alone,
     so the block partials of ap, and the order they are summed in, do not
     depend on the card. Raises on shapes the kernel cannot take."""
-    if qpad < HS_ROW_GRAIN or qpad % HS_ROW_GRAIN:
-        raise ValueError(f"Qpad {qpad} must be a positive multiple of "
-                         f"{HS_ROW_GRAIN}")
-    if ppad < P_ALIGN or ppad % P_ALIGN or ppad > HS_MAX_PPAD:
+    _check_stream_shape(qpad, ppad, 1)
+    if ppad % P_ALIGN or ppad > HS_MAX_PPAD:
         raise ValueError(f"Ppad {ppad} must be a multiple of {P_ALIGN} up to "
                          f"{HS_MAX_PPAD} (past it: two passes)")
 
     cols, rows, _ = next(t for t in HS_TILES
                          if round_up(-(-ppad // t[0]), 32) <= t[2])
     threads = round_up(-(-ppad // cols), 32)
-    per_block = max(HS_ROW_GRAIN,
-                    round_up(-(-qpad // HS_MAX_BLOCKS), HS_ROW_GRAIN))
-    return HalfstepPlan(threads, cols, rows, -(-qpad // per_block), per_block,
+    blocks, per_block = _row_ranges(qpad)
+    return HalfstepPlan(threads, cols, rows, blocks, per_block,
                         16 * HS_RING * HS_ROW_GRAIN
                         + 4 * 2 * rows * (1 + threads // 32))
+
+
+def _row_ranges(qpad: int) -> tuple[int, int]:
+    """(blocks, rows a block) of the partials' rule (csrc rows_per_block):
+    contiguous ranges of whole HS_ROW_GRAIN-row chains, at most
+    HS_MAX_BLOCKS, from Qpad alone."""
+    per_block = max(HS_ROW_GRAIN,
+                    round_up(-(-qpad // HS_MAX_BLOCKS), HS_ROW_GRAIN))
+    return -(-qpad // per_block), per_block
+
+
+def _check_stream_shape(qpad: int, ppad: int, rows: int) -> None:
+    if qpad < HS_ROW_GRAIN or qpad % HS_ROW_GRAIN:
+        raise ValueError(f"Qpad {qpad} must be a positive multiple of "
+                         f"{HS_ROW_GRAIN}")
+    if ppad < ST_P_GRAIN or ppad % ST_P_GRAIN:
+        raise ValueError(f"Ppad {ppad} must be a positive multiple of "
+                         f"{ST_P_GRAIN}")
+    if not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"{rows} rows: K10/K11 take 1 to {MAX_ROWS}")
+
+
+# K10's kernel (csrc stream_ap_kernel): thread t of a block owns the `cols`
+# consecutive sample columns t * cols + c of its p-tile, features in
+# registers; warp 0 stages the pixel rows (r, c, y and the R rows of x)
+# into a ring of AP_RING 32-row chunks; the inner loop takes `rows` rows a
+# step. Its instantiations, one per R: (R, cols, rows, most threads a
+# block), the csrc's AP_TILES. At R = 1, five columns a thread make Ppad
+# 640 (the 1 MP and 32 MP paths) eight 128-thread blocks an SM under the
+# 64-register launch bound: 32 warps, all 1056 row ranges in one wave.
+AP_TILES = ((1, 5, 4, 1024), (2, 4, 4, 512), (3, 4, 2, 512))
+AP_RING = 3
+ST_P_GRAIN = 16              # the kernels' Ppad grain (csrc ST_P_GRAIN)
+
+
+class ApPlan(NamedTuple):
+    """The launch of K10's kernel: a (blocks, tiles) grid. Block (b, y)
+    owns the rows [b * per_block, min((b + 1) * per_block, Qpad)) and the
+    p-tile [y * ptile, min((y + 1) * ptile, Ppad)); its thread t the
+    columns y * ptile + t * cols + c, c < cols (those in the tile),
+    walked `rows` pixel rows a step. shared_bytes: the ring of AP_RING
+    32-row chunks of the 3 + R row arrays."""
+    threads: int
+    cols: int
+    rows: int
+    ptile: int
+    tiles: int
+    blocks: int
+    per_block: int
+    shared_bytes: int
+
+
+def ap_plan(qpad: int, ppad: int, R: int) -> ApPlan:
+    """K10's kernel's plan for (Qpad, Ppad) and R rows of x: a function of
+    the shapes alone. The row ranges are the partials' rule
+    (_row_ranges), so each column's sum order is a function of Qpad alone
+    and the output does not depend on the plan; the columns go in the
+    fewest p-tiles of at most cols x most threads. Raises on shapes the
+    kernel cannot take."""
+    _check_stream_shape(qpad, ppad, R)
+    _, cols, rows, most = AP_TILES[R - 1]
+    tiles = -(-ppad // (cols * most))
+    ptile = round_up(-(-ppad // tiles), cols)
+    blocks, per_block = _row_ranges(qpad)
+    return ApPlan(round_up(ptile // cols, 32), cols, rows, ptile,
+                  -(-ppad // ptile), blocks, per_block,
+                  4 * AP_RING * (3 + R) * HS_ROW_GRAIN)
+
+
+# K11's kernel (csrc stream_atb_kernel): AT_THREADS threads a block, each
+# owning `rows` pixel rows of a step of AT_THREADS x rows rows (features in
+# registers); the samples staged interleaved in shared memory, (r, c, y,
+# b_0) a float4 and (b_1, b_2) a float2 for R > 1, pchunk at a time (the
+# fewest even pieces of at most AT_CHUNK samples; two buffers when there
+# is more than one). rows by R, the csrc's AT_TILES; the launch bound (256
+# threads, AT_MIN_BLOCKS an SM) caps the registers at 64. Rows are
+# independent, so the grid does not change a bit: it is as many blocks as
+# AT_SMS SMs hold at once (at most AT_MIN_BLOCKS each, fewer where the
+# shared bytes do not fit), the steps strided over them.
+AT_TILES = ((1, 4), (2, 2), (3, 2))
+AT_THREADS = 256
+AT_MIN_BLOCKS = 4
+AT_CHUNK = 1536
+AT_SMS = 132
+AT_SM_SHARED = 233472        # shared bytes of an H100 SM
+AT_BLOCK_RESERVED = 1024     # of them, held back for each block
+
+
+class AtbPlan(NamedTuple):
+    """The launch of K11's kernel: `blocks` blocks of `threads` threads,
+    each thread `rows` pixel rows of a step; the samples in chunks of
+    pchunk; shared_bytes: one or two chunk buffers of 16 B a sample (24 B
+    for R > 1)."""
+    threads: int
+    rows: int
+    blocks: int
+    pchunk: int
+    shared_bytes: int
+
+
+def _even_piece(n: int, most: int) -> int:
+    """csrc even_piece: n in the fewest pieces of at most `most`, each a
+    multiple of 32 (the last may be shorter)."""
+    pieces = -(-n // most)
+    return round_up(-(-n // pieces), 32)
+
+
+def atb_plan(qpad: int, ppad: int, R: int) -> AtbPlan:
+    """K11's kernel's plan for (Qpad, Ppad) and R rows of b: a function of
+    the shapes alone (no row's sum depends on it). Raises on shapes the
+    kernel cannot take."""
+    _check_stream_shape(qpad, ppad, R)
+    rows = AT_TILES[R - 1][1]
+    pchunk = _even_piece(ppad, AT_CHUNK)
+    nbuf = 2 if pchunk < ppad else 1
+    shared = nbuf * pchunk * (16 + (8 if R > 1 else 0))
+    per_sm = min(AT_MIN_BLOCKS,
+                 AT_SM_SHARED // (shared + AT_BLOCK_RESERVED))
+    steps = -(-qpad // (AT_THREADS * rows))
+    return AtbPlan(AT_THREADS, rows, min(steps, AT_SMS * max(per_sm, 1)),
+                   pchunk, shared)
 
 
 # K12 (csrc/streaming.cu nle_stream_gram): each chunk's phi rows by the
@@ -223,8 +341,11 @@ def pad_stream_operands(fa: torch.Tensor, fb: torch.Tensor):
 # of ~2e-6 at 4,000 rows, 18x the interpreted Pallas kernel's). The ap twins
 # therefore take the fp32 entries and accumulate in float64 within and
 # across chunks, rounding once at the end: the class of the CUDA kernels'
-# compensated sums (nle::kahan_add). w = K u (at most Ppad terms) and the
-# gram (as close to float64 as the interpreted kernel's) stay fp32.
+# compensated sums (nle::kahan_add). K11's twin (out = K b, the two-pass
+# K9's w) sums its Ppad terms in float64 too: its kernel compensates each
+# row's sum, and on the streaming route b = u cancels. K8's one-sweep w
+# (at most Ppad terms) and the gram (as close to float64 as the
+# interpreted kernel's) stay fp32.
 _ACC = torch.float64
 
 def _affinity_rows(fa_rows, fb_cols, lo: int, hi: int, sw, pw):
@@ -278,11 +399,14 @@ def streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw):
 
 
 def streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw):
+    """out = K b with the fp32 entries summed in _ACC, rounded once: the
+    class of the kernel's compensated row sums, as the ap twins."""
     b_rows = b_rows[None] if b_rows.ndim == 1 else b_rows
     out = fb_cols.new_empty((b_rows.shape[0], fb_cols.shape[1]))
+    b_acc = b_rows.to(_ACC)
     for lo, hi in _chunks(fa_rows, fb_cols):
-        out[:, lo:hi] = b_rows @ _affinity_rows(fa_rows, fb_cols, lo, hi,
-                                                sw, pw).T
+        out[:, lo:hi] = b_acc @ _affinity_rows(fa_rows, fb_cols, lo, hi,
+                                               sw, pw).to(_ACC).T
     return out
 
 
@@ -312,34 +436,33 @@ def _check_rows(rows) -> None:
         raise ValueError(f"{rows.shape[0]} rows: K10/K11 take 1 to {MAX_ROWS}")
 
 
-def _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps, name):
-    """Launch the half-step on the card by halfstep_route: K8's kernel on
-    halfstep_plan, or K9's two passes past HS_MAX_PPAD."""
+def _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps, name,
+                     route):
+    """Launch the half-step on the card along route (halfstep_route's
+    names): K8's kernel on halfstep_plan, or K9's two passes."""
     lib = _build.load()
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
     dev = fb_cols.device
     x = torch.empty((qpad,), dtype=torch.float32, device=dev)
     ap = torch.empty((ppad,), dtype=torch.float32, device=dev)
-    one_build = halfstep_route(ppad) == "one_build"
-    if one_build:
-        plan = halfstep_plan(qpad, ppad)
+    if route == "one_build":
+        entry, plan = lib.nle_stream_halfstep_onebuild, halfstep_plan(qpad,
+                                                                      ppad)
         blocks = plan.blocks
     else:
-        blocks = lib.nle_stream_nblocks(qpad)
+        # Pass 1 on atb_plan, pass 2 on ap_plan (R = 1).
+        apl = ap_plan(qpad, ppad, 1)
+        entry, plan = lib.nle_stream_halfstep_ptiled, (
+            *atb_plan(qpad, ppad, 1), *apl)
+        blocks = apl.blocks
+        fb_cols = _aligned(fb_cols)
     partial = torch.empty((blocks, ppad), dtype=torch.float32, device=dev)
-    ptrs = (fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
-            u_pad.data_ptr(), x.data_ptr(), partial.data_ptr(), ap.data_ptr(),
-            qpad, ppad)
     with torch.cuda.device(dev):
-        if one_build:
-            status = lib.nle_stream_halfstep_onebuild(
-                *ptrs, plan.threads, plan.cols, plan.rows, plan.blocks,
-                plan.per_block, plan.shared_bytes, float(sw), float(pw),
-                float(eps), _build.stream_ptr(fb_cols))
-        else:
-            status = lib.nle_stream_halfstep_ptiled(
-                *ptrs, float(sw), float(pw), float(eps),
-                _build.stream_ptr(fb_cols))
+        status = entry(
+            fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
+            u_pad.data_ptr(), x.data_ptr(), partial.data_ptr(), ap.data_ptr(),
+            qpad, ppad, *plan, float(sw), float(pw), float(eps),
+            _build.stream_ptr(fb_cols))
     _build.check(status, name)
     _build.count_launch(name)
     return x, ap
@@ -366,21 +489,10 @@ def streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
                                         pw, eps, unit_x)
     if not unit_x:
         return _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
-                                "streaming_halfstep")
-    lib = _build.load()
-    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
-    dev = fb_cols.device
-    ap = torch.empty((1, ppad), dtype=torch.float32, device=dev)
-    partial = torch.empty((lib.nle_stream_nblocks(qpad), ppad),
-                          dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        status = lib.nle_stream_ap(
-            fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
-            partial.data_ptr(), ap.data_ptr(), qpad, ppad, 1, float(sw),
-            float(pw), _build.stream_ptr(fb_cols))
-    _build.check(status, "streaming_halfstep")
-    _build.count_launch("streaming_halfstep")
-    return mask[0], ap[0]
+                                "streaming_halfstep",
+                                halfstep_route(fa_rows.shape[1]))
+    return mask[0], _ap_kernel(fa_rows, fb_cols, mask, sw, pw,
+                               "streaming_halfstep")[0]
 
 
 def streaming_halfstep_ptiled(fa_rows, fb_cols, mask, u_pad, sw, pw, eps):
@@ -392,7 +504,22 @@ def streaming_halfstep_ptiled(fa_rows, fb_cols, mask, u_pad, sw, pw, eps):
         return streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad,
                                                sw, pw, eps)
     return _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
-                            "streaming_halfstep_ptiled")
+                            "streaming_halfstep_ptiled",
+                            halfstep_route(fa_rows.shape[1]))
+
+
+def two_pass_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps):
+    """K9's two passes on the card at any Ppad (the route halfstep_route
+    takes past HS_MAX_PPAD): K11's kernel with x = mask * safe_recip(w,
+    eps) as its epilogue, then K10's on x; counted as K9's launch. The
+    yardstick chip_smoke holds K8's one-build kernel to at the same
+    Ppad. On CPU tensors K9's plain version."""
+    _check_layout(fa_rows, fb_cols)
+    if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
+        return streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad,
+                                               sw, pw, eps)
+    return _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
+                            "streaming_halfstep_ptiled", "two_pass")
 
 
 def streaming_ap(fa_rows, fb_cols, x_rows, sw, pw):
@@ -402,20 +529,34 @@ def streaming_ap(fa_rows, fb_cols, x_rows, sw, pw):
     _check_rows(x_rows)
     if not cuda_or_cpu(fa_rows, fb_cols, x_rows, dtype=torch.float32):
         return streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw)
+    return _ap_kernel(fa_rows, fb_cols, x_rows, sw, pw, "streaming_ap")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it at a 16-byte aligned address: K10's kernel
+    stages fb's and x's rows with 16-byte cp.async copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ap_kernel(fa_rows, fb_cols, x_rows, sw, pw, name):
+    """K10's kernel on ap_plan: x (R, Qpad) -> ap (R, Ppad), counted under
+    name."""
     lib = _build.load()
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
     R = x_rows.shape[0]
+    plan = ap_plan(qpad, ppad, R)
     dev = fb_cols.device
+    fb_cols, x_rows = _aligned(fb_cols), _aligned(x_rows)
     ap = torch.empty((R, ppad), dtype=torch.float32, device=dev)
-    partial = torch.empty((lib.nle_stream_nblocks(qpad), R * ppad),
-                          dtype=torch.float32, device=dev)
+    partial = torch.empty((plan.blocks, R * ppad), dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         status = lib.nle_stream_ap(
             fb_cols.data_ptr(), fa_rows.data_ptr(), x_rows.data_ptr(),
-            partial.data_ptr(), ap.data_ptr(), qpad, ppad, R, float(sw),
-            float(pw), _build.stream_ptr(fb_cols))
-    _build.check(status, "streaming_ap")
-    _build.count_launch("streaming_ap")
+            partial.data_ptr(), ap.data_ptr(), qpad, ppad, R, *plan,
+            float(sw), float(pw), _build.stream_ptr(fb_cols))
+    _build.check(status, name)
+    _build.count_launch(name)
     return ap
 
 
@@ -431,11 +572,12 @@ def streaming_atb(fa_rows, fb_cols, b_rows, sw, pw):
     lib = _build.load()
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
     R = b_rows.shape[0]
+    plan = atb_plan(qpad, ppad, R)
     out = torch.empty((R, qpad), dtype=torch.float32, device=fb_cols.device)
     with torch.cuda.device(fb_cols.device):
         status = lib.nle_stream_atb(
             fb_cols.data_ptr(), fa_rows.data_ptr(), b_rows.data_ptr(),
-            out.data_ptr(), qpad, ppad, R, float(sw), float(pw),
+            out.data_ptr(), qpad, ppad, R, *plan, float(sw), float(pw),
             _build.stream_ptr(fb_cols))
     _build.check(status, "streaming_atb")
     _build.count_launch("streaming_atb")

@@ -10,9 +10,9 @@ cut at eigenvalues of 1e-10 (m = 1768 at seed 9), so the streaming route's
 s carries 1/lambda up to 1e10. The streaming Sinkhorn loop runs once per
 variant of its half-step and of its p-row projections (u = Uinv t, x_top
 = 1 / (Um t), s = Um^T x_top + Uinv^T ap), and each run's balancing
-vector c is held against the same loop in float64 on the plain PyTorch
-twins (c64); the dense f32 route's c (K1, then K4) is held too. Printed
-per variant: the median, 99th percentile and max over the rest pixels of
+vector c is held against the same loop in float64 (c64, on halfstep64:
+the plain twins' entries, each built once a half-step); the dense f32
+route's c (K1, then K4) is held too. Printed per variant: the median, 99th percentile and max over the rest pixels of
 |c - c64| / c64, the signed mean of (c - c64) / c64, and seconds.
 Variants:
 
@@ -132,6 +132,53 @@ def frame_operands(torch, dev, seed: int):
         fa64=fa_rows.to(f64), fb64=fb_cols.to(f64), mask64=mask.to(f64))
 
 
+def affinity64_rows(torch, fa_rows, fb_cols, lo: int, hi: int, sw, pw):
+    """(hi - lo, Ppad) float64 affinity of pixels lo..hi against every
+    sample: bitwise streaming_kernel._affinity_rows on float64 operands
+    whose features are integers, in fewer passes over the block. The
+    squared distances come exact from two small matmuls (products and sums
+    of integers below 2^53 are exact in any order); then the plain
+    version's roundings: sw and pw scale them, the two add, the exp
+    follows (negating is exact)."""
+    b, a = fb_cols[:, lo:hi], fa_rows
+    one_b, one_a = b.new_ones(b.shape[1]), a.new_ones(a.shape[1])
+    # (rb - ra)^2 + (cb - ca)^2 and (yb - ya)^2, expanded.
+    d2s = torch.stack([b[0], b[1], b[0] * b[0] + b[1] * b[1], one_b], 1) @ \
+        torch.stack([-2 * a[0], -2 * a[1], one_a, a[0] * a[0] + a[1] * a[1]])
+    dy2 = torch.stack([b[2], b[2] * b[2], one_b], 1) @ \
+        torch.stack([-2 * a[2], one_a, a[2] * a[2]])
+    return d2s.mul_(-sw).add_(dy2.mul_(-pw)).exp_()
+
+
+def halfstep64(torch, fa_rows, fb_cols, mask, sw, pw, eps):
+    """The streaming half-step in float64 on integer features (3, Ppad),
+    (3, Qpad) and mask (1, Qpad), one sweep of row chunks, each entry
+    built once (affinity64_rows): returns u (Ppad,) -> (x (Qpad,), ap
+    (Ppad,)), x = mask * safe_recip(K u, eps) and ap = K^T x; u None gives
+    the s0 pass (x = mask). A float64 twin of the kernels' half-step at a
+    fraction of the plain version's passes over device memory."""
+    from nle_tpu_torch.ops.linalg import safe_reciprocal
+
+    for f in (fa_rows, fb_cols):
+        if f.dtype != torch.float64 or not torch.equal(f, f.round()):
+            raise ValueError("halfstep64 takes integer float64 features")
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    step = 8192
+
+    def run(u):
+        x = mask[0].clone() if u is None else fb_cols.new_empty(qpad)
+        ap = fa_rows.new_zeros(ppad)
+        for lo in range(0, qpad, step):
+            hi = min(lo + step, qpad)
+            A = affinity64_rows(torch, fa_rows, fb_cols, lo, hi, sw, pw)
+            if u is not None:
+                x[lo:hi] = safe_reciprocal(A @ u, eps) * mask[0, lo:hi]
+            ap += x[lo:hi] @ A
+        return x, ap
+
+    return run
+
+
 def sinkhorn_loop(torch, halfstep, s0_ap, Um, lam, Uinv, q, ppad, iters,
                   eps=EPS):
     """nle_tpu's streaming Sinkhorn loop, every projection in the operands'
@@ -155,21 +202,35 @@ def sinkhorn_loop(torch, halfstep, s0_ap, Um, lam, Uinv, q, ppad, iters,
     return r_top, torch.cat([c_top, c_rest[:q]])
 
 
+def tapped(halfstep, taps: dict):
+    """halfstep, recording into taps its input u rounded to f32 at each
+    ONE_STEP half-step (1 is the first after the s0 pass): the inputs of
+    the one-half-step table."""
+    count = [0]
+
+    def half(u):
+        count[0] += 1
+        if count[0] in ONE_STEP:
+            taps[count[0]] = u.float().contiguous()
+        return halfstep(u)
+
+    return half
+
+
 def streaming_edit_f64(torch, L: np.ndarray, grid, args, weights, device,
-                       eps: float = EPS):
+                       eps: float = EPS, taps=None):
     """The float64 plain twin of train_filter(streaming=True)'s first
-    edit: the same streaming Sinkhorn loop, Sb gram, host chain and
-    V = [V_head; c K W] on the plain PyTorch twins, every step in float64
-    (stage 1 straight from the host eigensystem, no f32 packing): what the
-    streaming route computes with its fp32 rounding taken away. L (H, W)
-    float channel, args (rows, cols, hx, hy, iters, k). Returns (the packed
-    u8 edit, c (N,) float64)."""
+    edit: the same streaming Sinkhorn loop (on halfstep64), Sb gram, host
+    chain and V = [V_head; c K W] on the plain PyTorch twins, every step in
+    float64 (stage 1 straight from the host eigensystem, no f32 packing):
+    what the streaming route computes with its fp32 rounding taken away.
+    L (H, W) float channel of integer values, args (rows, cols, hx, hy,
+    iters, k); taps: as tapped's. Returns (the packed u8 edit, c (N,)
+    float64)."""
     from nle_tpu_torch.ops.affinity import bandwidth_weights
     from nle_tpu_torch.ops.kernels.streaming_kernel import (
         pad_stream_operands,
-        streaming_ap_plain,
         streaming_atb_plain,
-        streaming_halfstep_ptiled_plain,
         streaming_scaled_gram_plain,
     )
     from nle_tpu_torch.ops.pipeline import (
@@ -200,11 +261,11 @@ def streaming_edit_f64(torch, L: np.ndarray, grid, args, weights, device,
     fa_rows, fb_cols, mask = pad_stream_operands(f[:p], f[p:])
     mask = mask.to(f64)
     ppad = fa_rows.shape[1]
-    r_top, c = sinkhorn_loop(
-        torch, lambda u: streaming_halfstep_ptiled_plain(
-            fa_rows, fb_cols, mask, u, sw, pw, eps),
-        lambda: streaming_ap_plain(fa_rows, fb_cols, mask, sw, pw)[0],
-        Um, lam, Uinv, q, ppad, iters, eps)
+    half = halfstep64(torch, fa_rows, fb_cols, mask, sw, pw, eps)
+    r_top, c = sinkhorn_loop(torch, tapped(half, {} if taps is None else
+                                           taps),
+                             lambda: half(None)[1], Um, lam, Uinv, q, ppad,
+                             iters, eps)
     cu = _masked_top(c, Um, p, m)
     uinv_pad = torch.nn.functional.pad(Uinv, (0, 0, 0, ppad - p))
     c_row = torch.nn.functional.pad(c[p:], (0, fb_cols.shape[1] - q))[None]
@@ -267,17 +328,10 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
         torch.cuda.synchronize()
         return c_rest[:q], time.perf_counter() - t0
 
-    taken, count = [], [0]
-
-    def half64(u):
-        count[0] += 1
-        if count[0] in ONE_STEP:
-            taken.append(u.float().contiguous())
-        return stk.streaming_halfstep_ptiled_plain(fa64, fb64, mask64, u, sw,
-                                                   pw, EPS)
-
-    c64, secs = run(half64, lambda: stk.streaming_ap_plain(
-        fa64, fb64, mask64, sw, pw)[0], torch.float64)
+    half64 = halfstep64(torch, fa64, fb64, mask64, sw, pw, EPS)
+    taps = {}
+    c64, secs = run(tapped(half64, taps), lambda: half64(None)[1],
+                    torch.float64)
     print(f"float64 plain twin: {secs:.1f} s")
 
     def stats(label, c, secs):
@@ -331,10 +385,9 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
     # once to f32): where any summation order inside the kernel could at
     # best bring the loop's c.
     def plain64(u):
-        return stk.streaming_halfstep_ptiled_plain(
-            fa64, fb64, mask64, u.double(), sw, pw, EPS)
+        return half64(u.double())
 
-    s0_64 = lambda: stk.streaming_ap_plain(fa64, fb64, mask64, sw, pw)[0]  # noqa: E731
+    s0_64 = lambda: half64(None)[1]  # noqa: E731
     stats("plain float64 half-steps, f32 projections",
           *run(lambda u: tuple(v.float() for v in plain64(u)),
                lambda: s0_64().float()))
@@ -356,9 +409,8 @@ def frame_precision(torch, dev, libs: dict, seed: int, full: bool):
     # ONE_STEP-th half-steps) against the float64 twin on that u: each
     # library's own rounding of x and ap, apart from the loop.
     result["one_step"] = {}
-    for k, u32 in zip(ONE_STEP, taken):
-        x64, ap64 = stk.streaming_halfstep_ptiled_plain(
-            fa64, fb64, mask64, u32.double(), sw, pw, EPS)
+    for k, u32 in sorted(taps.items()):
+        x64, ap64 = half64(u32.double())
         for name, lib in libs.items():
             use(lib)
             x, ap = kernel_halfstep(u32)

@@ -143,9 +143,6 @@ class _FakeLib:
         self.calls = []
         self.status = status
 
-    def nle_stream_nblocks(self, qpad):
-        return tsk.halfstep_plan(qpad, 128).blocks
-
     def __getattr__(self, name):
         if not name.startswith("nle_"):
             raise AttributeError(name)
