@@ -133,7 +133,32 @@
    configuration, held against the plain twins (x and s bounds as K3/K4's,
    K19 exact), timed beside their bounds and torch.mv on the same factor;
    then each tool's table through its own table function, whose launch
-   counts are the rows' `launches`.
+   counts are the rows' `launches`;
+12. stream mode, host Lab and the port bench: (a) four exposure-jittered
+   copies of [5]'s structured frame, an aliased-lines frame (fourth: its
+   finish runs with two frames in flight at lookahead 2) and a
+   uniform-noise frame (832x1216, MAIN_ARGS) through
+   NLEFilter(device="cuda").train_and_enhance one by one (each frame's
+   crush statistic and guard decision printed: the jittered frames must
+   pass, the aliased one trip) and through train_filters_iter at
+   lookahead 1 and 2, each yielded filter edited through
+   NLEFilter(trained=...) + seed_lab_cache + enhance: every edit bitwise
+   single mode's, and each frame's own K4 launches (those between its
+   yield and the one before: its finish) equal to single mode's, the
+   aliased frame's >= 2 x 50; (b) frame 2's submit
+   under torch.cuda.set_sync_debug_mode("error") (lookahead 4: no finish
+   in that window); (c) the lookahead-2 stream's peak device bytes over
+   one frame's padded phi, held to fits_pipeline's bound (lookahead +
+   DENSE_PEAK_PER_PHI_BYTE); (d) one frame's stage 2a: the host's time to
+   queue it and the device's to run it (queued behind a blocker); then 8
+   jittered frames, warm, in stream mode (the bench's flow: edits on a
+   4-thread pool) and in single mode: wall a frame and, from a profile as
+   in [6], the device busy share (readings, not gates); (e) the C Lab kernels (they must build) bitwise the NumPy
+   pair on a 1 MP random frame and the Lab cube's extremes, the device
+   twins bitwise the host pair on the whole 256^3 cube both ways, and
+   NumPy, C and the device twin (with its upload and fetch) timed at 1,
+   16 and 32 MP; (f) `python3 -m nle_tpu_torch.tools.bench` in both modes
+   with NLE_BENCH_REPEATS=4 (its JSON line printed; a nonzero exit fails).
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -801,12 +826,14 @@ def profile_grids(torch, fn, needles) -> list:
     return kernel_grids(prof, needles)
 
 
-def profile_call(torch, label: str, fn, mp: float, needles=()) -> tuple:
+def profile_call(torch, label: str, fn, mp: float, needles=(),
+                 readings: dict | None = None) -> tuple:
     """Profile one warm call of fn: wall, device time (the sum of the
     device-side events; one stream, so they do not overlap), busy share,
     host ms per stage and the device ms per kernel. Returns ([(device ms,
     launches, kernel name)], the largest first; kernel_grids of the
-    kernels named by needles)."""
+    kernels named by needles); `readings`, when given, receives wall_ms
+    and device_ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -834,6 +861,8 @@ def profile_call(torch, label: str, fn, mp: float, needles=()) -> tuple:
                       if e.device_type != cpu_type and e.key not in STAGES
                       and dev_ms(e) > 0), reverse=True)
     device_ms = sum(k[0] for k in kernels)
+    if readings is not None:
+        readings.update(wall_ms=wall_ms, device_ms=device_ms)
     print(f"{label}: wall {wall_ms:.1f} ms "
           f"({mp / wall_ms * 1e3:.3f} MP/s under the profiler)")
     if device_ms > 0:
@@ -1839,6 +1868,321 @@ def hold_scaled(torch, record, tag: str, phi, c, nb: int, mb: int,
     return extras
 
 
+# -- [12] stream mode, host Lab and the port bench ---------------------------
+
+def aliased_frame(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """Dark lines on the rows MAIN_ARGS's sample grid takes (a line pattern
+    whose period is the grid's row step, as a fence or a screen aliases
+    with it), mid-gray noise between them: most rest pixels lie 50-90 L
+    levels from every sample, so their phi rows are 1e-10 to 1e-35 of the
+    columns' largest, outside the int16 carrier's validity domain at the
+    main path's parameters (crush ~0.98), where uniform noise stays
+    inside it (hy 10 finds a sample of every intensity)."""
+    from nle_tpu_torch.ops.sampling import sample_grid
+
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(60, 100, (h, w))
+    lines = np.isin(np.arange(h), sample_grid(h, w, *MAIN_ARGS[:2]).sel_rows)
+    v[lines] = rng.uniform(0, 16, (int(lines.sum()), w))
+    return np.repeat(np.rint(v).astype(np.uint8)[..., None], 3, axis=-1)
+
+
+def stream_edits(torch, NLEFilter, _build, frames, lookahead: int):
+    """The bench's stream flow on the main thread, in order: each frame's
+    Lab L into train_filters_iter, each yielded filter edited through
+    NLEFilter(trained=...) with the producer's Lab seeded. Returns (the
+    edits, K4's launch count at each yield)."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.models.batch import train_filters_iter
+
+    labs = [None] * len(frames)
+
+    def channels():
+        for i, bgr in enumerate(frames):
+            labs[i] = bgr_to_lab_u8_np(bgr)
+            yield labs[i][..., 0].astype(np.float32)
+
+    outs, k4 = [], []
+    for i, flt in enumerate(train_filters_iter(
+            channels(), *MAIN_ARGS, device="cuda", lookahead=lookahead)):
+        k4.append(_build.LAUNCHES["sinkhorn_halfstep_f32"])
+        f = NLEFilter(trained=flt, device="cuda")
+        f.seed_lab_cache(frames[i], labs[i])
+        outs.append(f.enhance(frames[i], WEIGHTS))
+    return outs, k4
+
+
+def stream_phase(torch, NLEFilter, _build, img) -> None:
+    """[12] (a) stream mode against single mode, bit for bit, at lookahead
+    1 and 2, the guard of the last frame tripping inside finish; (b) a
+    submit with no host sync; (c) the lookahead-2 stream's peak against
+    fits_pipeline's bound; (d) the overlap, read; (e) the host Lab (C
+    against NumPy, the device twins on the whole cube) and its timings;
+    (f) the port bench in both modes."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.models.batch import fits_pipeline, train_filters_iter
+    from nle_tpu_torch.ops.kernels.sinkhorn_kernel import padded_shape
+    from nle_tpu_torch.ops.pipeline import DENSE_PEAK_PER_PHI_BYTE
+    from nle_tpu_torch.tools import bench
+
+    t12 = time.perf_counter()
+    h, w = MAIN_SHAPE
+    n, p = h * w, MAIN_ARGS[0] * MAIN_ARGS[1]
+    iters = MAIN_ARGS[4]
+    # The guard-tripping frame fourth: at lookahead 2 its finish (and its
+    # f32 retrain) runs with two frames in flight, the rule's worst case.
+    names = ["jittered 1", "jittered 2", "jittered 3", "aliased lines",
+             "jittered 4", "uniform noise"]
+    jit = bench.jittered_frames(img, 4)
+    frames = jit[:3] + [aliased_frame(h, w), jit[3], noise_frame(h, w)]
+    trips = names.index("aliased lines")
+    singles, single_k4 = [], []
+    with bench.CarrierRecords() as rec:
+        for frame in frames:
+            _build.reset_launches()
+            singles.append(NLEFilter(device="cuda").train_and_enhance(
+                frame, *MAIN_ARGS, weights=WEIGHTS))
+            single_k4.append(_build.LAUNCHES["sinkhorn_halfstep_f32"])
+    if len(rec.seen) != len(frames):
+        raise AssertionError(f"[12a] {len(rec.seen)} carrier records for "
+                             f"{len(frames)} single-mode trains")
+    print(f"[12a] single mode, {h}x{w}, {' '.join(map(str, MAIN_ARGS))}: "
+          + "; ".join(f"{nm} crush {c:.4f} retrained {r} (K4 x {k})"
+                      for nm, (c, r), k in zip(names, rec.seen, single_k4)))
+    if any(r != (i == trips) for i, (_, r) in enumerate(rec.seen[:5])):
+        raise AssertionError("[12a] the guard must pass the jittered frames "
+                             "and trip on the aliased one")
+    _, mpad = padded_shape(n, p)
+    phi = 4 * padded_shape(n, p)[0] * mpad
+    if not (fits_pipeline(n, *MAIN_ARGS[:2], 2, device="cuda")
+            and fits_pipeline(n, *MAIN_ARGS[:2], 4, device="cuda")):
+        raise AssertionError("[12] lookahead 2 and 4 must fit at 1 MP")
+    for look in (1, 2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        outs, k4 = stream_edits(torch, NLEFilter, _build, frames, look)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        ratio = (torch.cuda.max_memory_allocated() - base) / phi
+        same = [bool(np.array_equal(a, b)) for a, b in zip(outs, singles)]
+        # K4's launches between two yields are the finish of the frame
+        # yielded second (the submits between them run the split layout,
+        # K3 alone): each frame's own guard retrain, inside finish.
+        own = [b - a for a, b in zip([0] + k4[:-1], k4)]
+        print(f"  stream, lookahead {look}: each frame bitwise single "
+              f"mode's: {same}; K3 x {counts['sinkhorn_halfstep_int16']}; "
+              f"K4 in each frame's finish {own} (single mode {single_k4}); "
+              f"peak {ratio:.3f} x phi ({phi / 1e9:.3f} GB)")
+        if not all(same):
+            raise AssertionError(f"[12a] lookahead {look}: stream edits "
+                                 f"differ from single mode: {same}")
+        if (own != single_k4 or own[trips] < 2 * iters
+                or counts["sinkhorn_halfstep_int16"] < 2 * iters * len(frames)):
+            raise AssertionError(f"[12a] lookahead {look}: the guard did not "
+                                 f"retrain the aliased frame inside its "
+                                 f"finish alone: {own}, {counts}")
+        if look == 2:
+            # [12c] fits_pipeline's bound: L in flight + one stage 2a (here
+            # the aliased frame's f32 retrain beside two frames in flight).
+            bound = look + DENSE_PEAK_PER_PHI_BYTE
+            print(f"[12c] lookahead-2 peak {ratio:.3f} x phi, bound "
+                  f"{bound} (fits_pipeline)")
+            if not ratio <= bound:
+                raise AssertionError(f"[12c] peak {ratio:.3f} x phi > {bound}")
+        del outs
+
+    # [12b] no host sync in submit: frame 2's submit (lookahead 4, so no
+    # finish runs until the producer is resumed) under sync debug "error".
+    def channels():
+        for i, frame in enumerate(frames[:3]):
+            lab = bgr_to_lab_u8_np(frame)
+            if i == 2:
+                torch.cuda.set_sync_debug_mode("error")
+            yield lab[..., 0].astype(np.float32)
+            torch.cuda.set_sync_debug_mode(0)
+
+    try:
+        flts = list(train_filters_iter(channels(), *MAIN_ARGS,
+                                       device="cuda", lookahead=4))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[12b] frame 2's submit ran under set_sync_debug_mode('error') "
+          f"without a host sync ({len(flts)} filters)")
+    del flts
+
+    # [12d] the overlap, read: first one frame's stage 2a, the host's time
+    # to queue it beside the device's time to run it (queued behind a
+    # blocker, so no launch gap counts), then 8 jittered frames warm,
+    # stream and single.
+    launch_reading(torch, frames[0])
+    frames8 = bench.jittered_frames(img, 8)
+    bench.run_stream(frames8[:2])                  # warm the stream path
+    readings = {}
+    for label, fn in (
+            ("stream", lambda: bench.run_stream(frames8)),
+            ("single", lambda: [bench.run_single(f) for f in frames8])):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = {}
+        profile_call(torch, f"[12d] profiled 8-frame {label} mode", fn,
+                     8 * n / 1e6, readings=r)
+        readings[label] = (wall, r)
+        print(f"[12d] {label} mode: wall {wall / 8 * 1e3:.1f} ms a frame "
+              f"({8 * n / 1e6 / wall:.3f} MP/s); device busy share "
+              f"{r['device_ms'] / r['wall_ms']:.3f} under the profiler "
+              f"(wall {r['wall_ms'] / 8:.1f} ms a frame there)")
+    print(f"  stream over single, wall a frame: "
+          f"{readings['stream'][0] / readings['single'][0]:.3f}")
+    lab_phase(torch)
+
+    # [12f] the port bench, both modes, as a user runs it.
+    root = os.path.dirname(os.path.abspath(__file__))
+    for mode in ("stream", "single"):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "nle_tpu_torch.tools.bench"], cwd=root,
+            env={**os.environ, "NLE_BENCH_MODE": mode,
+                 "NLE_BENCH_REPEATS": "4"},
+            capture_output=True, text=True, timeout=600)
+        line = (out.stdout.strip().splitlines() or [""])[-1]
+        print(f"[12f] bench {mode} ({time.perf_counter() - t0:.1f} s): {line}")
+        if out.returncode != 0:
+            raise AssertionError(f"[12f] bench {mode} exited "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        got = json.loads(line)
+        if got["mode"] != mode or got["device"]["platform"] != "gpu":
+            raise AssertionError(f"[12f] bench line {got}")
+    print(f"[12] stream mode, Lab and the bench: "
+          f"{time.perf_counter() - t12:.1f} s")
+
+
+def launch_reading(torch, frame) -> None:
+    """[12d] one frame's dense stage 2a (submit_dense): the host's time to
+    queue it and the wall until its rc is back, on an idle device; and its
+    device time when queued behind 16 fp32 8192^2 matmuls (CUDA events
+    around it alone). The overlap of stream mode can hide only the device
+    time that outlasts the queueing."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops import pipeline as pl
+    from nle_tpu_torch.ops.affinity import bandwidth_weights
+    from nle_tpu_torch.ops.sampling import sample_grid
+    from nle_tpu_torch.utils.transfer import upload
+
+    dev = torch.device("cuda")
+    h, w = frame.shape[:2]
+    L0 = bgr_to_lab_u8_np(frame)[..., 0].astype(np.float32)
+    grid = sample_grid(h, w, *MAIN_ARGS[:2])
+    Um64, lam64, m, mb = pl.host_stage1(L0, grid, *MAIN_ARGS[2:4], 1e-10)
+    args = (upload(pl.pack_channel(L0, grid.perm)[0], dev).to(torch.float32),
+            *pl.grid_coords(grid, dev),
+            upload(pl.pack_stage1(Um64, lam64, mb=mb), dev),
+            *bandwidth_weights(*MAIN_ARGS[2:4]), Um64, lam64)
+    kw = dict(p=grid.n_samples, m=m, mb=mb, n_sinkhorn_iter=MAIN_ARGS[4],
+              eps=1e-10)
+    blocker = torch.randn(8192, 8192, device=dev)
+    best = {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame2a = pl.submit_dense(*args, **kw)
+        queued = time.perf_counter() - t0
+        frame2a.rc.result()
+        done = time.perf_counter() - t0
+        for _ in range(16):
+            torch.mm(blocker, blocker)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        frame2a = pl.submit_dense(*args, **kw)
+        queued_busy = time.perf_counter() - t0
+        e1.record()
+        torch.cuda.synchronize()
+        for key, val in (("queue", queued * 1e3), ("done", done * 1e3),
+                         ("queue_busy", queued_busy * 1e3),
+                         ("device", e0.elapsed_time(e1))):
+            best[key] = min(best.get(key, float("inf")), val)
+        del frame2a
+    print(f"[12d] one frame's stage 2a (submit_dense, 1 MP): the host queues "
+          f"it in {best['queue']:.1f} ms and has its rc {best['done']:.1f} ms "
+          f"after the first launch (idle device); queued behind a blocker "
+          f"it takes the host {best['queue_busy']:.1f} ms to queue and the "
+          f"device {best['device']:.1f} ms to run (minima of 3)")
+
+
+def lab_phase(torch) -> None:
+    """[12e] the C Lab loader against the NumPy pair (bitwise: a 1 MP
+    random frame and the Lab cube's extremes), the device twins against
+    the host pair on the whole 256^3 cube, both directions; then the three
+    forms timed at 1, 16 and 32 MP (the device twin with its upload and
+    fetch)."""
+    from nle_tpu_torch import native
+    from nle_tpu_torch.color import lab as tlab
+    from nle_tpu_torch.utils.transfer import Fetch, upload
+
+    if native.load() is None:
+        raise AssertionError("[12e] the C Lab kernels did not build")
+    rng = np.random.default_rng(0)
+    corners = np.stack(np.meshgrid([0, 255], [0, 255], [0, 255],
+                                   indexing="ij"), -1).reshape(-1, 3)
+    axes = np.stack([np.arange(256)] * 3, -1)
+    edges = np.concatenate([corners, axes]).astype(np.uint8)[:, None]
+    for label, px in (("1 MP random", rng.integers(0, 256, MAIN_SHAPE + (3,),
+                                                   np.uint8)),
+                      ("the cube's extremes", edges)):
+        for fwd, (c, numpy_) in (("BGR to Lab", (tlab.bgr_to_lab_u8_np,
+                                                 tlab.bgr_to_lab_u8_numpy)),
+                                 ("Lab to BGR", (tlab.lab_to_bgr_u8_np,
+                                                 tlab.lab_to_bgr_u8_numpy))):
+            if not np.array_equal(c(px), numpy_(px)):
+                raise AssertionError(f"[12e] C {fwd} differs from NumPy on "
+                                     f"{label}")
+    L, A, B = np.meshgrid(*[np.arange(256, dtype=np.uint8)] * 3,
+                          indexing="ij")
+    cube = np.stack([L, A, B], axis=-1).reshape(4096, 4096, 3)
+    dev = torch.device("cuda")
+    for fwd, twin, host in (("BGR to Lab", tlab.bgr_to_lab_u8,
+                             tlab.bgr_to_lab_u8_np),
+                            ("Lab to BGR", tlab.lab_to_bgr_u8,
+                             tlab.lab_to_bgr_u8_np)):
+        got = Fetch(twin(upload(cube, dev))).result()
+        if not np.array_equal(got, host(cube)):
+            raise AssertionError(f"[12e] device {fwd} differs from the host "
+                                 "pair on the 256^3 cube")
+    print("[12e] C Lab bitwise the NumPy pair (1 MP random, the cube's "
+          "extremes); the device twins bitwise the host pair on all "
+          "16,777,216 cube pixels, both directions")
+    for mp_label, shape in (("1 MP", MAIN_SHAPE), ("16 MP", GRID_CAP_SHAPE),
+                            ("32 MP", CAP_SHAPE)):
+        px = rng.integers(0, 256, shape + (3,), np.uint8)
+        reps = 3 if shape == MAIN_SHAPE else 1
+        for fwd, fns in (
+                ("BGR to Lab", (tlab.bgr_to_lab_u8_numpy,
+                                tlab.bgr_to_lab_u8_np, tlab.bgr_to_lab_u8)),
+                ("Lab to BGR", (tlab.lab_to_bgr_u8_numpy,
+                                tlab.lab_to_bgr_u8_np, tlab.lab_to_bgr_u8))):
+            numpy_, c, twin = fns
+            ms = []
+            for fn in (numpy_, c,
+                       lambda x: Fetch(twin(upload(x, dev))).result()):
+                if fn not in (numpy_, c):
+                    fn(px)                    # the allocator's first call
+                best = float("inf")
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    fn(px)
+                    best = min(best, time.perf_counter() - t0)
+                ms.append(best * 1e3)
+            print(f"  {fwd} at {mp_label} ({shape[0]}x{shape[1]}): NumPy "
+                  f"{ms[0]:.1f} ms, C {ms[1]:.1f} ms, device twin with "
+                  f"upload and fetch {ms[2]:.1f} ms")
+        del px
+
+
 def main() -> int:
     import torch
 
@@ -2583,6 +2927,9 @@ def main() -> int:
     # -- [11] the A/B staging probes of tools/ at [10c]'s shape ---------
     from nle_tpu_torch.tools.bench_sk_dmaonly import MPAD, NPAD
     ab_paths = ab_probes(torch, _build, record, NPAD, MPAD)
+
+    # -- [12] stream mode, host Lab and the port bench ------------------
+    stream_phase(torch, NLEFilter, _build, img)
 
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the

@@ -1,6 +1,5 @@
-"""BGR <-> CIE Lab in OpenCV's 8-bit convention, on the host in NumPy
-(port of the NumPy paths of nle_tpu/color/lab.py, tables and arithmetic
-unchanged).
+"""BGR <-> CIE Lab in OpenCV's 8-bit convention (port of
+nle_tpu/color/lab.py, tables and arithmetic unchanged).
 
 The reference trains and edits in OpenCV's 8-bit Lab space
 (cv::COLOR_BGR2Lab on CV_8U): L is scaled to [0, 255] and a, b are offset
@@ -8,13 +7,27 @@ by +128. Both directions reimplement OpenCV's fixed-point integer
 pipelines and are bit-exact against cv2 (see nle_tpu/color/lab.py for the
 validation record). Bit-exactness is load-bearing: training is
 chaotically sensitive to the L channel (+-1 LSB on ~15% of pixels costs
-~25 dB of golden PSNR). The C loader nle_tpu uses for speed is not ported
-yet; these are its NumPy twins.
+~25 dB of golden PSNR).
+
+Two forms of each conversion:
+- the host pair `bgr_to_lab_u8_np` / `lab_to_bgr_u8_np`, which the model
+  layer calls: the C kernels of nle_tpu_torch/native when a compiler
+  built them, else NumPy (with one warning naming that path);
+- the device twins `bgr_to_lab_u8`, `lab_to_bgr_u8` (the same integer
+  LUT pipelines in plain torch: int32 gathers and arithmetic shifts, on
+  the tensor's own device), `bgr_to_lab_u8_float` (the float formula,
+  fp32, within 1-2 LSB of OpenCV), `luminance_channel` and `y_channel`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
+
+from nle_tpu_torch import native
+from nle_tpu_torch.utils.logging import logger
 
 # D65 reference white (OpenCV's constants).
 _XN = 0.950456
@@ -66,10 +79,35 @@ _L_SCALE = (116 * 255 + 50) // 100
 _L_SHIFT = -((16 * 255 * (1 << _LAB_SHIFT2) + 50) // 100)
 
 
+def _native_lib():
+    """The C library, or None; the first miss logs which path runs."""
+    lib = native.load()
+    if lib is None:
+        _warn_numpy_path()
+    return lib
+
+
+@functools.cache
+def _warn_numpy_path() -> None:
+    logger.warning(
+        "host Lab: no C compiler built %s; BGR<->Lab runs on the NumPy path "
+        "(nle_tpu_torch/color/lab.py, several times slower)", native.SOURCE)
+
+
 def bgr_to_lab_u8_np(bgr_u8: np.ndarray) -> np.ndarray:
-    """(H, W, 3) uint8 BGR -> (H, W, 3) uint8 Lab, bit-exact vs OpenCV.
-    int32 throughout — every intermediate fits (max |value| < 2^25) and
-    int64 temps double the conversion time at megapixel sizes."""
+    """(H, W, 3) uint8 BGR -> (H, W, 3) uint8 Lab, bit-exact vs OpenCV: the
+    C kernel when it built, else `bgr_to_lab_u8_numpy`."""
+    lib = _native_lib() if bgr_u8.ndim == 3 and bgr_u8.shape[2] == 3 else None
+    if lib is not None:
+        return native.bgr2lab_u8(lib, bgr_u8, _GAMMA_TAB, _CBRT_TAB,
+                                 _XYZ_COEFFS, _L_SCALE, _L_SHIFT)
+    return bgr_to_lab_u8_numpy(bgr_u8)
+
+
+def bgr_to_lab_u8_numpy(bgr_u8: np.ndarray) -> np.ndarray:
+    """The NumPy path of bgr_to_lab_u8_np. int32 throughout — every
+    intermediate fits (max |value| < 2^25) and int64 temps double the
+    conversion time at megapixel sizes."""
     b = np.take(_GAMMA_TAB, bgr_u8[..., 0])
     g = np.take(_GAMMA_TAB, bgr_u8[..., 1])
     r = np.take(_GAMMA_TAB, bgr_u8[..., 2])
@@ -163,7 +201,18 @@ def _build_inverse_tables():
 
 
 def lab_to_bgr_u8_np(lab_u8: np.ndarray) -> np.ndarray:
-    """(H, W, 3) uint8 Lab -> (H, W, 3) uint8 BGR (bit-exact vs cv2)."""
+    """(H, W, 3) uint8 Lab -> (H, W, 3) uint8 BGR (bit-exact vs cv2): the C
+    kernel when it built, else `lab_to_bgr_u8_numpy`."""
+    lib = _native_lib() if lab_u8.ndim == 3 and lab_u8.shape[2] == 3 else None
+    if lib is not None:
+        return native.lab2bgr_u8(lib, lab_u8, _IY_TAB, _IFY_TAB, _IAB_TAB,
+                                 _IMIN_AB, _ICOEFFS, _IGAMMA_TAB, _IADIV_TAB,
+                                 _IBDIV_TAB)
+    return lab_to_bgr_u8_numpy(lab_u8)
+
+
+def lab_to_bgr_u8_numpy(lab_u8: np.ndarray) -> np.ndarray:
+    """The NumPy path of lab_to_bgr_u8_np."""
     L = lab_u8[..., 0].astype(np.int32)
     y = _IY_TAB[L].astype(np.int64)
     ify = _IFY_TAB[L]
@@ -184,3 +233,109 @@ def lab_to_bgr_u8_np(lab_u8: np.ndarray) -> np.ndarray:
     return np.stack(
         [_IGAMMA_TAB[bo], _IGAMMA_TAB[go], _IGAMMA_TAB[ro]], axis=-1
     )
+
+
+# ---- The device twins (plain torch on the tensor's device) ----
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device) -> dict:
+    """Every LUT as an int32 tensor on `device`, uploaded once per device
+    (so a conversion never waits on a blocking table copy)."""
+    from nle_tpu_torch.utils.transfer import upload
+
+    host = dict(gamma=_GAMMA_TAB, cbrt=_CBRT_TAB, iy=_IY_TAB, ify=_IFY_TAB,
+                iadiv=_IADIV_TAB, ibdiv=_IBDIV_TAB, iab=_IAB_TAB,
+                igamma=_IGAMMA_TAB.astype(np.int32))
+    return {k: upload(v.astype(np.int32), device) for k, v in host.items()}
+
+
+def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
+    return (x + (1 << (n - 1))) >> n
+
+
+def bgr_to_lab_u8(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 BGR -> (..., 3) uint8 Lab on the tensor's device, the
+    integer pipeline of bgr_to_lab_u8_np (bit-exact vs OpenCV)."""
+    t = _tables(bgr_u8.device)
+    C = _XYZ_COEFFS.tolist()
+    idx = bgr_u8.to(torch.int32)
+    b, g, r = (t["gamma"][idx[..., i]] for i in range(3))
+
+    def f(row):
+        ix = _descale(r * C[row][0] + g * C[row][1] + b * C[row][2],
+                      _LAB_SHIFT)
+        return t["cbrt"][ix.clamp(0, 3071)]
+
+    fX, fY, fZ = f(0), f(1), f(2)
+    L = _descale(_L_SCALE * fY + _L_SHIFT, _LAB_SHIFT2)
+    a = _descale(500 * (fX - fY) + 128 * (1 << _LAB_SHIFT2), _LAB_SHIFT2)
+    bb = _descale(200 * (fY - fZ) + 128 * (1 << _LAB_SHIFT2), _LAB_SHIFT2)
+    return torch.stack([L, a, bb], dim=-1).clamp(0, 255).to(torch.uint8)
+
+
+def _srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
+    return torch.where(c > _SRGB_T, ((c + 0.055) / 1.055) ** 2.4, c / 12.92)
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    # torch has no cbrt: x^(1/3) of |x| with x's sign (within an ulp).
+    return torch.sign(x) * x.abs() ** (1.0 / 3.0)
+
+
+def _f(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(t > _T0, _cbrt(t), 7.787 * t + 16.0 / 116.0)
+
+
+def bgr_to_lab_u8_float(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """Float-formula forward conversion in fp32 (within 1-2 LSB of OpenCV;
+    the cross-check of the LUT constants, not the training path)."""
+    x = bgr_u8.to(torch.float32) / 255.0
+    b, g, r = (_srgb_to_linear(x[..., i]) for i in range(3))
+    X = 0.412453 * r + 0.357580 * g + 0.180423 * b
+    Y = 0.212671 * r + 0.715160 * g + 0.072169 * b
+    Z = 0.019334 * r + 0.119193 * g + 0.950227 * b
+    fX, fY, fZ = _f(X / _XN), _f(Y), _f(Z / _ZN)
+    L = torch.where(Y > _T0, 116.0 * _cbrt(Y) - 16.0, _KAPPA * Y)
+    lab = torch.stack([L * (255.0 / 100.0), 500.0 * (fX - fY) + 128.0,
+                       200.0 * (fY - fZ) + 128.0], dim=-1)
+    return torch.round(lab).clamp(0, 255).to(torch.uint8)
+
+
+def lab_to_bgr_u8(lab_u8: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uint8 Lab -> (..., 3) uint8 BGR on the tensor's device, the
+    integer pipeline of lab_to_bgr_u8_np (bit-exact vs cv2). int32 as in
+    nle_tpu's twin: the largest |C @ (x, y, z)| is ~2^30.4, under one bit
+    below the int32 limit."""
+    t = _tables(lab_u8.device)
+    idx = lab_u8.to(torch.int32)
+    y = t["iy"][idx[..., 0]]
+    ify = t["ify"][idx[..., 0]]
+    adiv = t["iadiv"][idx[..., 1]]
+    bdiv = t["ibdiv"][idx[..., 2]]
+    top = len(_IAB_TAB) - 1
+    x = t["iab"][(ify + adiv - _IMIN_AB).clamp(0, top)]
+    z = t["iab"][(ify - bdiv - _IMIN_AB).clamp(0, top)]
+    C = _ICOEFFS.tolist()
+    half = 1 << (_ISHIFT - 1)
+    hi = (1 << _IGAMMA_BITS) - 1
+
+    def out(row):
+        v = (C[row][0] * x + C[row][1] * y + C[row][2] * z + half) >> _ISHIFT
+        return t["igamma"][v.clamp(0, hi)]
+
+    return torch.stack([out(2), out(1), out(0)], dim=-1).to(torch.uint8)
+
+
+def luminance_channel(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """8-bit Lab L as float32 (the training signal; reference
+    getLuminanceChannel, src/filter.cpp:460-469)."""
+    return bgr_to_lab_u8(bgr_u8)[..., 0].to(torch.float32)
+
+
+def y_channel(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """BGR -> YUV Y as uint8 with OpenCV's BT.601 fixed-point weights
+    (reference getYChannel, src/filter.cpp:471-478)."""
+    x = bgr_u8.to(torch.int32)
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    y = (r * 4899 + g * 9617 + b * 1868 + (1 << 13)) >> 14
+    return y.clamp(0, 255).to(torch.uint8)

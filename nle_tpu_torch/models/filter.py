@@ -11,6 +11,9 @@ other. NLEFilter(factored=True) trains and edits the V-free FactoredFilter
 
 The device is explicit: NLEFilter(device="cuda") runs the CUDA kernels
 and raises without a card; device="cpu" runs their plain versions.
+A TrainedFilter may carry its training channel's device buffer (y_cache,
+set by `_train` and by stream mode, models/batch.py), which the first u8
+edit of that very channel reuses instead of uploading it again.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from nle_tpu_torch.ops.pipeline import (
 from nle_tpu_torch.ops.sampling import sample_grid
 from nle_tpu_torch.ops.transform import transform_eigenvalues
 from nle_tpu_torch.utils.logging import stage
+from nle_tpu_torch.utils.transfer import Fetch, upload
 
 
 @dataclasses.dataclass
@@ -47,10 +51,28 @@ class TrainedFilter:
     nrows: int
     ncols: int
     perm: np.ndarray | None = None
+    # (packed u8 host copy, device tensor) of the TRAINING channel: the
+    # train->edit flow filters that very channel, so the u8 edit reuses the
+    # device buffer when the channel it is given equals the host copy.
+    # Never serialized; a transfer cache only.
+    y_cache: tuple | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def n_pixels(self) -> int:
         return self.nrows * self.ncols
+
+    def nbytes(self) -> int:
+        """Host and device bytes this filter holds: eigvecs (4k B/pixel)
+        and eigvals, perm, and the training-channel cache."""
+        n = sum(t.numel() * t.element_size()
+                for t in (self.eigvecs, self.eigvals))
+        if self.perm is not None:
+            n += self.perm.nbytes
+        if self.y_cache is not None:
+            packed_np, y_dev = self.y_cache
+            n += packed_np.nbytes + y_dev.numel() * y_dev.element_size()
+        return int(n)
 
     def save(self, path: str) -> None:
         arrs = dict(
@@ -63,10 +85,15 @@ class TrainedFilter:
         np.savez_compressed(path, **arrs)
 
     def to(self, device) -> "TrainedFilter":
-        """This filter with its tensors on `device`."""
+        """This filter with its tensors on `device` (the training-channel
+        cache kept only where it already lies on `device`)."""
         dev = resolve_device(device)
+        y_cache = self.y_cache
+        if y_cache is not None and y_cache[1].device != dev:
+            y_cache = None
         return dataclasses.replace(self, eigvecs=self.eigvecs.to(dev),
-                                   eigvals=self.eigvals.to(dev))
+                                   eigvals=self.eigvals.to(dev),
+                                   y_cache=y_cache)
 
     @classmethod
     def from_numpy(cls, arrays, device) -> "TrainedFilter":
@@ -134,6 +161,10 @@ class NLEFilter:
         self._factored = factored
         self._trained = None if trained is None else trained.to(self.device)
         self._lab_cache: tuple[np.ndarray, np.ndarray] | None = None
+        # The training channel's device buffer, when the filter carries one
+        # (stream mode, models/batch.py): the edit of that channel skips
+        # its upload.
+        self._packed_y_cache = getattr(self._trained, "y_cache", None)
 
     @property
     def trained(self):
@@ -159,9 +190,17 @@ class NLEFilter:
         self._lab_cache = (image.copy(), lab)
         return lab
 
+    def seed_lab_cache(self, image_bgr_u8, lab) -> None:
+        """Pre-populate the BGR->Lab cache with a conversion the caller
+        already made (stream mode converts every frame to train on it).
+        No defensive copy is taken: the caller must not change the image
+        afterwards."""
+        self._lab_cache = (np.asarray(image_bgr_u8), np.asarray(lab))
+
     def _train(self, channel, n_row_samples, n_col_samples, hx, hy,
                n_sinkhorn_iter, n_eigen_vectors, edit_weights=None):
         if self._factored:
+            self._packed_y_cache = None
             self._trained = train_filter_factored(
                 channel, n_row_samples, n_col_samples, hx, hy,
                 n_sinkhorn_iter, n_eigen_vectors, device=self.device,
@@ -169,15 +208,17 @@ class NLEFilter:
             return self._trained
         nrows, ncols = channel.shape
         grid = sample_grid(nrows, ncols, n_row_samples, n_col_samples)
-        packed_np, _ = pack_channel(channel, grid.perm)
-        packed_y = torch.from_numpy(np.ascontiguousarray(packed_np)).to(
-            self.device)
+        packed_np, is_8bit = pack_channel(channel, grid.perm)
+        packed_y = upload(packed_np, self.device)
+        # Keep the uploaded u8 channel: the train->edit flow edits it.
+        self._packed_y_cache = (packed_np, packed_y) if is_8bit else None
         out = train_filter(
             channel, n_row_samples, n_col_samples, hx, hy, n_sinkhorn_iter,
             n_eigen_vectors, device=self.device, eps=self._eps, grid=grid,
             packed_y=packed_y, edit_weights=edit_weights, pixel_order=False)
         self._trained = TrainedFilter(out[0], out[1], nrows, ncols,
-                                      perm=grid.perm)
+                                      perm=grid.perm,
+                                      y_cache=self._packed_y_cache)
         if edit_weights is not None:
             return self._trained, out[2]
         return self._trained
@@ -227,8 +268,8 @@ class NLEFilter:
             flat = flat[t.perm]
         fS = torch.as_tensor(transformed_eigvals, dtype=torch.float32,
                              device=self.device)
-        out = apply_filter(t.eigvecs, fS,
-                           torch.from_numpy(flat).to(self.device)).cpu().numpy()
+        out = Fetch(apply_filter(t.eigvecs, fS,
+                                 upload(flat, self.device))).result()
         if t.perm is not None:
             unpacked = np.empty_like(out)
             unpacked[t.perm] = out
@@ -249,14 +290,23 @@ class NLEFilter:
         flat = lab[..., 0].reshape(-1)
         if t.perm is not None:
             flat = flat[t.perm]
-        y = torch.from_numpy(np.ascontiguousarray(flat)).to(self.device)
+        # Reuse the training channel's device buffer only when this channel
+        # is that very channel (a content check, never object identity).
+        y = None
+        if self._packed_y_cache is not None:
+            cached_np, cached_dev = self._packed_y_cache
+            if np.array_equal(flat, cached_np):
+                y = cached_dev
+        if y is None:
+            y = upload(flat, self.device)
         return self._recompose(lab, apply_filter_u8(t.eigvecs, fS, y), t.perm)
 
     @staticmethod
     def _recompose(lab, filtered_dev, perm) -> np.ndarray:
-        # The fetch waits for the device's queued work (stage 2b, apply).
+        # The fetch waits for the edit (stage 2b, apply) and for nothing
+        # queued after it.
         with stage("Fetch edit"):
-            filtered = filtered_dev.cpu().numpy()
+            filtered = Fetch(filtered_dev).result()
         with stage("Lab to BGR"):
             if perm is not None:
                 unpacked = np.empty_like(filtered)

@@ -42,6 +42,7 @@ rank bucket are exact zeros, as in the JAX package (tests/test_bucketing.py).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -80,11 +81,13 @@ from nle_tpu_torch.ops.orthogonalize import host_chain64
 from nle_tpu_torch.ops.sampling import SampleGrid, sample_grid
 from nle_tpu_torch.ops.transform import transform_eigenvalues
 from nle_tpu_torch.utils.logging import (
+    carrier_log,
     logger,
     stage,
     warn_rank_deficient,
     warn_truncation,
 )
+from nle_tpu_torch.utils.transfer import Fetch, upload
 
 
 # -- stage 1 (host f64) -----------------------------------------------------
@@ -322,8 +325,12 @@ def check_carrier_guard(rc_np) -> bool:
     crush = float(rc_np[2, 0])
     if crush < 0.0:
         return False
-    return carrier_guard_decision(crush, logger, "crush fraction",
-                                  "retraining")
+    retrain = carrier_guard_decision(crush, logger, "crush fraction",
+                                     "retraining")
+    carrier_log.info("int16 carrier crush fraction %.4f (retrained: %s)",
+                     crush, retrain, extra={"crush": crush,
+                                            "retrained": retrain})
+    return retrain
 
 
 # -- stage 2b (device) ------------------------------------------------------
@@ -455,6 +462,113 @@ def factored_apply(y, y_train, rr, cc, c, v_head, w, f_eigvals, sw, pw, *,
     return out[0] if one_d else out
 
 
+# -- the dense stage 2 in two halves (single and stream mode) ---------------
+
+def host_stage1(channel_np, grid: SampleGrid, hx, hy, eps: float):
+    """Stage 1 of one frame on the host: (Um64, lam64, m, mb). Raises the
+    clean ValueError on a degenerate Ka (no eigenvalue above eps)."""
+    with stage("Computing kernel"):
+        Um64, lam64, _ = ka_eigh_host64(
+            channel_np[grid.sel_rows, grid.sel_cols].astype(np.float64),
+            grid.sel_rows, grid.sel_cols, hx, hy, float(eps))
+        m = lam64.shape[0]
+    if m == 0:
+        raise ValueError("Affinity matrix Ka has no eigenvalues above eps.")
+    warn_truncation(grid.n_samples, m, float(eps))
+    return Um64, lam64, m, bucket_m(m, grid.n_samples)
+
+
+def grid_coords(grid: SampleGrid, device: torch.device):
+    """(rr, cc): the row and column of each packed pixel, float32 on
+    `device`."""
+    perm = upload(grid.perm, device)
+    return ((perm // grid.ncols).to(torch.float32),
+            (perm % grid.ncols).to(torch.float32))
+
+
+@dataclasses.dataclass
+class DenseFrame:
+    """One frame between the two halves of the dense stage 2: its stage 2a
+    queued on the device (submit_dense), the host copies of rc and Sb
+    enqueued behind it, and what finish_dense needs besides."""
+
+    y: torch.Tensor            # packed channel, float32
+    rr: torch.Tensor
+    cc: torch.Tensor
+    stage1: torch.Tensor
+    sw: float
+    pw: float
+    Um64: np.ndarray
+    lam64: np.ndarray
+    p: int
+    m: int
+    mb: int
+    n_sinkhorn_iter: int
+    eps: float
+    rc: Fetch
+    sb: Fetch
+    factor: object
+    c_rest: torch.Tensor
+
+
+def submit_dense(y, rr, cc, stage1, sw, pw, Um64, lam64, *, p: int, m: int,
+                 mb: int, n_sinkhorn_iter: int, eps: float) -> DenseFrame:
+    """Queue the dense stage 2a (the split layout, or the assembled one as
+    NLE_STAGE2_SPLIT resolves) and the rc/Sb copies behind it; waits for
+    no device work."""
+    rc, sb, factor, c_rest = train_filter_stage2a(
+        y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
+        n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps),
+        split=resolve_split_stage2(n_sinkhorn_iter))
+    return DenseFrame(y, rr, cc, stage1, sw, pw, Um64, lam64, p, m, mb,
+                      n_sinkhorn_iter, float(eps), Fetch(rc), Fetch(sb),
+                      factor, c_rest)
+
+
+def finish_dense(frame: DenseFrame, n_eig_vectors: int, *, packed_y=None,
+                 edit_weights=None):
+    """Wait for the frame's stage 2a, apply the carrier guard (retraining
+    through the assembled f32 layout when it trips), run the host f64
+    chain and queue stage 2b. Returns (V packed (N, k), S (k,)), plus the
+    first edit's u8 output (packed) when edit_weights is given (it needs
+    packed_y). Frees the frame's factor."""
+    f = frame
+    dev = f.y.device
+    n = f.y.shape[0]
+    with stage("Nystrom approximation + Sinkhorn"):
+        rc_np = f.rc.result().astype(np.float64)
+        if check_carrier_guard(rc_np):
+            # Out-of-domain input for the int16 carrier: retrain through
+            # the assembled f32 trajectory (the first factor freed first).
+            f.factor = f.c_rest = None
+            rc, sb, f.factor, f.c_rest = train_filter_stage2a(
+                f.y, f.rr, f.cc, f.stage1, f.sw, f.pw, p=f.p, m=f.m,
+                mb=f.mb, n_sinkhorn_iter=f.n_sinkhorn_iter, eps=f.eps,
+                split=False, int16=False)
+            f.rc, f.sb = Fetch(rc), Fetch(sb)
+            rc_np = f.rc.result().astype(np.float64)
+    k = min(n_eig_vectors, f.m)
+    with stage("Orthogonalize"):
+        va_np, Sq = host_orthogonalize(
+            rc_np, f.sb.result().astype(np.float64), f.Um64, f.lam64, f.m,
+            f.mb, k, f.eps)
+        split = isinstance(f.factor, tuple)
+        va_grt = upload(pack_stage2b_upload(split, va_np, rc_np, f.Um64,
+                                            f.m, f.p, k).astype(np.float32),
+                        dev)
+        S = upload(Sq.astype(np.float32), dev)
+    factor, c_rest = f.factor, f.c_rest
+    f.factor = f.c_rest = None
+    with stage("Stage 2b"):
+        if edit_weights is None:
+            return _stage2b_dense_body(factor, c_rest, va_grt, n=n,
+                                       mb=f.mb), S
+        fs = transform_eigenvalues(S, edit_weights)
+        V, edit_out = train_filter_stage2b_edit(
+            factor, c_rest, va_grt, packed_y, fs, n=n, mb=f.mb)
+    return V, S, edit_out
+
+
 # -- the host-level entry point ----------------------------------------------
 
 def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
@@ -474,7 +588,8 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
     it requires pixel_order=False, as in nle_tpu. packed_y: the packed
     channel already on the device (skips the upload). streaming: True/False
     forces the phi-free or the dense stage 2; None applies
-    resolve_streaming's rule."""
+    resolve_streaming's rule. The dense route is submit_dense then
+    finish_dense, the two halves stream mode (models/batch.py) overlaps."""
     if edit_weights is not None and pixel_order:
         raise ValueError(
             "edit_weights requires pixel_order=False (the caller holds "
@@ -487,26 +602,15 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
     if grid is None:
         grid = sample_grid(nrows, ncols, n_row_samples, n_col_samples)
     if packed_y is None:
-        packed_np, _ = pack_channel(channel_np, grid.perm)
-        packed_y = torch.from_numpy(np.ascontiguousarray(packed_np)).to(dev)
+        packed_y = upload(pack_channel(channel_np, grid.perm)[0], dev)
     y = packed_y.to(torch.float32)
-    perm = torch.from_numpy(grid.perm).to(dev)
-    rr = (perm // ncols).to(torch.float32)
-    cc = (perm % ncols).to(torch.float32)
+    rr, cc = grid_coords(grid, dev)
     sw, pw = bandwidth_weights(hx, hy)
     p = grid.n_samples
     n = grid.n_pixels
 
-    with stage("Computing kernel"):
-        Um64, lam64, _ = ka_eigh_host64(
-            channel_np[grid.sel_rows, grid.sel_cols].astype(np.float64),
-            grid.sel_rows, grid.sel_cols, hx, hy, float(eps))
-        m = lam64.shape[0]
-    if m == 0:
-        raise ValueError("Affinity matrix Ka has no eigenvalues above eps.")
-    warn_truncation(p, m, float(eps))
-    mb = bucket_m(m, p)
-    stage1 = torch.from_numpy(pack_stage1(Um64, lam64, mb=mb)).to(dev)
+    Um64, lam64, m, mb = host_stage1(channel_np, grid, hx, hy, eps)
+    stage1 = upload(pack_stage1(Um64, lam64, mb=mb), dev)
 
     if resolve_streaming(streaming, dev, n, mb):
         out = _train_streaming(y, rr, cc, stage1, sw, pw, Um64,
@@ -519,43 +623,20 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
         return out
 
     with stage("Nystrom approximation + Sinkhorn"):
-        rc, sb, factor, c_rest = train_filter_stage2a(
-            y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
-            n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps),
-            split=resolve_split_stage2(n_sinkhorn_iter))
-        rc_np = rc.cpu().double().numpy()
-        if check_carrier_guard(rc_np):
-            # Out-of-domain input for the int16 carrier: retrain through
-            # the assembled f32 trajectory (the first factor freed first).
-            del factor, c_rest
-            rc, sb, factor, c_rest = train_filter_stage2a(
-                y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
-                n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps),
-                split=False, int16=False)
-            rc_np = rc.cpu().double().numpy()
-    k = min(n_eig_vectors, m)
-    with stage("Orthogonalize"):
-        va_np, Sq = host_orthogonalize(rc_np, sb.cpu().double().numpy(),
-                                       Um64, lam64, m, mb, k, float(eps))
-        split = isinstance(factor, tuple)
-        va_grt = torch.from_numpy(
-            pack_stage2b_upload(split, va_np, rc_np, Um64, m, p, k)
-        ).to(dev, torch.float32)
-        S = torch.from_numpy(Sq).to(dev, torch.float32)
-    with stage("Stage 2b"):
-        if edit_weights is None:
-            V = _stage2b_dense_body(factor, c_rest, va_grt, n=n, mb=mb)
-            return (_pixel_rows(V, grid) if pixel_order else V), S
-        fs = transform_eigenvalues(S, edit_weights)
-        V, edit_out = train_filter_stage2b_edit(
-            factor, c_rest, va_grt, packed_y, fs, n=n, mb=mb)
-    return V, S, edit_out
+        frame = submit_dense(y, rr, cc, stage1, sw, pw, Um64, lam64, p=p,
+                             m=m, mb=mb, n_sinkhorn_iter=n_sinkhorn_iter,
+                             eps=eps)
+    out = finish_dense(frame, n_eig_vectors, packed_y=packed_y,
+                       edit_weights=edit_weights)
+    if pixel_order:
+        return (_pixel_rows(out[0], grid),) + out[1:]
+    return out
 
 
 def _pixel_rows(V, grid: SampleGrid):
     """Packed rows -> pixel order: a gather by the inverse permutation,
     out[i] = V[inv_perm[i]] (nle_tpu's _scatter_rows)."""
-    return V[torch.from_numpy(grid.unpack_indices()).to(V.device)]
+    return V[upload(grid.unpack_indices(), V.device)]
 
 
 # Peak device bytes of the dense stage 2 per byte of the padded f32 phi, on
@@ -622,13 +703,14 @@ def _train_streaming(y, rr, cc, stage1, sw, pw, Um64, lam64, *,
         rc, sb, c = train_filter_stage2a_streaming(
             y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
             n_sinkhorn_iter=n_sinkhorn_iter, eps=eps)
-        rc_np = rc.cpu().double().numpy()
+        rc_np = Fetch(rc).result().astype(np.float64)
     k = min(n_eig_vectors, m)
     with stage("Orthogonalize"):
-        va_np, Sq = host_orthogonalize(rc_np, sb.cpu().double().numpy(),
-                                       Um64, lam64, m, mb, k, eps)
-        va_grt = torch.from_numpy(va_np).to(y.device, torch.float32)
-        S = torch.from_numpy(Sq).to(y.device, torch.float32)
+        va_np, Sq = host_orthogonalize(
+            rc_np, Fetch(sb).result().astype(np.float64), Um64, lam64, m,
+            mb, k, eps)
+        va_grt = upload(va_np.astype(np.float32), y.device)
+        S = upload(Sq.astype(np.float32), y.device)
     with stage("Stage 2b"):
         args = (y, rr, cc, stage1, sw, pw, c, va_grt)
         if edit_weights is None:

@@ -14,6 +14,11 @@ import time
 import torch
 
 logger = logging.getLogger("nle_tpu_torch")
+# One INFO record per dense train that engaged the int16 carrier, with the
+# crush statistic and the guard's decision as record attributes (`crush`,
+# `retrained`): how a caller (tools/bench.py) counts the frames that
+# retrained through the f32 carrier without a change to any return value.
+carrier_log = logging.getLogger("nle_tpu_torch.carrier")
 
 
 @contextlib.contextmanager

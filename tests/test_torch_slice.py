@@ -199,9 +199,17 @@ def test_train_and_enhance_equals_train_then_enhance():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, nle_tpu_torch.models.filter; "
-            "print(sorted(m for m in ('jax', 'nle_tpu', 'triton') "
-            "if m in sys.modules))")
+    """Every module of the port (stream mode, the C Lab loader, the bench
+    and the tools included), imported in a fresh process, imports no JAX,
+    no nle_tpu and no triton."""
+    code = ("import importlib, pkgutil, sys, nle_tpu_torch; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "nle_tpu_torch.__path__, 'nle_tpu_torch.')]; "
+            "assert 'nle_tpu_torch.models.batch' in sys.modules; "
+            "assert 'nle_tpu_torch.tools.bench' in sys.modules; "
+            "assert 'nle_tpu_torch.native' in sys.modules; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'nle_tpu', 'triton')))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120, cwd=root)
