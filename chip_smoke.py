@@ -158,7 +158,26 @@
    twins bitwise the host pair on the whole 256^3 cube both ways, and
    NumPy, C and the device twin (with its upload and fetch) timed at 1,
    16 and 32 MP; (f) `python3 -m nle_tpu_torch.tools.bench` in both modes
-   with NLE_BENCH_REPEATS=4 (its JSON line printed; a nonzero exit fails).
+   with NLE_BENCH_REPEATS=4 (its JSON line printed; a nonzero exit fails);
+13. the command line: `python -m nle_tpu_torch.cli.enhance|denoise|apply`
+   as subprocesses on the card (each run through runpy, its launch counts
+   written at its exit) on [5]'s frame written to PNG, with the rock2
+   parameters: (a) cli.enhance --save-filter bitwise [5]'s
+   train_and_enhance, launching K1, K3, K6, K7; (b) cli.denoise `10 10 2`
+   dense (K1, K3, K6, K7) and --factored (K8 >= 101, K12, K10 and K11 once
+   each, at R = 2: the two chroma planes, no dense kernel), >= 45 dB
+   apart, each with 50 `eig i val` lines (K10 and K11 at R = 2 are held
+   against their float64 plain versions and timed at [3], on this frame's
+   shapes: the rows' r2_* fields); the bilateral's ms at 1 MP; then side
+   by side cli.apply on the three saved filters (>= 45 dB from their
+   direct runs, bitwise printed), (c) --stage1=topk, --precision=float64
+   and --no-pallas >= 45 dB from the default route (the last two
+   launching no kernel) and --stage1=device read (its float32 eigh of Ka
+   puts it as far from the default route as nle_tpu's own device route,
+   PERF.md), its eigensolve held in-process at the frame's sample set,
+   card against CPU (hold_device_stage1: eigenvalues, eps mask, residual
+   and orthogonality), and (d) the usage and missing-file probes (rc 0,
+   the reference's messages).
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -384,8 +403,9 @@ def hold_streaming(torch, op, eps: float, label: str,
     on the same inputs, so each bound covers the kernel's own rounding.
     The half-step must also be bitwise repeatable (two launches on the
     same inputs). halfstep_only: the half-step alone. Returns ({kernel:
-    (max_abs_err, max err/bound)}, the f32 operands for timing; with
-    halfstep_only, the padded features and the half-step's x)."""
+    (max_abs_err, max err/bound)}, with K10/K11 also by R under
+    "<kernel> R=<R>", the f32 operands for timing; with halfstep_only, the
+    padded features and the half-step's x)."""
     from nle_tpu_torch.ops.kernels.streaming_kernel import (
         MAX_STREAM_P_FUSED,
         halfstep_plan,
@@ -416,6 +436,7 @@ def hold_streaming(torch, op, eps: float, label: str,
         e, r = check(f"{label} {name}", diff, bound)
         e0, r0 = out.get(kernel, (0.0, 0.0))
         out[kernel] = (max(e, e0), max(r, r0))
+        return e, r
 
     x0, ap0 = streaming_halfstep(fa_rows, fb_cols, mask, fa_rows.new_zeros(
         ppad), sw, pw, eps, unit_x=True)
@@ -457,20 +478,23 @@ def hold_streaming(torch, op, eps: float, label: str,
     if halfstep_only:
         return out, dict(fa_rows=fa_rows, fb_cols=fb_cols, x=xk)
     for R in (1, 2, 3):
-        hold("streaming_ap", f"K10 R={R}",
-             streaming_ap(fa_rows, fb_cols, X[:R].contiguous(), sw, pw)[:, :p]
-             - ref[:R], S_SUM_TOL * ref[3:3 + R])
+        out[f"streaming_ap R={R}"] = hold(
+            "streaming_ap", f"K10 R={R}",
+            streaming_ap(fa_rows, fb_cols, X[:R].contiguous(), sw, pw)[:, :p]
+            - ref[:R], S_SUM_TOL * ref[3:3 + R])
         # Ppad-term fp32 sums: (2 Ppad + 4) u (K |b|).
-        hold("streaming_atb", f"K11 R={R}",
-             streaming_atb(fa_rows, fb_cols, B[:R].contiguous(), sw, pw)
-             - kref[:R], (2 * ppad + 4) * U * kref[3:3 + R])
+        out[f"streaming_atb R={R}"] = hold(
+            "streaming_atb", f"K11 R={R}",
+            streaming_atb(fa_rows, fb_cols, B[:R].contiguous(), sw, pw)
+            - kref[:R], (2 * ppad + 4) * U * kref[3:3 + R])
     del ref, kref, xp, fa64, fb64
     c_row = xk[None].contiguous()               # zero on the pad rows
     uinv_pad = pad(op.Uinv, (0, op.mpad - op.mb, 0, ppad - p)).contiguous()
     out["streaming_gram"] = hold_gram(torch, op, label, fa_rows, fb_cols,
                                       c_row, uinv_pad)
     timing = dict(fa_rows=fa_rows, fb_cols=fb_cols, mask=mask, u=u,
-                  X=X[:1].contiguous(), b=B[:1].contiguous(), c_row=c_row,
+                  X=X[:1].contiguous(), b=B[:1].contiguous(),
+                  X2=X[:2].contiguous(), b2=B[:2].contiguous(), c_row=c_row,
                   uinv_pad=uinv_pad, q=q, qpad=qpad, ppad=ppad)
     return out, timing
 
@@ -2183,6 +2207,313 @@ def lab_phase(torch) -> None:
         del px
 
 
+# [13] the command line: rock2's parameters, the denoise run's bilateral
+# and shrink (sigma color 10, sigma space 10, shrink 2).
+CLI_DENOISE = ("10", "10", "2")
+CLI_OPTIONS = ("--stage1=topk", "--stage1=device", "--precision=float64",
+               "--no-pallas")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_cli(tool: str, args, counts_path: str | None = None):
+    """Start `python -m nle_tpu_torch.cli.<tool> args` in a subprocess from
+    the repo root: the module run as -m runs it (runpy), with the kernels'
+    launch counts of that process written to counts_path at its exit.
+    Returns a zero-arg function that waits for it and gives (rc, stdout,
+    stderr, wall s from its start, launch counts or None)."""
+    code = ("import atexit, json, runpy; "
+            "from nle_tpu_torch.ops.kernels import _build; "
+            + (f"atexit.register(lambda: open({counts_path!r}, 'w').write("
+               "json.dumps(_build.LAUNCHES))); " if counts_path else "")
+            + f"runpy.run_module('nle_tpu_torch.cli.{tool}', "
+            "run_name='__main__', alter_sys=True)")
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code, *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    done = {}
+
+    def reap():
+        # Its own thread, so a run's wall ends when it exits, not when the
+        # caller gets to it.
+        try:
+            done["io"] = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            done["wall"] = time.perf_counter() - t0
+
+    reaper = threading.Thread(target=reap)
+    reaper.start()
+
+    def wait():
+        reaper.join()
+        if "io" not in done:
+            raise AssertionError(f"[13] cli.{tool} {args}: no exit in 600 s")
+        counts = None
+        if counts_path and os.path.exists(counts_path):
+            with open(counts_path) as fh:
+                counts = json.load(fh)
+        return (proc.returncode, *done["io"], done["wall"], counts)
+
+    return wait
+
+
+def cli_ok(label: str, res, stdout_tail: str = "Done."):
+    rc, out, err, wall, counts = res
+    print(f"  {label}: rc {rc}, {wall:.2f} s wall; launches "
+          f"{ {k: v for k, v in (counts or {}).items() if v} }")
+    if rc != 0 or not out.strip().endswith(stdout_tail):
+        raise AssertionError(f"[13] {label}: rc {rc}\n{out[-2000:]}\n"
+                             f"{err[-4000:]}")
+    return counts
+
+
+def hold_device_stage1(torch, img) -> None:
+    """[13c] stage1="device"'s eigensolve on the card at the 1 MP frame's
+    sample set: ka_eigh_stage (Ka and its float32 eigh on the card)
+    against eigh_descending of the same Ka on the CPU (LAPACK). Gates: the
+    eigenvalues within rtol 1e-4 and atol 1e-5 lam_max (the CPU tests'
+    tolerance against nle_tpu's device route); the eps mask (lam[:m] >=
+    eps, lam[m:] zero); the kept pairs within p u lam_max of Ka U = U lam
+    and orthonormal within p u. The kept rank m is printed beside the
+    CPU's and the count of eigenvalues inside the atol band, where a
+    float32 eigh cannot tell a kept eigenvalue from a dropped one."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.affinity import (
+        affinity_block,
+        bandwidth_weights,
+        features,
+    )
+    from nle_tpu_torch.ops.linalg import eigh_descending
+    from nle_tpu_torch.ops.pipeline import ka_eigh_stage
+    from nle_tpu_torch.ops.sampling import sample_grid
+
+    eps = 1e-10
+    h, w = img.shape[:2]
+    grid = sample_grid(h, w, MAIN_ARGS[0], MAIN_ARGS[1])
+    p = grid.n_samples
+    sel = grid.perm[:p]
+    y, rr, cc = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        bgr_to_lab_u8_np(img)[..., 0].reshape(-1)[sel], sel // w, sel % w))
+    sw, pw = bandwidth_weights(MAIN_ARGS[2], MAIN_ARGS[3])
+    V, lam = (a.cpu() for a in ka_eigh_stage(y, rr, cc, sw, pw, p=p,
+                                              eps=eps))
+    f = features(rr, cc, y)
+    Ka = affinity_block(f, f, sw, pw).cpu()
+    _, lam_cpu = eigh_descending(Ka, eps)
+    top = float(lam_cpu.max())
+    check(f"[13c] device stage 1 (p = {p}): card eigenvalues vs the CPU's",
+          lam - lam_cpu, 1e-4 * lam_cpu.abs() + 1e-5 * top)
+    m = int(torch.count_nonzero(lam))
+    if not (bool((lam[:m] >= eps).all()) and not bool(lam[m:].any())):
+        raise AssertionError("[13c] device stage 1: the eps mask is broken")
+    f64 = torch.float64
+    Um, lm, K64 = V[:, :m].to(f64), lam[:m].to(f64), Ka.to(f64)
+    check("[13c] device stage 1: |Ka U - U lam| of the kept pairs",
+          K64 @ Um - Um * lm, torch.full_like(Um, p * U * top))
+    check("[13c] device stage 1: |U^T U - I| of the kept pairs",
+          Um.T @ Um - torch.eye(m, dtype=f64),
+          torch.full((m, m), p * U, dtype=f64))
+    band = int((torch.linalg.eigvalsh(Ka).abs() < 1e-5 * top).sum())
+    print(f"  device stage 1: kept rank m {m} on the card, "
+          f"{int(torch.count_nonzero(lam_cpu))} on the CPU; {band} of {p} "
+          "eigenvalues inside the atol band")
+
+
+def cli_phase(torch, img, dense_out) -> dict:
+    """[13] the CLIs as subprocesses on the card, on the 1 MP frame written
+    to PNG. One at a time, so their walls are their own: (a) cli.enhance,
+    bitwise NLEFilter's train_and_enhance ([5]'s output); (b) cli.denoise
+    dense and --factored (>= 45 dB apart; K10/K11 once each, at R = 2, in
+    the factored run: [3] holds and times them at R = 2 on this frame's
+    shapes), and the bilateral's ms at 1 MP. Then side by side: cli.apply
+    on each saved filter (>= 45 dB from its direct run), (c) each of
+    CLI_OPTIONS against the default route (>= 45 dB, but --stage1=device:
+    a reading, see PERF.md; its eigensolve is held in-process by
+    hold_device_stage1), and (d) the usage and missing-file probes.
+    Returns the counted runs' launch counts by path."""
+    import tempfile
+
+    from nle_tpu_torch import NLEFilter
+    from nle_tpu_torch.color.bilateral import bilateral_filter_u8
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.utils.imageio import imread_bgr, imwrite_bgr
+
+    t13 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    params = [str(a) for a in MAIN_ARGS]
+    weights = [str(x) for x in WEIGHTS]
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def f(name):
+            return os.path.join(tmp, name)
+
+        src = f("frame.png")
+        imwrite_bgr(src, img)
+        print(f"[13] the CLIs as subprocesses on {smi}: "
+              f"{img.shape[0]}x{img.shape[1]} structured frame (seed 0) as "
+              f"PNG, {' '.join(params)}; walls include ~8 s of process "
+              "start and, with --save-filter, the npz's compression")
+
+        # (a) enhance
+        counts = cli_ok("cli.enhance --save-filter", run_cli(
+            "enhance", [src, f("enh.png"), *params, *weights,
+                        f"--save-filter={f('enh.npz')}"], f("c1.json"))())
+        paths["cli_enhance"] = counts
+        for name in ("affinity_matmul", "scaled_gram", "scaled_matmul"):
+            if counts[name] < 1:
+                raise AssertionError(f"[13a] {name} not launched")
+        if counts["sinkhorn_halfstep_int16"] < 2 * MAIN_ARGS[4]:
+            raise AssertionError("[13a] K3 not launched 2 x iters times")
+        enh = imread_bgr(f("enh.png"))
+        same = bool(np.array_equal(enh, dense_out))
+        print(f"  cli.enhance bitwise NLEFilter().train_and_enhance: {same}")
+        if not same:
+            raise AssertionError("[13a] cli.enhance differs from "
+                                 "train_and_enhance")
+
+        # (b) denoise, dense and factored
+        outs = {}
+        for tag, extra in (("dense", []), ("factored", ["--factored"])):
+            res = run_cli("denoise", [src, f(f"dn_{tag}.png"), *params,
+                                      *CLI_DENOISE,
+                                      f"--save-filter={f(f'dn_{tag}.npz')}",
+                                      *extra], f(f"cd_{tag}.json"))()
+            counts = cli_ok(f"cli.denoise {tag} --save-filter", res)
+            paths[f"cli_denoise_{tag}"] = counts
+            eig = [ln for ln in res[1].splitlines() if ln.startswith("eig ")]
+            if (len(eig) != MAIN_ARGS[5]
+                    or not all(float(ln.rsplit(" ", 1)[1]) <= 1.0
+                               for ln in eig)):
+                raise AssertionError(f"[13b] {tag}: eig lines {eig[:3]}...")
+            outs[tag] = imread_bgr(f(f"dn_{tag}.png"))
+        dense_c, fac_c = paths["cli_denoise_dense"], paths[
+            "cli_denoise_factored"]
+        if (dense_c["scaled_matmul"] < 1 or dense_c["affinity_matmul"] < 1
+                or dense_c["scaled_gram"] < 1):
+            raise AssertionError(f"[13b] dense denoise launches {dense_c}")
+        if (fac_c["streaming_halfstep"] < 2 * MAIN_ARGS[4] + 1
+                or fac_c["streaming_gram"] < 1
+                or fac_c["streaming_ap"] != 1 or fac_c["streaming_atb"] != 1
+                or any(fac_c[k] for k in DENSE_KERNELS)):
+            raise AssertionError(f"[13b] factored denoise launches {fac_c}: "
+                                 "K10/K11 must run once each (the R = 2 "
+                                 "chroma apply) and no dense kernel")
+        db = psnr(outs["dense"], outs["factored"])
+        print(f"  cli.denoise dense vs --factored: {db:.2f} dB; "
+              f"PSNR(denoised, input) {psnr(outs['dense'], img):.2f} dB")
+        if not db >= 45.0:
+            raise AssertionError(f"[13b] dense vs factored {db:.2f} dB")
+        # The denoise flow in-process, warm (no process start, no npz):
+        # train_for_denoise + denoise, each route once untimed, once timed.
+        for tag, fac in (("dense", False), ("factored", True)):
+            walls = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                flt = NLEFilter(device="cuda", factored=fac)
+                flt.train_for_denoise(img, *MAIN_ARGS,
+                                      *map(float, CLI_DENOISE[:2]))
+                got = flt.denoise(img, float(CLI_DENOISE[2]),
+                                  *map(float, CLI_DENOISE[:2]))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                del flt
+            print(f"  NLEFilter denoise {tag} in-process: {walls[0]:.3f} s, "
+                  f"warm {walls[1]:.3f} s; bitwise the CLI's: "
+                  f"{bool(np.array_equal(got, outs[tag]))}")
+        L = torch.from_numpy(bgr_to_lab_u8_np(img)[..., 0]).cuda()
+        bil_ms = cuda_ms(torch, lambda: bilateral_filter_u8(
+            L, -1, float(CLI_DENOISE[0]), float(CLI_DENOISE[1])))
+        print(f"  bilateral_filter_u8 at 1 MP (sigmas {CLI_DENOISE[0]}, "
+              f"{CLI_DENOISE[1]}; plain PyTorch): {bil_ms:.3f} ms")
+        del L
+        torch.cuda.empty_cache()
+        hold_device_stage1(torch, img)
+
+        # Side by side: the applies, (c) the options and (d) the probes.
+        t_side = time.perf_counter()
+        applies = {"enhance": run_cli("apply", [f("enh.npz"), src,
+                                                f("app.png"), *weights])}
+        for tag in outs:
+            applies[tag] = run_cli("apply", [
+                f(f"dn_{tag}.npz"), src, f(f"ap_{tag}.png"), "--op=denoise",
+                f"--shrink={CLI_DENOISE[2]}"])
+        options = {}
+        for flag in CLI_OPTIONS:
+            tag = flag.strip("-").replace("=", "_")
+            options[flag] = (tag, run_cli(
+                "enhance", [src, f(f"{tag}.png"), *params, *weights, flag],
+                f(f"co_{tag}.json")))
+        probes = {
+            "enhance usage": (run_cli("enhance", ["a", "b", "1"]),
+                              "Usage: enhance <image> <output>"),
+            "denoise usage": (run_cli("denoise", ["a"] * 5),
+                              "Usage: denoise <image> <output>"),
+            "apply usage": (run_cli("apply", []),
+                            "Usage: nle-apply <filter.npz> <image>"),
+            "enhance missing file": (run_cli(
+                "enhance", ["/nonexistent.png", f("x.png"), *params,
+                            *weights]),
+                "Failed to read file from /nonexistent.png"),
+            "apply missing filter": (run_cli(
+                "apply", ["/nope.npz", src, f("x.png"), "1"]),
+                "Failed to read filter from /nope.npz"),
+        }
+        print(f"  side by side: {len(applies) + len(options)} runs on the "
+              f"card and {len(probes)} probes at once")
+        for tag, wait in applies.items():
+            label = ("cli.apply" if tag == "enhance"
+                     else f"cli.apply --op=denoise ({tag} filter)")
+            cli_ok(label, wait())
+            want = dense_out if tag == "enhance" else outs[tag]
+            got = imread_bgr(f("app.png") if tag == "enhance"
+                             else f(f"ap_{tag}.png"))
+            db = psnr(got, want)
+            print(f"  {label} vs its direct run: {db:.2f} dB, bitwise "
+                  f"{bool(np.array_equal(got, want))}")
+            if not db >= 45.0:
+                raise AssertionError(f"[13] {label}: {db:.2f} dB")
+        for flag, (tag, wait) in options.items():
+            counts = cli_ok(f"cli.enhance {flag}", wait())
+            paths[f"cli_enhance_{tag}"] = counts
+            if flag in ("--precision=float64", "--no-pallas"):
+                if any(counts.values()):
+                    raise AssertionError(f"[13c] {flag} launched a kernel: "
+                                         f"{counts}")
+            elif (counts["affinity_matmul"] < 1 or counts["scaled_matmul"] < 1
+                  or counts["sinkhorn_halfstep_int16"] < 2 * MAIN_ARGS[4]):
+                raise AssertionError(f"[13c] {flag} launches {counts}")
+            out = imread_bgr(f(f"{tag}.png"))
+            if out.shape != img.shape or out.dtype != np.uint8:
+                raise AssertionError(f"[13c] {flag}: {out.shape} {out.dtype}")
+            db = psnr(out, dense_out)
+            # The device route's float32 eigh of Ka keeps noise eigenvalues
+            # (nle_tpu's own device route is as far from its default route,
+            # PERF.md): a reading, held on the CPU to nle_tpu's same route.
+            gated = flag != "--stage1=device"
+            print(f"  {flag} vs the default route: {db:.2f} dB"
+                  + ("" if gated else " (a reading, ungated)"))
+            if gated and not db >= 45.0:
+                raise AssertionError(f"[13c] {flag}: {db:.2f} dB")
+        for label, (wait, needle) in probes.items():
+            rc, _, err, wall, _ = wait()
+            ok = rc == 0 and needle in err
+            print(f"  probe {label}: rc {rc}, {wall:.2f} s, "
+                  f"{'the reference message' if ok else repr(err[:200])}")
+            if not ok:
+                raise AssertionError(f"[13d] {label}: {err[-2000:]}")
+        print(f"  side by side: {time.perf_counter() - t_side:.1f} s")
+    print(f"[13] the CLIs: {time.perf_counter() - t13:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2470,6 +2801,26 @@ def main() -> int:
                                                       sw, pw)),
            4 * (4 * qpad + 4 * ppad), (ENTRY_FLOPS + 2) * entries,
            sass_key="stream_atb_kernelILi1ELb0E", entries=entries)
+    # R = 2, the factored denoise's apply (its two chroma planes as kernel
+    # rows, [13b]): held above, timed here into the rows' r2_* fields.
+    X2, b2 = t["X2"], t["b2"]
+    for name, fn, plain in (
+            ("streaming_ap",
+             lambda: streaming_ap(fa_rows, fb_cols, X2, sw, pw),
+             lambda: streaming_ap_plain(fa_rows, fb_cols, X2, sw, pw)),
+            ("streaming_atb",
+             lambda: streaming_atb(fa_rows, fb_cols, b2, sw, pw),
+             lambda: streaming_atb_plain(fa_rows, fb_cols, b2, sw, pw))):
+        bms, by = bound_ms(4 * (5 * qpad + 5 * ppad),
+                           (ENTRY_FLOPS + 4) * entries)
+        row = next(r for r in rows if r["name"] == name)
+        err = errs[f"{name} R=2"]
+        row.update({"r2_max_abs_err": err[0], "r2_err_over_bound": err[1],
+                    "r2_ms": cuda_ms(torch, fn, reps=10),
+                    "r2_plain_ms": cuda_ms(torch, plain),
+                    "r2_bound_ms": bms, "r2_bound_by": by})
+        print(f"  {name} R=2: kernel {row['r2_ms']:.3f} ms, plain "
+              f"{row['r2_plain_ms']:.3f} ms, bound {bms:.4f} ms ({by})")
     record("streaming_gram", "nle_tpu_torch/csrc/streaming.cu",
            "nle_tpu/ops/pallas/streaming_kernel.py:453",
            errs["streaming_gram"],
@@ -2485,7 +2836,7 @@ def main() -> int:
         torch, lambda: streaming_scaled_gram(fa_rows, fb_cols, c_row,
                                              uinv_pad, sw, pw),
         K12_TRACE)), ex2_build, mpad, "[3] 1 MP")
-    del fa_rows, fb_cols, mask, u, X, b, c_row, uinv_pad, t, op
+    del fa_rows, fb_cols, mask, u, X, b, X2, b2, c_row, uinv_pad, t, op
     torch.cuda.empty_cache()
 
     # -- [4] small frame: card against CPU, and repeatability ------------
@@ -2931,6 +3282,9 @@ def main() -> int:
     # -- [12] stream mode, host Lab and the port bench ------------------
     stream_phase(torch, NLEFilter, _build, img)
 
+    # -- [13] the command line --------------------------------------------
+    cli_paths = cli_phase(torch, img, warm)
+
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the
     # rows [9] adds); every path's count rides beside it.
@@ -2939,7 +3293,8 @@ def main() -> int:
              "dense_grid_16mp": grid_counts, "dense_p1200_1mp": p1200_counts,
              "dense_grid_streaming_4mp": gs_counts,
              "dense_grid_dense_4mp": gd_counts,
-             "dense_mpad2176_4mp": wd_counts, **mode_paths, **ab_paths}
+             "dense_mpad2176_4mp": wd_counts, **mode_paths, **ab_paths,
+             **cli_paths}
     for row in rows:
         path, key = row.pop("_launch")
         row["launches"] = paths[path][key]

@@ -47,3 +47,24 @@ def pin_fp32_precision() -> None:
             "'highest' (no TF32).")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 must stay disabled for the port.")
+
+
+# --check-nans (the CLIs): the port's counterpart of nle_tpu's
+# jax_debug_nans, checked at each stage output (rc/Sb, V, S, the edit).
+_check_nans = False
+
+
+def set_check_nans(on: bool) -> None:
+    global _check_nans
+    _check_nans = bool(on)
+
+
+def check_nans(what: str, *arrays) -> None:
+    """Raise FloatingPointError when check-nans is on and one of `arrays`
+    (tensors or NumPy arrays) holds a NaN; a no-op when it is off."""
+    if not _check_nans:
+        return
+    for a in arrays:
+        t = torch.as_tensor(a)
+        if t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"NaN in {what}")

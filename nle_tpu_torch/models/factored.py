@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from nle_tpu_torch.config import EPS, resolve_device
+from nle_tpu_torch.config import EPS, check_nans, resolve_device
 from nle_tpu_torch.ops.affinity import bandwidth_weights
 from nle_tpu_torch.ops.pipeline import (
     bucket_m,
@@ -76,8 +76,10 @@ class FactoredFilter:
         sw, pw = bandwidth_weights(self.hx, self.hy)
         fs = torch.as_tensor(f_eigvals, dtype=torch.float32,
                              device=self.c.device)
-        return factored_apply(y_packed, y_train, rr, cc, self.c, self.v_head,
-                              self.w, fs, sw, pw, p=self.v_head.shape[0])
+        out = factored_apply(y_packed, y_train, rr, cc, self.c, self.v_head,
+                             self.w, fs, sw, pw, p=self.v_head.shape[0])
+        check_nans("the edit", out)
+        return out
 
     def apply(self, channel, transformed_eigvals) -> np.ndarray:
         """V diag(f(S)) V^T c on a pixel-order channel, no clamp (host array
@@ -194,11 +196,15 @@ def train_filter_factored(channel, n_row_samples: int, n_col_samples: int,
     del y, rr, cc
     k = min(n_eig_vectors, m)
     with stage("Orthogonalize"):
-        va_np, Sq = host_orthogonalize(rc_np, sb.cpu().double().numpy(),
-                                       Um64, lam64, m, mb, k, float(eps))
+        sb_np = sb.cpu().double().numpy()
+        check_nans("rc/Sb", rc_np, sb_np)
+        va_np, Sq = host_orthogonalize(rc_np, sb_np, Um64, lam64, m, mb, k,
+                                       float(eps))
         va_grt = torch.from_numpy(va_np).to(dev, torch.float32)
         V_head, W = factored_filter_pieces(stage1, c, va_grt, p=p, m=m,
                                            mb=mb)
+    check_nans("V", V_head, W)
+    check_nans("S", Sq)
     return FactoredFilter(
         y_train=packed_np, c=c, v_head=V_head, w=W,
         eigvals=torch.from_numpy(Sq).to(dev, torch.float32), nrows=nrows,

@@ -1,9 +1,13 @@
 """NLEFilter — the model layer: train once, edit many (port of
-nle_tpu/models/filter.py, enhance path).
+nle_tpu/models/filter.py).
 
 `train_for_enhancement` learns the global filter eigensystem from the 8-bit
 Lab luminance; `enhance` re-weights its eigen detail layers;
 `train_and_enhance` does both with the first edit fused into stage 2b.
+`train_for_denoise` trains on the bilateral-filtered luminance and
+`denoise` applies GLIDE's edit: the bilateral L, and the chroma planes
+through the filter with shrunk eigenvalues (reference
+src/filter.cpp:349-410, 521-538).
 `TrainedFilter.save/load` use the JAX package's npz format (eigvecs,
 eigvals, shape, perm), so a filter trained by either package edits in the
 other. NLEFilter(factored=True) trains and edits the V-free FactoredFilter
@@ -24,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from nle_tpu_torch.color.bilateral import bilateral_filter_u8
 from nle_tpu_torch.color.lab import bgr_to_lab_u8_np, lab_to_bgr_u8_np
 from nle_tpu_torch.config import resolve_device
 from nle_tpu_torch.models.factored import FactoredFilter, train_filter_factored
@@ -34,8 +39,11 @@ from nle_tpu_torch.ops.pipeline import (
     train_filter,
 )
 from nle_tpu_torch.ops.sampling import sample_grid
-from nle_tpu_torch.ops.transform import transform_eigenvalues
-from nle_tpu_torch.utils.logging import stage
+from nle_tpu_torch.ops.transform import (
+    shrink_eigenvalues,
+    transform_eigenvalues,
+)
+from nle_tpu_torch.utils.logging import logger, stage
 from nle_tpu_torch.utils.transfer import Fetch, upload
 
 
@@ -46,8 +54,8 @@ class TrainedFilter:
     when `perm` is set (perm[i] = flat pixel index of packed row i);
     perm=None means pixel order."""
 
-    eigvecs: torch.Tensor  # (N, k) float32
-    eigvals: torch.Tensor  # (k,) float32
+    eigvecs: torch.Tensor  # (N, k), float32 (float64 on the float64 route)
+    eigvals: torch.Tensor  # (k,), the same dtype
     nrows: int
     ncols: int
     perm: np.ndarray | None = None
@@ -73,6 +81,15 @@ class TrainedFilter:
             packed_np, y_dev = self.y_cache
             n += packed_np.nbytes + y_dev.numel() * y_dev.element_size()
         return int(n)
+
+    def eigvecs_pixel_order(self) -> np.ndarray:
+        """Eigenvectors with rows in flat pixel order (host array)."""
+        V = Fetch(self.eigvecs).result()
+        if self.perm is None:
+            return V
+        out = np.empty_like(V)
+        out[self.perm] = V
+        return out
 
     def save(self, path: str) -> None:
         arrs = dict(
@@ -152,13 +169,22 @@ class NLEFilter:
     """Train-and-edit wrapper around the functional pipeline, on one
     explicit device ("cuda" or "cpu"). A given `trained` filter (either
     kind) moves to that device, so every edit runs where the caller asked.
-    factored=True trains the V-free FactoredFilter (the capacity path)."""
+    factored=True trains the V-free FactoredFilter (the capacity path).
+    train_kwargs go to train_filter as nle_tpu's NLEFilter passes them:
+    eps, stage1 ("host64" | "topk" | "device"), dtype (float32 | float64),
+    use_kernels (nle_tpu's use_pallas) and streaming. The factored path
+    takes eps alone: it warns and ignores the others."""
 
-    def __init__(self, trained=None, *, device="cuda",
-                 eps: float | None = None, factored: bool = False):
+    TRAIN_OPTIONS = ("eps", "stage1", "dtype", "use_kernels", "streaming")
+
+    def __init__(self, trained=None, *, device="cuda", factored: bool = False,
+                 **train_kwargs):
+        unknown = sorted(set(train_kwargs) - set(self.TRAIN_OPTIONS))
+        if unknown:
+            raise TypeError(f"NLEFilter: unknown option(s) {unknown}")
         self.device = resolve_device(device)
-        self._eps = eps
         self._factored = factored
+        self._train_kwargs = train_kwargs
         self._trained = None if trained is None else trained.to(self.device)
         self._lab_cache: tuple[np.ndarray, np.ndarray] | None = None
         # The training channel's device buffer, when the filter carries one
@@ -200,11 +226,17 @@ class NLEFilter:
     def _train(self, channel, n_row_samples, n_col_samples, hx, hy,
                n_sinkhorn_iter, n_eigen_vectors, edit_weights=None):
         if self._factored:
+            ignored = sorted(set(self._train_kwargs) - {"eps"})
+            if ignored:
+                logger.warning(
+                    "factored training ignores option(s): %s (the factored "
+                    "path is float32 kernel-streaming only).",
+                    ", ".join(ignored))
             self._packed_y_cache = None
             self._trained = train_filter_factored(
                 channel, n_row_samples, n_col_samples, hx, hy,
                 n_sinkhorn_iter, n_eigen_vectors, device=self.device,
-                eps=self._eps)
+                eps=self._train_kwargs.get("eps"))
             return self._trained
         nrows, ncols = channel.shape
         grid = sample_grid(nrows, ncols, n_row_samples, n_col_samples)
@@ -214,8 +246,9 @@ class NLEFilter:
         self._packed_y_cache = (packed_np, packed_y) if is_8bit else None
         out = train_filter(
             channel, n_row_samples, n_col_samples, hx, hy, n_sinkhorn_iter,
-            n_eigen_vectors, device=self.device, eps=self._eps, grid=grid,
-            packed_y=packed_y, edit_weights=edit_weights, pixel_order=False)
+            n_eigen_vectors, device=self.device, grid=grid,
+            packed_y=packed_y, edit_weights=edit_weights, pixel_order=False,
+            **self._train_kwargs)
         self._trained = TrainedFilter(out[0], out[1], nrows, ncols,
                                       perm=grid.perm,
                                       y_cache=self._packed_y_cache)
@@ -252,6 +285,29 @@ class NLEFilter:
             n_eigen_vectors, edit_weights=list(weights))
         return self._recompose(lab, edit, trained.perm)
 
+    def _bilateral_L(self, lab, sigma_color, sigma_space) -> np.ndarray:
+        """The bilateral-filtered L plane (host u8), computed on the
+        filter's device."""
+        with stage("Bilateral filter"):
+            L = upload(np.ascontiguousarray(lab[..., 0]), self.device)
+            return Fetch(bilateral_filter_u8(L, -1, sigma_color,
+                                             sigma_space)).result()
+
+    def train_for_denoise(self, image_bgr_u8, n_row_samples, n_col_samples,
+                          hx, hy, n_sinkhorn_iter, n_eigen_vectors,
+                          sigma_color=10, sigma_space=10, *,
+                          bilateral_L=None):
+        """Train on the bilateral-prefiltered luminance
+        (src/filter.cpp:521-538). bilateral_L: a precomputed bilateral L
+        plane (host u8 (H, W)) to train on instead of computing it — the
+        substitution point for another bilateral's exact output."""
+        lab = self._to_lab(image_bgr_u8)
+        if bilateral_L is None:
+            bilateral_L = self._bilateral_L(lab, sigma_color, sigma_space)
+        return self._train(np.asarray(bilateral_L).astype(np.float32),
+                           n_row_samples, n_col_samples, hx, hy,
+                           n_sinkhorn_iter, n_eigen_vectors)
+
     def apply(self, channel, transformed_eigvals) -> np.ndarray:
         """V diag(f(S)) V^T c on a pixel-order channel, no clamp
         (src/filter.cpp:445-458); host array in and out."""
@@ -263,18 +319,51 @@ class NLEFilter:
             raise ValueError(
                 "Number of values in channel must match that of training "
                 "image.")
-        flat = channel_np.reshape(-1).astype(np.float32)
+        flat = channel_np.reshape(-1)
         if t.perm is not None:
             flat = flat[t.perm]
-        fS = torch.as_tensor(transformed_eigvals, dtype=torch.float32,
+        # In V's dtype, as nle_tpu casts the channel (float64 on that route).
+        dtype = t.eigvecs.dtype
+        fS = torch.as_tensor(transformed_eigvals, dtype=dtype,
                              device=self.device)
-        out = Fetch(apply_filter(t.eigvecs, fS,
-                                 upload(flat, self.device))).result()
+        out = Fetch(apply_filter(t.eigvecs, fS, upload(
+            flat, self.device).to(dtype))).result()
         if t.perm is not None:
             unpacked = np.empty_like(out)
             unpacked[t.perm] = out
             out = unpacked
         return out.reshape(channel_np.shape)
+
+    def _apply_edit_u8(self, channels_u8: np.ndarray, scale_vals) -> np.ndarray:
+        """Filter and clamp 8-bit channel(s), pixel order in and out: (H, W)
+        or (H, W, C), all C channels through one application. The single
+        channel the filter was trained on reuses its device buffer."""
+        t = self.trained
+        if not isinstance(t, TrainedFilter):     # FactoredFilter (V-free)
+            return t.apply_u8(channels_u8, scale_vals)
+        shape = channels_u8.shape
+        flat = channels_u8.reshape(t.n_pixels, -1)
+        if t.perm is not None:
+            flat = flat[t.perm]
+        # Reuse the training channel's device buffer only when this channel
+        # is that very channel (a content check, never object identity).
+        y = None
+        if (self._packed_y_cache is not None and flat.shape[1] == 1
+                and flat.dtype == np.uint8):
+            cached_np, cached_dev = self._packed_y_cache
+            if np.array_equal(flat[:, 0], cached_np):
+                y = cached_dev
+        if y is None:
+            y = upload(flat[:, 0] if flat.shape[1] == 1 else flat,
+                       self.device)
+        with stage("Fetch edit"):
+            out = Fetch(apply_filter_u8(t.eigvecs, scale_vals, y)).result()
+        out = out.reshape(flat.shape)
+        if t.perm is not None:
+            unpacked = np.empty_like(out)
+            unpacked[t.perm] = out
+            out = unpacked
+        return out.reshape(shape)
 
     def enhance(self, image_bgr_u8, weights) -> np.ndarray:
         """Detail-layer recomposition on L only (src/filter.cpp:412-443)."""
@@ -282,24 +371,30 @@ class NLEFilter:
         image = _check_image(image_bgr_u8, t.n_pixels)
         lab = self._to_lab(image)
         fS = transform_eigenvalues(t.eigvals, weights)
-        if not isinstance(t, TrainedFilter):     # FactoredFilter (V-free)
-            out = lab.copy()
-            out[..., 0] = t.apply_u8(lab[..., 0], fS)
-            with stage("Lab to BGR"):
-                return lab_to_bgr_u8_np(out)
-        flat = lab[..., 0].reshape(-1)
-        if t.perm is not None:
-            flat = flat[t.perm]
-        # Reuse the training channel's device buffer only when this channel
-        # is that very channel (a content check, never object identity).
-        y = None
-        if self._packed_y_cache is not None:
-            cached_np, cached_dev = self._packed_y_cache
-            if np.array_equal(flat, cached_np):
-                y = cached_dev
-        if y is None:
-            y = upload(flat, self.device)
-        return self._recompose(lab, apply_filter_u8(t.eigvecs, fS, y), t.perm)
+        out = lab.copy()
+        out[..., 0] = self._apply_edit_u8(lab[..., 0], fS)
+        with stage("Lab to BGR"):
+            return lab_to_bgr_u8_np(out)
+
+    def denoise(self, image_bgr_u8, shrink_factor, sigma_color=10,
+                sigma_space=10, *, bilateral_L=None) -> np.ndarray:
+        """GLIDE-style global denoise (src/filter.cpp:349-410): the
+        bilateral on L, the filter with eigenvalues shrunk to
+        min(lam, 1)^shrink on both chroma planes in one application.
+        bilateral_L: a precomputed bilateral L plane (host u8 (H, W)) to use
+        instead of computing it."""
+        t = self.trained
+        image = _check_image(image_bgr_u8, t.n_pixels)
+        lab = self._to_lab(image)
+        teig = shrink_eigenvalues(t.eigvals, shrink_factor)
+        out = lab.copy()
+        if bilateral_L is None:
+            bilateral_L = self._bilateral_L(lab, sigma_color, sigma_space)
+        out[..., 0] = bilateral_L
+        out[..., 1:] = self._apply_edit_u8(
+            np.ascontiguousarray(lab[..., 1:]), teig)
+        with stage("Lab to BGR"):
+            return lab_to_bgr_u8_np(out)
 
     @staticmethod
     def _recompose(lab, filtered_dev, perm) -> np.ndarray:

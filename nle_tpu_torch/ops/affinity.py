@@ -22,19 +22,22 @@ import numpy as np
 import torch
 
 
-def features(rows: torch.Tensor, cols: torch.Tensor,
-             y: torch.Tensor) -> torch.Tensor:
-    """Raw pixel features (row, col, intensity) as (N, 3) float32 —
-    unscaled on purpose (see the precision note)."""
-    return torch.stack([rows.float(), cols.float(), y.float()], dim=-1)
+def features(rows: torch.Tensor, cols: torch.Tensor, y: torch.Tensor,
+             dtype=torch.float32) -> torch.Tensor:
+    """Raw pixel features (row, col, intensity) as (N, 3) in `dtype`
+    (float32 but on the float64 route) — unscaled on purpose (see the
+    precision note)."""
+    return torch.stack([rows.to(dtype), cols.to(dtype), y.to(dtype)], dim=-1)
 
 
-def bandwidth_weights(hx, hy) -> tuple[float, float]:
+def bandwidth_weights(hx, hy, dtype=torch.float32) -> tuple[float, float]:
     """(sw, pw) = (1/hx^2, 1/hy^2) computed in float64 like the reference
-    (src/filter.cpp:128-129), then rounded to float32 — the values the
-    kernels and the JAX package multiply with."""
+    (src/filter.cpp:128-129), then rounded to `dtype` — float32 gives the
+    values the kernels and the JAX package multiply with."""
     sw = 1.0 / (float(hx) * float(hx))
     pw = 1.0 / (float(hy) * float(hy))
+    if dtype == torch.float64:
+        return sw, pw
     return float(np.float32(sw)), float(np.float32(pw))
 
 
@@ -57,3 +60,4 @@ def affinity_matmul(fa: torch.Tensor, fb: torch.Tensor, B: torch.Tensor,
     )
 
     return affinity_matmul_kernel(fa, fb, B, sw, pw, out_rows=out_rows)
+

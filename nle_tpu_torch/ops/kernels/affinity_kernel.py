@@ -49,6 +49,7 @@ AFF_STAGES = 3
 AFF_BUILD = 4
 P_TILE = AFF_K       # p pads to a multiple of the core's step
 ROW_TILE = AFF_ROWS  # K1's out_rows, K12's Qpad and chunks: whole blocks
+PLAIN_ROWS = 16384   # pixel rows of the plain version's affinity blocks
 
 
 class AffinityPlan(NamedTuple):
@@ -96,9 +97,12 @@ def _pad_out(out: torch.Tensor, out_rows: int, mpad: int) -> torch.Tensor:
 
 
 def affinity_matmul_plain(fa, fb, B, sw, pw, out_rows: int | None = None):
-    """Plain PyTorch K1: the (q, p) block materialized, then one fp32
-    matmul. out_rows gives the zero-tailed (out_rows, mpad) layout."""
-    out = affinity_block(fb, fa, sw, pw) @ B
+    """Plain PyTorch K1, in the operands' dtype: (PLAIN_ROWS, p) affinity
+    blocks materialized one at a time, each times B (nle_tpu's
+    affinity_matmul_xla). out_rows gives the zero-tailed (out_rows, mpad)
+    layout."""
+    out = torch.cat([affinity_block(fb[i:i + PLAIN_ROWS], fa, sw, pw) @ B
+                     for i in range(0, max(fb.shape[0], 1), PLAIN_ROWS)])
     if out_rows is None:
         return out
     return _pad_out(out, out_rows, round_up(B.shape[1], COL_TILE))

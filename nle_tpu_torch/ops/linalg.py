@@ -1,13 +1,17 @@
-"""Host f64 eigensolvers and the eps-guarded reciprocal (port of
-nle_tpu/ops/linalg.py).
+"""Eigensolvers and the eps-guarded inverses (port of nle_tpu/ops/linalg.py).
 
 - `eigh64`: float64 LAPACK (scipy's evd solver, ascending), reading the
   LOWER triangle only — the repo-wide eigh rule.
+- `eigh_descending` == `eigenDecomposition` (src/filter.cpp:204-228) on a
+  tensor, in its dtype and on its device: the lower triangle mirrored,
+  eigenvalues descending, those below eps masked to zero.
 - `topk_eigendecomposition`: the reference's optional Spectra path
   (src/filter.cpp:169-200) on ARPACK with a pinned start vector, so
   repeated trainings are bitwise repeatable.
 - `safe_reciprocal` == `inplaceReciprocal` (src/filter.cpp:42-54):
-  x -> 1/x where |x| >= eps else 0, on tensors.
+  x -> 1/x where |x| >= eps else 0, on tensors; `safe_rsqrt` the
+  x -> x^-1/2 where x >= eps else 0 of Lambda^{-1/2} (src/filter.cpp:
+  289-291, 319-321).
 """
 
 from __future__ import annotations
@@ -28,12 +32,36 @@ def safe_reciprocal(x: torch.Tensor, eps: float) -> torch.Tensor:
                        torch.zeros_like(x))
 
 
+def safe_rsqrt(x: torch.Tensor, eps: float) -> torch.Tensor:
+    # x >= eps, not |x| >= eps: a negative x must give the masked 0.
+    valid = x >= eps
+    return torch.where(valid, torch.rsqrt(torch.where(valid, x,
+                                                      torch.ones_like(x))),
+                       torch.zeros_like(x))
+
+
+def eigh_descending(M: torch.Tensor, eps: float):
+    """Full symmetric eigendecomposition, descending, eps-masked: (U (n, n),
+    lam (n,)) with lam[i] < eps replaced by 0, by torch.linalg.eigh in M's
+    dtype on M's device. Only the lower triangle is read (mirrored
+    explicitly, as Eigen's SelfAdjointEigenSolver reads it)."""
+    M = torch.tril(M) + torch.tril(M, -1).T
+    lam, U = torch.linalg.eigh(M)
+    lam = torch.flip(lam, (0,))
+    U = torch.flip(U, (1,))
+    return U, torch.where(lam >= eps, lam, torch.zeros_like(lam))
+
+
 def topk_eigendecomposition(M: np.ndarray, n_largest: int,
-                            eps: float = 1e-10):
+                            eps: float = 1e-10, *,
+                            return_converged: bool = False):
     """Iterative top-k symmetric eigensolver on the host (ARPACK, largest
     magnitude, k clamped to n-1, eigenvalues below eps truncated).
     Non-convergence warns and continues, as the reference does; a hard
-    ARPACK failure falls back to the dense solver."""
+    ARPACK failure falls back to the dense solver. return_converged=True
+    appends a bool, False when ARPACK stopped short: a short result that
+    did not converge looks like an eps truncation by its length alone, so
+    rank-finding callers (ka_eigh_topk_host64) need it."""
     import scipy.sparse.linalg as spla
 
     from nle_tpu_torch.utils.logging import logger
@@ -41,11 +69,13 @@ def topk_eigendecomposition(M: np.ndarray, n_largest: int,
     M = np.asarray(M, np.float64)
     n = M.shape[0]
     k = min(n_largest, n - 1)
+    converged = True
     if k < 1:
         lam, U = eigh64(M)
         lam, U = lam[::-1].copy(), U[:, ::-1].copy()
         keep = int(np.count_nonzero(lam >= eps))
-        return U[:, :keep], lam[:keep]
+        out = (U[:, :keep], lam[:keep])
+        return (*out, True) if return_converged else out
     ncv = min(2 * k, n)
     v0 = np.full(n, 1.0 / np.sqrt(n))
     try:
@@ -55,6 +85,7 @@ def topk_eigendecomposition(M: np.ndarray, n_largest: int,
             "Eigen decomposition NOT successful. Results might be inaccurate."
         )
         lam, U = e.eigenvalues, e.eigenvectors
+        converged = False
     except spla.ArpackError as e:
         logger.warning(
             "Top-k eigensolver failed (%s); falling back to dense eigh.", e)
@@ -67,4 +98,4 @@ def topk_eigendecomposition(M: np.ndarray, n_largest: int,
     keep = int(np.count_nonzero(lam >= eps))
     if keep < lam.size:
         U, lam = U[:, :keep], lam[:keep]
-    return U, lam
+    return (U, lam, converged) if return_converged else (U, lam)

@@ -1,5 +1,7 @@
-"""Host float64 orthogonalization chain (port of nle_tpu/ops/orthogonalize.py
-`_scaled_congruence` and `host_chain64`, arithmetic unchanged).
+"""Orthogonalization (port of nle_tpu/ops/orthogonalize.py: the host
+float64 chain `_scaled_congruence` and `host_chain64`, arithmetic
+unchanged, and `orthogonalize_factored`, the whole-float64 route's chain
+on the device).
 
 Reference semantics (src/filter.cpp:282-331):
     Wa^{-1/2} = U diag(lam^{-1/2}) U^T
@@ -19,7 +21,14 @@ import numpy as np
 import scipy.linalg as sla
 from scipy.linalg import blas as slb
 
-from nle_tpu_torch.ops.linalg import eigh64, topk_eigendecomposition
+import torch
+
+from nle_tpu_torch.ops.linalg import (
+    eigh64,
+    eigh_descending,
+    safe_rsqrt,
+    topk_eigendecomposition,
+)
 
 
 def _scaled_congruence(B: np.ndarray, sb: np.ndarray) -> np.ndarray:
@@ -98,3 +107,29 @@ def host_chain64(wa, rga, sb, k: int, eps: float, q_solver: str = "auto"):
     va = wa @ T
     grt = E.T @ X
     return va, grt, Sq
+
+
+def orthogonalize_factored(Wa: torch.Tensor, RGa: torch.Tensor,
+                           phi_b: torch.Tensor, c_b: torch.Tensor,
+                           r_a: torch.Tensor, Ga: torch.Tensor,
+                           n_eig_vectors: int, eps: float):
+    """(V (N, k), Sq (k,)) in the operands' dtype on their device: the
+    one-shot orthogonalization with Wab kept factored (Wab Wab^T = RGa Sb
+    RGa^T, Sb = (c_b phi_b)^T (c_b phi_b)). Wa (m, m) the balanced top
+    block, phi_b (N - m, m) the factor rows below it, c_b their Sinkhorn
+    column scaling, r_a the top block's row scaling, Ga = phi[:m] * lam.
+    The whole-float64 route (train_filter_stage2) runs it; the float32
+    routes split it around host_chain64."""
+    k = min(n_eig_vectors, Wa.shape[0])
+    cphib = c_b[:, None] * phi_b
+    Sb = cphib.T @ cphib
+    Uw, lw = eigh_descending(Wa, eps)
+    inv_root_wa = (Uw * safe_rsqrt(lw, eps)[None, :]) @ Uw.T
+    Q = Wa + inv_root_wa @ (RGa @ Sb @ RGa.T) @ inv_root_wa
+    Uq, lq = eigh_descending(Q, eps)
+    Vq = Uq[:, :k]
+    Sq = lq[:k]
+    T = inv_root_wa @ (Vq * safe_rsqrt(Sq, eps)[None, :])
+    Va = Wa @ T
+    GrT = Ga.T @ (r_a[:, None] * T)
+    return torch.cat([Va, cphib @ GrT], dim=0), Sq

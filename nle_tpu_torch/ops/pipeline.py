@@ -48,13 +48,15 @@ import os
 import numpy as np
 import torch
 
-from nle_tpu_torch.config import EPS, resolve_device
+from nle_tpu_torch.config import EPS, check_nans, resolve_device
 from nle_tpu_torch.ops.affinity import (
+    affinity_block,
     affinity_matmul,
     bandwidth_weights,
     features,
 )
 from nle_tpu_torch.ops.kernels._common import round_up
+from nle_tpu_torch.ops.kernels.affinity_kernel import affinity_matmul_plain
 from nle_tpu_torch.ops.kernels.scaled_matmul_kernel import (
     MATMUL_COL_ALIGN,
     scaled_gram,
@@ -76,9 +78,18 @@ from nle_tpu_torch.ops.kernels.streaming_kernel import (
     streaming_scaled_gram,
     streaming_sinkhorn_vectors,
 )
-from nle_tpu_torch.ops.linalg import eigh64
-from nle_tpu_torch.ops.orthogonalize import host_chain64
+from nle_tpu_torch.ops.linalg import (
+    eigh64,
+    eigh_descending,
+    safe_reciprocal,
+    topk_eigendecomposition,
+)
+from nle_tpu_torch.ops.orthogonalize import (
+    host_chain64,
+    orthogonalize_factored,
+)
 from nle_tpu_torch.ops.sampling import SampleGrid, sample_grid
+from nle_tpu_torch.ops.sinkhorn import sinkhorn_vectors
 from nle_tpu_torch.ops.transform import transform_eigenvalues
 from nle_tpu_torch.utils.logging import (
     carrier_log,
@@ -118,6 +129,44 @@ def ka_eigh_host64(y_sel, rows_sel, cols_sel, hx, hy, eps):
     return U_m, lam_m, U_m / lam_m[None, :]
 
 
+def ka_eigh_topk_host64(y_sel, rows_sel, cols_sel, hx, hy, eps,
+                        k0: int = 64):
+    """Stage 1 through the iterative top-k solver (the reference's
+    USE_SPECTRA build, topkEigenDecomposition, src/filter.cpp:169-200):
+    eig(Ka) with k doubling from k0 until the eps tail is inside the k
+    pairs. Falls back to the exact solver (ka_eigh_host64) when ARPACK did
+    not converge (a short unconverged result looks like a truncation) or
+    when k reaches p - 1 with the tail still outside. Same returns as
+    ka_eigh_host64."""
+    Ka = _build_ka64(y_sel, rows_sel, cols_sel, hx, hy)
+    p = Ka.shape[0]
+    if p <= 2:
+        return ka_eigh_host64(y_sel, rows_sel, cols_sel, hx, hy, eps)
+    k = min(max(k0, 8), p - 1)
+    while True:
+        U, lam, converged = topk_eigendecomposition(
+            Ka, k, eps, return_converged=True)
+        if not converged:
+            return ka_eigh_host64(y_sel, rows_sel, cols_sel, hx, hy, eps)
+        if lam.size < k:
+            break                    # truncated inside the k pairs
+        if k >= p - 1:
+            return ka_eigh_host64(y_sel, rows_sel, cols_sel, hx, hy, eps)
+        k = min(2 * k, p - 1)
+    if lam.size == 0:
+        return U[:, :0], lam, U[:, :0]
+    return U, lam, U / lam[None, :]
+
+
+def ka_eigh_stage(y, rows, cols, sw, pw, *, p: int, eps: float):
+    """Stage 1 on the device (stage1="device"): Ka of the p sampled pixels
+    in y's dtype, then eigh_descending in that dtype on y's device (a
+    float32 eigh on the float32 route, as nle_tpu's ka_eigh_stage).
+    Returns (U (p, p), lam (p,)) with lam < eps masked to 0."""
+    f = features(rows[:p], cols[:p], y[:p], y.dtype)
+    return eigh_descending(affinity_block(f, f, sw, pw), eps)
+
+
 def bucket_m(m: int, p: int) -> int:
     """Stage-2 column count for a kept rank m: m rounded up to NLE_M_BUCKET
     (default 128), capped at p; NLE_M_BUCKET <= 1 gives m itself. The zero
@@ -150,6 +199,16 @@ def pack_stage1(Um64, lam64, mb: int | None = None) -> np.ndarray:
     out[:p, :m] = Um64
     out[p, :m] = lam64
     return out
+
+
+def pack_stage1_device(Um: torch.Tensor, lam: torch.Tensor,
+                       mb: int) -> torch.Tensor:
+    """Device twin of pack_stage1 (stage1="device": the eigensystem is on
+    the device already): the same (p + 1, mb) float32 [Um; lam] layout."""
+    pad = (0, mb - Um.shape[1])
+    return torch.cat([torch.nn.functional.pad(Um, pad),
+                      torch.nn.functional.pad(lam, pad)[None]]).to(
+                          torch.float32)
 
 
 def _unpack_stage1(stage1: torch.Tensor, p: int):
@@ -372,16 +431,9 @@ def _apply_u8_body(V, fs, y):
     if one_d:
         c = c[:, None]
     filtered = V @ (fs[:, None] * (V.T @ c))
+    check_nans("the edit", filtered)
     out = torch.clamp(torch.round(filtered), 0, 255).to(torch.uint8)
     return out[:, 0] if one_d else out
-
-
-def train_filter_stage2b_edit(factor, c_rest, va_grt, y, fs, *, n: int,
-                              mb: int):
-    """Stage 2b with the first edit's apply fused in (the train->edit flow):
-    returns (V, filtered u8 packed)."""
-    V = _stage2b_dense_body(factor, c_rest, va_grt, n=n, mb=mb)
-    return V, _apply_u8_body(V, fs, y[:n])
 
 
 def apply_filter_u8(eigvecs: torch.Tensor, f_eigvals: torch.Tensor,
@@ -427,15 +479,6 @@ def train_filter_stage2b_streaming(y, rr, cc, stage1, sw, pw, c, va_grt, *,
     return torch.cat([V_head, c[p:, None] * tail], dim=0)
 
 
-def train_filter_stage2b_streaming_edit(y, rr, cc, stage1, sw, pw, c, va_grt,
-                                        fs, *, p: int, m: int, mb: int):
-    """The phi-free stage 2b with the first edit's apply fused in: returns
-    (V, filtered u8 packed)."""
-    V = train_filter_stage2b_streaming(y, rr, cc, stage1, sw, pw, c, va_grt,
-                                       p=p, m=m, mb=mb)
-    return V, _apply_u8_body(V, fs, y)
-
-
 def factored_apply(y, y_train, rr, cc, c, v_head, w, f_eigvals, sw, pw, *,
                    p: int):
     """filtered = V diag(f(S)) V^T y without a stored V: the tail rows of V
@@ -464,11 +507,14 @@ def factored_apply(y, y_train, rr, cc, c, v_head, w, f_eigvals, sw, pw, *,
 
 # -- the dense stage 2 in two halves (single and stream mode) ---------------
 
-def host_stage1(channel_np, grid: SampleGrid, hx, hy, eps: float):
-    """Stage 1 of one frame on the host: (Um64, lam64, m, mb). Raises the
-    clean ValueError on a degenerate Ka (no eigenvalue above eps)."""
+def host_stage1(channel_np, grid: SampleGrid, hx, hy, eps: float,
+                stage1: str = "host64"):
+    """Stage 1 of one frame on the host (stage1 "host64" or "topk"): (Um64,
+    lam64, m, mb). Raises the clean ValueError on a degenerate Ka (no
+    eigenvalue above eps)."""
+    solver = ka_eigh_topk_host64 if stage1 == "topk" else ka_eigh_host64
     with stage("Computing kernel"):
-        Um64, lam64, _ = ka_eigh_host64(
+        Um64, lam64, _ = solver(
             channel_np[grid.sel_rows, grid.sel_cols].astype(np.float64),
             grid.sel_rows, grid.sel_cols, hx, hy, float(eps))
         m = lam64.shape[0]
@@ -549,9 +595,10 @@ def finish_dense(frame: DenseFrame, n_eig_vectors: int, *, packed_y=None,
             rc_np = f.rc.result().astype(np.float64)
     k = min(n_eig_vectors, f.m)
     with stage("Orthogonalize"):
-        va_np, Sq = host_orthogonalize(
-            rc_np, f.sb.result().astype(np.float64), f.Um64, f.lam64, f.m,
-            f.mb, k, f.eps)
+        sb_np = f.sb.result().astype(np.float64)
+        check_nans("rc/Sb", rc_np, sb_np)
+        va_np, Sq = host_orthogonalize(rc_np, sb_np, f.Um64, f.lam64, f.m,
+                                       f.mb, k, f.eps)
         split = isinstance(f.factor, tuple)
         va_grt = upload(pack_stage2b_upload(split, va_np, rc_np, f.Um64,
                                             f.m, f.p, k).astype(np.float32),
@@ -560,77 +607,282 @@ def finish_dense(frame: DenseFrame, n_eig_vectors: int, *, packed_y=None,
     factor, c_rest = f.factor, f.c_rest
     f.factor = f.c_rest = None
     with stage("Stage 2b"):
-        if edit_weights is None:
-            return _stage2b_dense_body(factor, c_rest, va_grt, n=n,
-                                       mb=f.mb), S
-        fs = transform_eigenvalues(S, edit_weights)
-        V, edit_out = train_filter_stage2b_edit(
-            factor, c_rest, va_grt, packed_y, fs, n=n, mb=f.mb)
-    return V, S, edit_out
+        V = _stage2b_dense_body(factor, c_rest, va_grt, n=n, mb=f.mb)
+        return _stage2_outputs(V, S, edit_weights, packed_y)
 
 
 # -- the host-level entry point ----------------------------------------------
 
+STAGE1_SOLVERS = ("host64", "topk", "device")
+
+
+def resolve_dtype(dtype, channel_np: np.ndarray) -> torch.dtype:
+    """The route's dtype, as nle_tpu resolves it: the channel's own
+    floating dtype when dtype is None, else float32. float32 (the kernel
+    routes) and float64 (the whole-float64 route) are the two routes."""
+    if dtype is None:
+        dtype = (channel_np.dtype
+                 if np.issubdtype(channel_np.dtype, np.floating)
+                 else np.float32)
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        out = {np.dtype(np.float32): torch.float32,
+               np.dtype(np.float64): torch.float64}.get(np.dtype(dtype))
+    if out not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype {dtype}: expected float32 or float64")
+    return out
+
+
+def resolve_kernels(use_kernels: bool | None, device: torch.device) -> bool:
+    """Whether the float32 route runs its hand-written kernels: None means
+    on the card (on the CPU the same routes run the kernels' plain
+    versions), False the plain route (no kernel, the counterpart of
+    nle_tpu's use_pallas=False), True the kernels, which the CPU cannot
+    run."""
+    if use_kernels and device.type != "cuda":
+        raise ValueError(
+            "use_kernels=True needs device='cuda': the kernels run on the "
+            "card only (device='cpu' runs their plain versions).")
+    return use_kernels is not False
+
+
+def device_stage1(y, rr, cc, sw, pw, *, p: int, eps: float):
+    """stage1="device": ka_eigh_stage, then the kept rank m and the kept
+    columns (Um (p, m), lam (m,)) on the device with their float64 host
+    copies."""
+    with stage("Computing kernel"):
+        U, lam = ka_eigh_stage(y, rr, cc, sw, pw, p=p, eps=eps)
+        m = int(torch.count_nonzero(lam))
+        Um, lam_m = U[:, :m], lam[:m]
+        Um64 = Fetch(Um).result().astype(np.float64)
+        lam64 = Fetch(lam_m).result().astype(np.float64)
+    return Um, lam_m, Um64, lam64, m
+
+
 def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
                  hy: float, n_sinkhorn_iter: int = 10, n_eig_vectors: int = 5,
-                 *, device, eps: float | None = None,
+                 *, device, eps: float | None = None, dtype=None,
                  grid: SampleGrid | None = None, packed_y=None,
                  edit_weights=None, streaming: bool | None = None,
-                 pixel_order: bool = True):
+                 pixel_order: bool = True, stage1: str = "host64",
+                 use_kernels: bool | None = None):
     """Train the nonlocal filter on one channel (H, W) on `device`.
 
-    Returns (eigvecs (N, k), eigvals (k,)), both float32 on the device.
-    The rows of eigvecs are in pixel order (row-major over the channel, the
-    reference's `m_eigvecs = P * V`, src/filter.cpp:502) by default, or in
-    the packed [selected; rest] order with pixel_order=False, which callers
-    that hold the SampleGrid (the model layer) use. edit_weights: also the
-    first edit's filtered u8 channel (packed order), fused into stage 2b;
-    it requires pixel_order=False, as in nle_tpu. packed_y: the packed
-    channel already on the device (skips the upload). streaming: True/False
-    forces the phi-free or the dense stage 2; None applies
-    resolve_streaming's rule. The dense route is submit_dense then
-    finish_dense, the two halves stream mode (models/batch.py) overlaps."""
+    Returns (eigvecs (N, k), eigvals (k,)) on the device, in the route's
+    dtype. The rows of eigvecs are in pixel order (row-major over the
+    channel, the reference's `m_eigvecs = P * V`, src/filter.cpp:502) by
+    default, or in the packed [selected; rest] order with
+    pixel_order=False, which callers that hold the SampleGrid (the model
+    layer) use. edit_weights: also the first edit's filtered u8 channel
+    (packed order), fused into stage 2b where there is one; it requires
+    pixel_order=False, as in nle_tpu. packed_y: the packed channel already
+    on the device (skips the upload).
+
+    The options are nle_tpu's (ops/pipeline.py train_filter):
+    - stage1: the Ka eigensolver, "host64" (float64 LAPACK on the host),
+      "topk" (the reference's USE_SPECTRA solver, k doubling) or "device"
+      (Ka and its eigh in the route's dtype on the device);
+    - dtype: float32 (None, for a non-float channel) runs the float32
+      routes with the host float64 chain; float64 the whole-float64 route
+      (train_filter_stage2: plain PyTorch, eigh on the device), which
+      takes no streaming;
+    - use_kernels: see resolve_kernels; False runs the float32 route in
+      plain PyTorch (_train_plain), which takes no streaming either;
+    - streaming: True/False forces the phi-free or the dense stage 2;
+      None applies resolve_streaming's rule.
+    The dense kernel route is submit_dense then finish_dense, the two
+    halves stream mode (models/batch.py) overlaps."""
     if edit_weights is not None and pixel_order:
         raise ValueError(
             "edit_weights requires pixel_order=False (the caller holds "
             "the SampleGrid and unscatters the u8 result on the host).")
     dev = resolve_device(device)
     channel_np = np.asarray(channel)
+    dtype = resolve_dtype(dtype, channel_np)
+    if stage1 not in STAGE1_SOLVERS:
+        raise ValueError(f"stage1={stage1!r}: expected host64|topk|device")
+    kernels = resolve_kernels(use_kernels, dev)
+    f64 = dtype == torch.float64
+    if f64:
+        if streaming:
+            raise ValueError(
+                "streaming stage 2 requires the float32 route; got "
+                "dtype=float64.")
+        if use_kernels:
+            raise ValueError("use_kernels=True: the float64 route runs no "
+                             "kernel (the kernels compute in float32).")
+    elif not kernels and streaming:
+        raise ValueError(
+            "use_kernels=False runs the dense stage 2 in plain PyTorch; the "
+            "streaming stage 2 runs on its kernels (K8-K12).")
     if eps is None:
         eps = EPS
+    eps = float(eps)
     nrows, ncols = channel_np.shape
     if grid is None:
         grid = sample_grid(nrows, ncols, n_row_samples, n_col_samples)
     if packed_y is None:
         packed_y = upload(pack_channel(channel_np, grid.perm)[0], dev)
-    y = packed_y.to(torch.float32)
+    y = packed_y.to(dtype)
     rr, cc = grid_coords(grid, dev)
-    sw, pw = bandwidth_weights(hx, hy)
+    rr, cc = rr.to(dtype), cc.to(dtype)
+    sw, pw = bandwidth_weights(hx, hy, dtype)
     p = grid.n_samples
     n = grid.n_pixels
 
-    Um64, lam64, m, mb = host_stage1(channel_np, grid, hx, hy, eps)
-    stage1 = upload(pack_stage1(Um64, lam64, mb=mb), dev)
+    Um_d = lam_d = None
+    if stage1 == "device":
+        Um_d, lam_d, Um64, lam64, m = device_stage1(
+            y, rr, cc, sw, pw, p=p, eps=eps)
+        if m == 0:
+            raise ValueError(
+                "Affinity matrix Ka has no eigenvalues above eps.")
+        warn_truncation(p, m, eps)
+        mb = bucket_m(m, p)
+    else:
+        Um64, lam64, m, mb = host_stage1(channel_np, grid, hx, hy, eps,
+                                         stage1=stage1)
 
-    if resolve_streaming(streaming, dev, n, mb):
-        out = _train_streaming(y, rr, cc, stage1, sw, pw, Um64,
-                               lam64, p=p, m=m, mb=mb,
+    if f64:
+        out = _train_float64(y, rr, cc, sw, pw, Um_d, lam_d, Um64, lam64,
+                             p=p, m=m, n_sinkhorn_iter=n_sinkhorn_iter,
+                             n_eig_vectors=n_eig_vectors, eps=eps,
+                             edit_weights=edit_weights)
+    else:
+        stage1_dev = (pack_stage1_device(Um_d, lam_d, mb) if Um_d is not None
+                      else upload(pack_stage1(Um64, lam64, mb=mb), dev))
+        if not kernels:
+            out = _train_plain(y, rr, cc, stage1_dev, sw, pw, Um64, lam64,
+                               p=p, m=m, mb=mb,
                                n_sinkhorn_iter=n_sinkhorn_iter,
-                               n_eig_vectors=n_eig_vectors, eps=float(eps),
+                               n_eig_vectors=n_eig_vectors, eps=eps,
+                               packed_y=packed_y, edit_weights=edit_weights)
+        elif resolve_streaming(streaming, dev, n, mb):
+            out = _train_streaming(y, rr, cc, stage1_dev, sw, pw, Um64,
+                                   lam64, p=p, m=m, mb=mb,
+                                   n_sinkhorn_iter=n_sinkhorn_iter,
+                                   n_eig_vectors=n_eig_vectors, eps=eps,
+                                   edit_weights=edit_weights)
+        else:
+            with stage("Nystrom approximation + Sinkhorn"):
+                frame = submit_dense(y, rr, cc, stage1_dev, sw, pw, Um64,
+                                     lam64, p=p, m=m, mb=mb,
+                                     n_sinkhorn_iter=n_sinkhorn_iter,
+                                     eps=eps)
+            out = finish_dense(frame, n_eig_vectors, packed_y=packed_y,
                                edit_weights=edit_weights)
-        if pixel_order:
-            return _pixel_rows(out[0], grid), out[1]
-        return out
-
-    with stage("Nystrom approximation + Sinkhorn"):
-        frame = submit_dense(y, rr, cc, stage1, sw, pw, Um64, lam64, p=p,
-                             m=m, mb=mb, n_sinkhorn_iter=n_sinkhorn_iter,
-                             eps=eps)
-    out = finish_dense(frame, n_eig_vectors, packed_y=packed_y,
-                       edit_weights=edit_weights)
     if pixel_order:
-        return (_pixel_rows(out[0], grid),) + out[1:]
+        return (_pixel_rows(out[0], grid),) + tuple(out[1:])
     return out
+
+
+def _stage2_outputs(V, S, edit_weights, y):
+    """(V, S), or with edit_weights (V, S, the first edit's u8 output on
+    the packed channel y), queued right behind stage 2b."""
+    check_nans("V", V)
+    check_nans("S", S)
+    if edit_weights is None:
+        return V, S
+    return V, S, _apply_u8_body(V, transform_eigenvalues(S, edit_weights), y)
+
+
+# -- the routes that run no kernel (use_kernels=False, dtype=float64) --------
+
+def plain_phi_balance(y, rr, cc, Um, lam_m, Uinv, sw, pw, *, p: int,
+                      n_sinkhorn_iter: int, eps: float):
+    """The plain routes' shared prologue, in plain PyTorch in y's dtype on
+    its device: phi = [Um; K(rest, samples) Uinv] (N, m') and its Sinkhorn
+    vectors (r, c)."""
+    f = features(rr, cc, y, y.dtype)
+    phi = torch.cat([Um, affinity_matmul_plain(f[:p], f[p:], Uinv, sw, pw)])
+    del f
+    return (phi, *sinkhorn_vectors(phi, lam_m, n_sinkhorn_iter, eps))
+
+
+def train_filter_stage2a_plain(y, rr, cc, stage1, sw, pw, *, p: int, m: int,
+                               mb: int, n_sinkhorn_iter: int, eps: float):
+    """Stage 2a in plain PyTorch on the assembled (N, mb) factor, as
+    nle_tpu's stage 2a runs without Pallas: phi = [Um; K Uinv] (row tiles),
+    the float32 Sinkhorn matvecs, and the gram of cphi = diag(c_rest) phi.
+    Returns (rc (3, mb) with row 2 the -1.0 "no carrier" mark, Sb (mb, mb),
+    cphi (N, mb))."""
+    phi, r, c = plain_phi_balance(y, rr, cc, *_unpack_stage1(stage1, p), sw,
+                                  pw, p=p, n_sinkhorn_iter=n_sinkhorn_iter,
+                                  eps=eps)
+    n = phi.shape[0]
+    rest = torch.arange(n, device=phi.device) >= m
+    cphi = torch.where(rest, c, torch.zeros_like(c))[:, None] * phi
+    del phi
+    Sb = (cphi.T @ cphi)[:mb, :mb]
+    rc = torch.stack([r[:mb], c[:mb], torch.full_like(r[:mb], -1.0)])
+    return rc, Sb, cphi
+
+
+def _train_plain(y, rr, cc, stage1, sw, pw, Um64, lam64, *, p: int, m: int,
+                 mb: int, n_sinkhorn_iter: int, n_eig_vectors: int,
+                 eps: float, packed_y, edit_weights):
+    """train_filter's plain float32 route: train_filter_stage2a_plain, the
+    host f64 chain, and V = cphi GrT with the host Va on rows < mb."""
+    with stage("Nystrom approximation + Sinkhorn"):
+        rc, sb, cphi = train_filter_stage2a_plain(
+            y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
+            n_sinkhorn_iter=n_sinkhorn_iter, eps=eps)
+        check_nans("rc/Sb", rc, sb)
+        rc_np = Fetch(rc).result().astype(np.float64)
+    k = min(n_eig_vectors, m)
+    with stage("Orthogonalize"):
+        va_np, Sq = host_orthogonalize(
+            rc_np, Fetch(sb).result().astype(np.float64), Um64, lam64, m,
+            mb, k, eps)
+        va_grt = upload(va_np.astype(np.float32), y.device)
+        S = upload(Sq.astype(np.float32), y.device)
+    with stage("Stage 2b"):
+        V = cphi @ va_grt[:, k:]
+        del cphi
+        V[:mb] += va_grt[:, :k]
+        return _stage2_outputs(V, S, edit_weights, packed_y)
+
+
+def train_filter_stage2(y, rr, cc, Um, lam_m, Uinv, sw, pw, *, p: int, m: int,
+                        n_sinkhorn_iter: int, n_eig_vectors: int, eps: float):
+    """Nystrom extension, Sinkhorn and the one-shot orthogonalization in the
+    operands' dtype on their device (plain PyTorch; nle_tpu's
+    train_filter_stage2, whose Pallas kernels serve float32 only). Returns
+    (V packed (N, k), S (k,)), k = min(n_eig_vectors, m)."""
+    phi, r, c = plain_phi_balance(y, rr, cc, Um, lam_m, Uinv, sw, pw, p=p,
+                                  n_sinkhorn_iter=n_sinkhorn_iter, eps=eps)
+    # The balanced blocks split at the kept rank m (the reference's
+    # sinkhorn reads p = phi.cols(), src/filter.cpp:247-250).
+    phi_top = phi[:m]
+    Ga = phi_top * lam_m[None, :]
+    RGa = r[:m, None] * Ga
+    Wa = RGa @ (c[:m, None] * phi_top).T
+    check_nans("r/c", r, c)
+    return orthogonalize_factored(Wa, RGa, phi[m:], c[m:], r[:m], Ga,
+                                  min(n_eig_vectors, m), eps)
+
+
+def _train_float64(y, rr, cc, sw, pw, Um_d, lam_d, Um64, lam64, *, p: int,
+                   m: int, n_sinkhorn_iter: int, n_eig_vectors: int,
+                   eps: float, edit_weights):
+    """train_filter's float64 route: stage 1's eigensystem in float64 on
+    the device (Uinv = Um / lam), train_filter_stage2, and the standalone
+    apply for the first edit (the route has no stage 2b to fuse it in)."""
+    dev, f64 = y.device, torch.float64
+    if Um_d is not None:
+        Um, lam_m = Um_d, lam_d
+        Uinv = Um * safe_reciprocal(lam_m, eps)[None, :]
+    else:
+        Um = upload(Um64, dev)
+        lam_m = upload(lam64, dev)
+        Uinv = upload(Um64 / lam64[None, :], dev)
+    with stage("Nystrom approximation + Sinkhorn + Orthogonalize"):
+        V, S = train_filter_stage2(
+            y, rr, cc, Um.to(f64), lam_m.to(f64), Uinv.to(f64), sw, pw, p=p,
+            m=m, n_sinkhorn_iter=n_sinkhorn_iter,
+            n_eig_vectors=n_eig_vectors, eps=eps)
+    return _stage2_outputs(V, S, edit_weights, y)
 
 
 def _pixel_rows(V, grid: SampleGrid):
@@ -706,16 +958,13 @@ def _train_streaming(y, rr, cc, stage1, sw, pw, Um64, lam64, *,
         rc_np = Fetch(rc).result().astype(np.float64)
     k = min(n_eig_vectors, m)
     with stage("Orthogonalize"):
-        va_np, Sq = host_orthogonalize(
-            rc_np, Fetch(sb).result().astype(np.float64), Um64, lam64, m,
-            mb, k, eps)
+        sb_np = Fetch(sb).result().astype(np.float64)
+        check_nans("rc/Sb", rc_np, sb_np)
+        va_np, Sq = host_orthogonalize(rc_np, sb_np, Um64, lam64, m, mb, k,
+                                       eps)
         va_grt = upload(va_np.astype(np.float32), y.device)
         S = upload(Sq.astype(np.float32), y.device)
     with stage("Stage 2b"):
-        args = (y, rr, cc, stage1, sw, pw, c, va_grt)
-        if edit_weights is None:
-            return train_filter_stage2b_streaming(*args, p=p, m=m, mb=mb), S
-        fs = transform_eigenvalues(S, edit_weights)
-        V, edit_out = train_filter_stage2b_streaming_edit(
-            *args, fs, p=p, m=m, mb=mb)
-    return V, S, edit_out
+        V = train_filter_stage2b_streaming(y, rr, cc, stage1, sw, pw, c,
+                                           va_grt, p=p, m=m, mb=mb)
+        return _stage2_outputs(V, S, edit_weights, y)

@@ -1,4 +1,4 @@
-"""Eigenvalue transform that defines the enhance edit (port of
+"""Eigenvalue transforms that define the edits (port of
 nle_tpu/ops/transform.py).
 
 f(lam) = w0 + sum_{k>=1} (w_k - w_{k-1}) * lam^k — the polynomial that
@@ -7,6 +7,9 @@ src/filter.cpp:334-347). Computed in float32 on the eigenvalues' device
 with the same op order as nle_tpu's `_transform`, including XLA's
 square-and-multiply expansion of an integer power and its fused
 multiply-add, so the two packages give the same bits.
+
+`shrink_eigenvalues` is the denoise transform lam -> min(lam, 1)^k
+(reference src/filter.cpp:378-385), in the eigenvalues' dtype.
 """
 
 from __future__ import annotations
@@ -38,3 +41,10 @@ def transform_eigenvalues(eigvals: torch.Tensor, weights) -> torch.Tensor:
         term = (w[k] - w[k - 1]).double() * _integer_pow(eigvals, k).double()
         fS = (fS.double() + term).to(eigvals.dtype)
     return fS
+
+
+def shrink_eigenvalues(eigvals: torch.Tensor, k) -> torch.Tensor:
+    """min(lam, 1)^k in the eigenvalues' dtype; k is a real exponent (the
+    CLI's shrink factor), so this is a pow, not a square-and-multiply."""
+    k = torch.as_tensor(k, dtype=eigvals.dtype, device=eigvals.device)
+    return torch.pow(torch.minimum(eigvals, torch.ones_like(eigvals)), k)
