@@ -177,7 +177,23 @@
    PERF.md), its eigensolve held in-process at the frame's sample set,
    card against CPU (hold_device_stage1: eigenvalues, eps mask, residual
    and orthogonality), and (d) the usage and missing-file probes (rc 0,
-   the reference's messages).
+   the reference's messages);
+14. serving and the batch CLI on [5]'s frame and its exposure-jittered
+   copies, rock2 parameters (serving_phase): (a) the HTTP service
+   in-process: the load check (nle_tpu_torch.tools.check_serving: four
+   concurrent /enhance, each bitwise a direct train_and_enhance, a
+   byte-copy pair byte-equal, coalesced; wall alone and four at once),
+   then /enhance, /train + /apply and /denoise bitwise the library (each
+   request's launches counted: K1, K6, K7 once and K3 x100 a dense train,
+   no kernel in a dense apply), /enhance?factored=1 and a factored
+   /train?mode=denoise + /apply?op=denoise (K10/K11 once each, R = 2)
+   >= 45 dB from the dense routes, a byte budget (SERVE_BUDGET) that
+   evicts and spills a kept 1 MP filter and reloads it bitwise, /metrics'
+   device memory; (b) the pool as a subprocess, two workers sharing card
+   0: named traffic on the worker its name hashes to, a worker killed
+   after its filter spilled and restarted by the supervisor, serving it
+   bitwise; (c) python -m nle_tpu_torch.cli.batch on four 1 MP PNGs and
+   on two (--op=denoise), each output bitwise the per-image CLIs.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -192,8 +208,13 @@ import os
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
+
+# The frame generator, shared with the serving load check: a smooth,
+# photo-like BGR frame (low-frequency shading, soft discs, mild texture).
+from nle_tpu_torch.tools.check_serving import structured_frame  # noqa: E402
 
 MAIN_SHAPE = (832, 1216)
 MAIN_ARGS = (20, 30, 500.0, 10.0, 50, 50)   # rows, cols, hx, hy, iters, k
@@ -264,24 +285,6 @@ def knobs(**env):
                 os.environ.pop(name, None)
             else:
                 os.environ[name] = value
-
-
-def structured_frame(h: int, w: int, seed: int = 0) -> np.ndarray:
-    """A smooth, photo-like BGR frame: low-frequency shading, a few soft
-    discs and mild texture."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    base = 110 + 50 * np.sin(xx / (w / 5.0)) * np.cos(yy / (h / 3.0))
-    for _ in range(6):
-        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
-        rad = rng.uniform(0.05, 0.2) * min(h, w)
-        # The exponent is capped below exp's float64 overflow: past ~40 the
-        # term is far below one ulp of base either way.
-        base += rng.uniform(-40, 40) / (1 + np.exp(np.minimum(
-            ((yy - cy) ** 2 + (xx - cx) ** 2) ** 0.5 / 8 - rad / 8, 700.0)))
-    base += rng.normal(0, 2.0, (h, w))
-    img = np.stack([base * 0.9 + 10, base, base * 1.05 - 5], axis=-1)
-    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
 def noise_frame(h: int = 120, w: int = 120, seed: int = 0) -> np.ndarray:
@@ -1936,13 +1939,13 @@ def stream_edits(torch, NLEFilter, _build, frames, lookahead: int):
     return outs, k4
 
 
-def stream_phase(torch, NLEFilter, _build, img) -> None:
+def stream_phase(torch, NLEFilter, _build, img) -> dict:
     """[12] (a) stream mode against single mode, bit for bit, at lookahead
     1 and 2, the guard of the last frame tripping inside finish; (b) a
     submit with no host sync; (c) the lookahead-2 stream's peak against
     fits_pipeline's bound; (d) the overlap, read; (e) the host Lab (C
     against NumPy, the device twins on the whole cube) and its timings;
-    (f) the port bench in both modes."""
+    (f) the port bench in both modes. Returns the bench's MP/s by mode."""
     from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
     from nle_tpu_torch.models.batch import fits_pipeline, train_filters_iter
     from nle_tpu_torch.ops.kernels.sinkhorn_kernel import padded_shape
@@ -2065,6 +2068,7 @@ def stream_phase(torch, NLEFilter, _build, img) -> None:
 
     # [12f] the port bench, both modes, as a user runs it.
     root = os.path.dirname(os.path.abspath(__file__))
+    bench = {}
     for mode in ("stream", "single"):
         t0 = time.perf_counter()
         out = subprocess.run(
@@ -2080,8 +2084,10 @@ def stream_phase(torch, NLEFilter, _build, img) -> None:
         got = json.loads(line)
         if got["mode"] != mode or got["device"]["platform"] != "gpu":
             raise AssertionError(f"[12f] bench line {got}")
+        bench[mode] = got["value"]
     print(f"[12] stream mode, Lab and the bench: "
           f"{time.perf_counter() - t12:.1f} s")
+    return bench
 
 
 def launch_reading(torch, frame) -> None:
@@ -2514,6 +2520,409 @@ def cli_phase(torch, img, dense_out) -> dict:
     return paths
 
 
+SERVE_BUDGET = 300_000_000   # [14] --max-filter-bytes: one 1 MP filter fits
+SERVE_WORKERS = 2
+
+
+def _post(base: str, path: str, body: bytes | None, timeout: float = 900):
+    req = urllib.request.Request(f"{base}{path}", data=body)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _get_json(url: str, timeout: float = 60):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _wait_healthy(base: str, workers: int, deadline_s: float,
+                  proc=None) -> dict:
+    """Poll the pool's /healthz until every worker answers ok."""
+    t_end = time.perf_counter() + deadline_s
+    while time.perf_counter() < t_end:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"[14b] the pool exited rc {proc.returncode}")
+        try:
+            meta = _get_json(f"{base}/healthz", timeout=10)
+            if meta.get("ok") and meta.get("workers") == workers:
+                return meta
+        except OSError:
+            pass
+        time.sleep(0.25)
+    raise AssertionError(f"[14b] pool not healthy in {deadline_s} s")
+
+
+def _pids_serving(port: int) -> list:
+    """PIDs of the HTTP service processes started with --port=port."""
+    out = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                argv = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if (b"nle_tpu_torch.serving.http" in argv
+                and f"--port={port}".encode() in argv):
+            out.append(int(pid))
+    return out
+
+
+def serve_counted(torch, _build, paths: dict, label: str, base: str,
+                  path: str, body: bytes) -> bytes:
+    """One request with the launch counts set to 0 just before it (the
+    device idle) and read just after; kept in paths["serve_<label>"]."""
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = _post(base, path, body)
+    torch.cuda.synchronize()
+    paths[f"serve_{label}"] = dict(_build.LAUNCHES)
+    return out
+
+
+def launches_of(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def serving_phase(torch, img, dense_out, bench_mps: dict) -> dict:
+    """[14] serving and the batch CLI on the card, on [5]'s frame and its
+    exposure-jittered copies (check_serving.frames), rock2 parameters:
+    (a) the HTTP service in-process: the load check (4 concurrent /enhance,
+    each bitwise a direct train_and_enhance, a byte-copy pair byte-equal,
+    coalesced), then one server with --max-filter-bytes=SERVE_BUDGET and a
+    spill dir: /enhance and /train + /apply bitwise [5]'s output (K1, K3
+    x100, K6, K7 once a dense train, no kernel in a dense apply), /denoise
+    and a factored /train?mode=denoise + /apply?op=denoise (K10/K11 once
+    each, R = 2) and /enhance?factored=1 >= 45 dB from the dense routes, a
+    second kept filter evicting and spilling the first, DELETE of the
+    second and /apply reloading the first bitwise, /metrics' device
+    memory; (b) the pool as a
+    subprocess, SERVE_WORKERS workers sharing card 0: named traffic on the
+    worker its name hashes to, a worker killed (SIGKILL) after its filter
+    spilled, restarted by the supervisor and serving it bitwise, /healthz
+    and /metrics over both; (c) python -m nle_tpu_torch.cli.batch on four
+    1 MP PNGs (enhance) and two (denoise 10 10 2), each output bitwise the
+    port's cli.enhance / cli.denoise on that image (one process running
+    their main per image). Returns the counted requests' launches."""
+    import signal
+    import tempfile
+    import threading
+
+    from nle_tpu_torch import NLEFilter
+    from nle_tpu_torch.ops.kernels import _build
+    from nle_tpu_torch.serving.http import make_server
+    from nle_tpu_torch.serving.pool import WorkerPool, _free_port
+    from nle_tpu_torch.tools import check_serving
+    from nle_tpu_torch.utils.imageio import (
+        imdecode_bgr,
+        imencode_png,
+        imread_bgr,
+        imwrite_bgr,
+    )
+
+    t14 = time.perf_counter()
+    mp = img.shape[0] * img.shape[1] / 1e6
+    q = check_serving.query(MAIN_ARGS, WEIGHTS)
+    qtrain = q.rsplit("&w=", 1)[0]
+    wq = q.rsplit("&w=", 1)[1]
+    dn = (f"shrink={CLI_DENOISE[2]}&sigma_color={CLI_DENOISE[0]}"
+          f"&sigma_space={CLI_DENOISE[1]}")
+    png = imencode_png(img)
+    paths = {}
+
+    # -- (a) the HTTP service in-process -------------------------------
+    ta = time.perf_counter()
+    res = check_serving.run(check_serving.frames(img, 4), "cuda", MAIN_ARGS,
+                            WEIGHTS)
+    print(f"[14a] the load check (nle_tpu_torch.tools.check_serving, "
+          f"{img.shape[0]}x{img.shape[1]}, {' '.join(map(str, MAIN_ARGS))}):"
+          f" {json.dumps(res)}")
+    print(f"  /enhance alone {res['alone_s']:.3f} s of wall; four at once "
+          f"{res['concurrent_wall_s']:.3f} s: {res['requests_per_s']:.3f} "
+          f"requests/s, {res['mp_per_s']:.3f} MP/s")
+    if not res["ok"]:
+        raise AssertionError(f"[14a] the load check failed: {res}")
+    flt = NLEFilter(device="cuda")
+    flt.train_for_denoise(img, *MAIN_ARGS, *map(float, CLI_DENOISE[:2]))
+    ref_dn = flt.denoise(img, float(CLI_DENOISE[2]),
+                         *map(float, CLI_DENOISE[:2]))
+    del flt
+    with tempfile.TemporaryDirectory() as spill:
+        srv = make_server(device="cuda", spill_dir=spill,
+                          max_filter_bytes=SERVE_BUDGET)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            def counted(label, path, body=png):
+                return serve_counted(torch, _build, paths, label, base, path,
+                                     body)
+
+            outs = {}
+            for label, path in (("enhance", f"/enhance?{q}"),
+                                ("enhance_factored",
+                                 f"/enhance?{q}&factored=1"),
+                                ("denoise", f"/denoise?{qtrain}&{dn}")):
+                t0 = time.perf_counter()
+                outs[label] = imdecode_bgr(counted(label, path))
+                print(f"  {path.split('?')[0]}{'?factored=1' if 'fact' in label else ''}: "
+                      f"{time.perf_counter() - t0:.3f} s; launches "
+                      f"{launches_of(paths['serve_' + label])}")
+            meta = json.loads(counted("train", f"/train?name=a&{qtrain}"))
+            if meta != {"name": "a", "k": MAIN_ARGS[5], "mode": "enhance",
+                        "shape": list(img.shape[:2])}:
+                raise AssertionError(f"[14a] /train answered {meta}")
+            t0 = time.perf_counter()
+            out_a = imdecode_bgr(counted("apply", f"/apply?name=a&w={wq}"))
+            apply_s = time.perf_counter() - t0
+            counted("train_denoise_factored",
+                    f"/train?name=fd&mode=denoise&factored=1&{qtrain}&{dn}")
+            outs["apply_denoise_factored"] = imdecode_bgr(counted(
+                "apply_denoise_factored", f"/apply?name=fd&op=denoise&{dn}"))
+            c = paths["serve_enhance"]
+            dense_ok = (c["affinity_matmul"] == 1 and c["scaled_gram"] == 1
+                        and c["scaled_matmul"] == 1
+                        and c["sinkhorn_halfstep_int16"] == 2 * MAIN_ARGS[4]
+                        and sum(c.values()) == 2 * MAIN_ARGS[4] + 3)
+            if not dense_ok or paths["serve_train"] != c:
+                raise AssertionError(f"[14a] a dense train must launch K1, "
+                                     f"K6, K7 once and K3 x100: {c}, "
+                                     f"{paths['serve_train']}")
+            if any(paths["serve_apply"].values()):
+                raise AssertionError(f"[14a] a dense apply launched "
+                                     f"{launches_of(paths['serve_apply'])}")
+            cf = paths["serve_enhance_factored"]
+            cd = paths["serve_apply_denoise_factored"]
+            if (cf["streaming_halfstep"] < 2 * MAIN_ARGS[4] + 1
+                    or cf["streaming_gram"] < 1 or cf["streaming_ap"] < 1
+                    or cf["streaming_atb"] < 1
+                    or any(cf[k] for k in DENSE_KERNELS)
+                    or launches_of(cd) != {"streaming_ap": 1,
+                                           "streaming_atb": 1}):
+                raise AssertionError(f"[14a] factored launches {cf}, {cd}")
+            same = {"/enhance": np.array_equal(outs["enhance"], dense_out),
+                    "/train + /apply": np.array_equal(out_a, dense_out),
+                    "/denoise": np.array_equal(outs["denoise"], ref_dn)}
+            print(f"  bitwise the library: {same}; /apply {apply_s:.3f} s")
+            if not all(same.values()):
+                raise AssertionError(f"[14a] not bitwise the library: {same}")
+            for label, ref in (("enhance_factored", dense_out),
+                               ("apply_denoise_factored", ref_dn)):
+                db = psnr(outs[label], ref)
+                print(f"  {label} vs the dense route: {db:.2f} dB")
+                if not db >= 45.0:
+                    raise AssertionError(f"[14a] {label}: {db:.2f} dB")
+            # A second kept dense filter passes the byte budget: the LRU
+            # one (a) is evicted and spilled, then reloaded by /apply.
+            t0 = time.perf_counter()
+            _post(base, f"/train?name=b&{qtrain}", png)
+            evict_s = time.perf_counter() - t0
+            fs = _get_json(f"{base}/metrics")["filters"]
+            # Drop b (memory, no checkpoint), so a's reload fits beside fd.
+            urllib.request.urlopen(urllib.request.Request(
+                f"{base}/filters?name=b", method="DELETE"), timeout=60).read()
+            t0 = time.perf_counter()
+            out_a2 = imdecode_bgr(_post(base, f"/apply?name=a&w={wq}", png))
+            reload_s = time.perf_counter() - t0
+            m = _get_json(f"{base}/metrics")
+            mem = m["device_memory"]
+            print(f"  budget {SERVE_BUDGET} B: /train b {evict_s:.3f} s "
+                  f"(evicting a: its spill save included), then /apply a "
+                  f"{reload_s:.3f} s (reload); filters {fs}; reload bitwise "
+                  f"{bool(np.array_equal(out_a2, out_a))}")
+            print(f"  /metrics device_memory {mem}; filters {m['filters']}; "
+                  f"trains {m['trains']}, edits {m['edits']}, errors "
+                  f"{m['errors']}")
+            if not (fs["evictions"] >= 1 and fs["spilled"] >= 1
+                    and fs["resident_bytes"] <= SERVE_BUDGET
+                    and np.array_equal(out_a2, out_a)):
+                raise AssertionError(f"[14a] eviction/reload: {fs}")
+            row = mem.get("0", {})
+            if not (row.get("bytes_in_use", 0) > 0
+                    and row["peak_bytes_in_use"] >= row["bytes_in_use"]
+                    and row["bytes_limit"] > row["peak_bytes_in_use"]
+                    and m["errors"] == 0):
+                raise AssertionError(f"[14a] /metrics: {mem}, {m['errors']}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+    torch.cuda.empty_cache()
+    print(f"  [14a] {time.perf_counter() - ta:.1f} s")
+
+    # -- (b) the pool, two workers on card 0 ---------------------------
+    tb = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        pbase = f"http://127.0.0.1:{port}"
+        log = open(os.path.join(tmp, "pool.log"), "w+")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nle_tpu_torch.serving.pool",
+             f"--workers={SERVE_WORKERS}", "--device=cuda",
+             "--worker-env=CUDA_VISIBLE_DEVICES=0", f"--port={port}",
+             f"--spill-root={os.path.join(tmp, 'spill')}",
+             f"--max-filter-bytes={SERVE_BUDGET}"],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            _wait_healthy(pbase, SERVE_WORKERS, 300, proc)
+            start_s = time.perf_counter() - t0
+            log.seek(0)
+            line = next(ln for ln in log if "serving pool on" in ln)
+            ports = [int(x) for x in line.rsplit(":", 1)[1].strip(" )\n")
+                     .split(", ")]
+            pick = WorkerPool(SERVE_WORKERS, [])
+            names = [f"scene-{i}" for i in range(32)]
+            idx = {n: pick.pick("/train", f"name={n}").idx for n in names}
+            a, b = [n for n in names if idx[n] == 0][:2]
+            other = next(n for n in names if idx[n] == 1)
+            print(f"[14b] the pool: {SERVE_WORKERS} workers on card 0 "
+                  f"(ports {ports}) healthy {start_s:.2f} s after its start; "
+                  f"{a!r} and {b!r} hash to worker 0, {other!r} to 1")
+            t0 = time.perf_counter()
+            _post(pbase, f"/train?name={a}&{qtrain}", png)
+            out_a = imdecode_bgr(_post(pbase, f"/apply?name={a}&w={wq}",
+                                       png))
+            first_s = time.perf_counter() - t0
+            _post(pbase, f"/train?name={other}&{qtrain}&factored=1", png)
+            t0 = time.perf_counter()
+            _post(pbase, f"/train?name={b}&{qtrain}", png)   # spills a
+            spill_s = time.perf_counter() - t0
+            held = [set(_get_json(f"http://127.0.0.1:{p}/healthz")["filters"])
+                    for p in ports]
+            w0 = _get_json(f"http://127.0.0.1:{ports[0]}/metrics")["filters"]
+            print(f"  worker 0 holds {sorted(held[0])} (filters {w0}), "
+                  f"worker 1 {sorted(held[1])}; /train + /apply "
+                  f"{first_s:.2f} s, /train {b!r} {spill_s:.2f} s")
+            if not ({a, b} <= held[0] and held[1] == {other}
+                    and w0["spilled"] >= 1
+                    and np.array_equal(out_a, dense_out)):
+                raise AssertionError(f"[14b] named traffic: {held}, {w0}, "
+                                     "or /apply not bitwise the library")
+            pids = _pids_serving(ports[0])
+            if len(pids) != 1:
+                raise AssertionError(f"[14b] worker 0 processes: {pids}")
+            t0 = time.perf_counter()
+            os.kill(pids[0], signal.SIGKILL)
+            while _pids_serving(ports[0]) == pids:
+                time.sleep(0.1)
+            meta = _wait_healthy(pbase, SERVE_WORKERS, 300, proc)
+            restart_s = time.perf_counter() - t0
+            out_a3 = imdecode_bgr(_post(pbase, f"/apply?name={a}&w={wq}",
+                                        png))
+            pm = _get_json(f"{pbase}/metrics")
+            print(f"  worker 0 killed (SIGKILL): healthy again after "
+                  f"{restart_s:.2f} s; restarts {pm['restarts']}; /healthz "
+                  f"workers {meta['workers']}, filters {meta['filters']}; "
+                  f"{a!r} served again bitwise: "
+                  f"{bool(np.array_equal(out_a3, out_a))}; trains "
+                  f"{pm['trains']}, edits {pm['edits']}, errors "
+                  f"{pm['errors']}")
+            if not (pm["restarts"] >= 1 and a in meta["filters"]
+                    and other in meta["filters"]
+                    and np.array_equal(out_a3, out_a)):
+                raise AssertionError(f"[14b] restart: {meta}, {pm}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            log.close()
+        for p in ports:
+            if _pids_serving(p):
+                raise AssertionError(f"[14b] a worker outlived the pool")
+    print(f"  [14b] {time.perf_counter() - tb:.1f} s")
+
+    # -- (c) the batch CLI ------------------------------------------------
+    tc = time.perf_counter()
+    jit = check_serving.frames(img, 5)
+    enh_imgs = [jit[0], *jit[2:]]
+    with tempfile.TemporaryDirectory() as tmp:
+        srcs = []
+        for i, frame in enumerate(enh_imgs):
+            srcs.append(os.path.join(tmp, f"f{i}.png"))
+            imwrite_bgr(srcs[-1], frame)
+        params = [str(x) for x in MAIN_ARGS]
+        # Both batch runs in one process (their main one after the other,
+        # each timed; the first pays the imports and the first use).
+        info = os.path.join(tmp, "batch.json")
+        ops = {"enhance": (srcs, ",".join(map(str, WEIGHTS))),
+               "denoise": (srcs[:2], ",".join(CLI_DENOISE))}
+        argvs = {op: [f"--op={op}", os.path.join(tmp, f"out_{op}"), *params,
+                      wts, *files] for op, (files, wts) in ops.items()}
+        timing = ("import json, sys, time; "
+                  "from nle_tpu_torch.cli import batch; "
+                  "from nle_tpu_torch.ops.kernels import _build; "
+                  f"argvs = {argvs!r}; runs = {{}}\n"
+                  "for op, argv in argvs.items():\n"
+                  "    _build.reset_launches(); t = time.perf_counter()\n"
+                  "    rc = batch.main(argv)\n"
+                  "    runs[op] = {'rc': rc, 's': time.perf_counter() - t, "
+                  "'launches': dict(_build.LAUNCHES)}\n"
+                  "json.dump(runs, open(sys.argv[1], 'w'))")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", timing, info], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0 or r.stdout.split() != ["Done.", "Done."]:
+            raise AssertionError(f"[14c] cli.batch: rc {r.returncode}\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        with open(info) as fh:
+            runs = json.load(fh)
+        print(f"[14c] cli.batch in one process, {wall:.2f} s of wall:")
+        for op, (files, _) in ops.items():
+            n, run = len(files), runs[op]
+            paths[f"batch_{op}"] = run["launches"]
+            if run["rc"] != 0:
+                raise AssertionError(f"[14c] cli.batch --op={op}: rc "
+                                     f"{run['rc']}")
+            print(f"  --op={op}, {n} x {mp:.3f} MP: {run['s']:.2f} s in main"
+                  f"{' (its first use included)' if op == 'enhance' else ''}"
+                  f": {n * mp / run['s']:.3f} MP/s; launches "
+                  f"{launches_of(run['launches'])}")
+        print(f"  the port bench's stream mode ([12f], warm, in-process): "
+              f"{bench_mps.get('stream')} MP/s")
+        # The per-image CLIs in one process: each main on each image.
+        single = ("import sys; from nle_tpu_torch.cli import denoise, "
+                  "enhance; d = sys.argv[1]; p = sys.argv[2:8]; "
+                  f"w = {[str(x) for x in WEIGHTS]!r}; "
+                  f"dn = {list(CLI_DENOISE)!r}; srcs = sys.argv[8:]; "
+                  "[enhance.main([s, f'{d}/e{i}.png', *p, *w]) "
+                  "for i, s in enumerate(srcs)]; "
+                  "[denoise.main([s, f'{d}/d{i}.png', *p, *dn]) "
+                  "for i, s in enumerate(srcs[:2])]")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", single, tmp, *params,
+                            *srcs], cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"[14c] per-image CLIs: {r.stderr[-4000:]}")
+        same = []
+        for i in range(len(srcs)):
+            same.append(np.array_equal(
+                imread_bgr(os.path.join(tmp, "out_enhance",
+                                        f"f{i}-enhanced.png")),
+                imread_bgr(os.path.join(tmp, f"e{i}.png"))))
+        for i in range(2):
+            same.append(np.array_equal(
+                imread_bgr(os.path.join(tmp, "out_denoise",
+                                        f"f{i}-denoised.png")),
+                imread_bgr(os.path.join(tmp, f"d{i}.png"))))
+        print(f"  bitwise the per-image cli.enhance (4) and cli.denoise (2), "
+              f"run in one process ({time.perf_counter() - t0:.2f} s): "
+              f"{same}")
+        if not all(same):
+            raise AssertionError(f"[14c] batch outputs differ: {same}")
+        le = runs["enhance"]["launches"]
+        if (le["affinity_matmul"] != 4 or le["scaled_gram"] != 4
+                or le["scaled_matmul"] != 4
+                or le["sinkhorn_halfstep_int16"] != 4 * 2 * MAIN_ARGS[4]):
+            raise AssertionError(f"[14c] batch enhance launches {le}")
+    print(f"  [14c] {time.perf_counter() - tc:.1f} s")
+    print(f"[14] serving and the batch CLI: {time.perf_counter() - t14:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2891,9 +3300,13 @@ def main() -> int:
                                                       weights=WEIGHTS)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    import hashlib
+
     print(f"  warm {warm_s:.3f} s = {mp / warm_s:.3f} MP/s; cold == warm "
           f"bitwise: {bool(np.array_equal(cold, warm))}; "
-          f"PSNR(output, input) {psnr(warm, img):.2f} dB")
+          f"PSNR(output, input) {psnr(warm, img):.2f} dB; output sha256 "
+          f"{hashlib.sha256(warm.tobytes()).hexdigest()[:16]} (the bits, "
+          "to compare across versions)")
     if cold.shape != img.shape or cold.dtype != np.uint8:
         raise AssertionError(f"output {cold.shape} {cold.dtype}")
     if not np.array_equal(cold, warm):
@@ -3280,10 +3693,13 @@ def main() -> int:
     ab_paths = ab_probes(torch, _build, record, NPAD, MPAD)
 
     # -- [12] stream mode, host Lab and the port bench ------------------
-    stream_phase(torch, NLEFilter, _build, img)
+    bench_mps = stream_phase(torch, NLEFilter, _build, img)
 
     # -- [13] the command line --------------------------------------------
     cli_paths = cli_phase(torch, img, warm)
+
+    # -- [14] serving and the batch CLI -----------------------------------
+    serve_paths = serving_phase(torch, img, warm, bench_mps)
 
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the
@@ -3294,7 +3710,7 @@ def main() -> int:
              "dense_grid_streaming_4mp": gs_counts,
              "dense_grid_dense_4mp": gd_counts,
              "dense_mpad2176_4mp": wd_counts, **mode_paths, **ab_paths,
-             **cli_paths}
+             **cli_paths, **serve_paths}
     for row in rows:
         path, key = row.pop("_launch")
         row["launches"] = paths[path][key]

@@ -61,6 +61,18 @@ class FactoredFilter:
     def n_pixels(self) -> int:
         return self.nrows * self.ncols
 
+    def nbytes(self) -> int:
+        """Host and device bytes this filter holds (the serving store's
+        byte budget reads it): y_train and perm on the host; c, v_head, w
+        and eigvals on the device; and the (rr, cc, y_train) float32
+        features of the first apply (12 B/pixel) whether or not they are
+        built yet, since the first apply builds them."""
+        n = self.y_train.nbytes + self.perm.nbytes
+        for t in (self.c, self.v_head, self.w, self.eigvals):
+            n += t.numel() * t.element_size()
+        n += 3 * self.n_pixels * 4
+        return int(n)
+
     def _device_state(self):
         if self._dev is None:
             dev = self.c.device

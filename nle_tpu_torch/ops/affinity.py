@@ -42,11 +42,21 @@ def bandwidth_weights(hx, hy, dtype=torch.float32) -> tuple[float, float]:
 
 
 def affinity_block(fa: torch.Tensor, fb: torch.Tensor, sw, pw) -> torch.Tensor:
-    """Dense (p, q) affinity block from raw feature rows fa (p, 3), fb (q, 3)."""
+    """Dense (p, q) affinity block from raw feature rows fa (p, 3), fb (q, 3).
+
+    On the CPU the exp runs in float64 and rounds once to the features'
+    dtype: torch's CPU exp goes through the math library's vector code,
+    whose path (and last bit) follows the CPU and the library's settings,
+    and the tail columns of phi = K_AB Uinv carry 1/lambda up to 1e10, so
+    one ulp of an entry moved the route's output. The card's expf is the
+    same in every process."""
     dr = fa[:, None, 0] - fb[None, :, 0]
     dc = fa[:, None, 1] - fb[None, :, 1]
     dy = fa[:, None, 2] - fb[None, :, 2]
-    return torch.exp(-(sw * (dr * dr + dc * dc) + pw * (dy * dy)))
+    arg = -(sw * (dr * dr + dc * dc) + pw * (dy * dy))
+    if arg.device.type == "cpu":
+        return torch.exp(arg.double()).to(arg.dtype)
+    return torch.exp(arg)
 
 
 def affinity_matmul(fa: torch.Tensor, fb: torch.Tensor, B: torch.Tensor,

@@ -67,15 +67,20 @@ build_seconds: float | None = None
 
 _lib = None
 _lock = threading.Lock()
+# Request threads of the HTTP service launch kernels side by side: an
+# unguarded += could lose a count.
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def check(status: int, name: str) -> None:

@@ -100,9 +100,13 @@ def affinity_matmul_plain(fa, fb, B, sw, pw, out_rows: int | None = None):
     """Plain PyTorch K1, in the operands' dtype: (PLAIN_ROWS, p) affinity
     blocks materialized one at a time, each times B (nle_tpu's
     affinity_matmul_xla). out_rows gives the zero-tailed (out_rows, mpad)
-    layout."""
-    out = torch.cat([affinity_block(fb[i:i + PLAIN_ROWS], fa, sw, pw) @ B
-                     for i in range(0, max(fb.shape[0], 1), PLAIN_ROWS)])
+    layout. The products sum in float64 and round once to the operands'
+    dtype: an fp32 product on the CPU sums in the order of the BLAS's code
+    path and thread split, which differ between processes and machines."""
+    B64 = B.double()
+    out = torch.cat([
+        (affinity_block(fb[i:i + PLAIN_ROWS], fa, sw, pw).double() @ B64)
+        .to(B.dtype) for i in range(0, max(fb.shape[0], 1), PLAIN_ROWS)])
     if out_rows is None:
         return out
     return _pad_out(out, out_rows, round_up(B.shape[1], COL_TILE))

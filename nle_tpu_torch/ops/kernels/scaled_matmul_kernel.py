@@ -42,6 +42,7 @@ GRAM_MIN_SPLIT_ROWS = 2048
 # K7's widest B: kpad a multiple of 32 up to 256.
 MATMUL_COL_ALIGN = 32
 MATMUL_MAX_COLS = 256
+PLAIN_GRAM_ROWS = 65536    # rows of the plain K6/K7's float64 chunks
 
 
 class GramPlan(NamedTuple):
@@ -82,13 +83,28 @@ def gram_plan(npad: int, mpad: int) -> GramPlan:
 
 
 def scaled_gram_plain(phi: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    cphi = phi * c
-    return cphi.T @ cphi
+    """(diag(c) phi)^T (diag(c) phi), summed in float64 by row chunks and
+    rounded once to phi's dtype. An fp32 gram on the CPU sums in the order
+    of the BLAS's run-time thread split, so its bits differ between
+    processes; the float64 sum's one rounding does not."""
+    acc = torch.zeros((phi.shape[1], phi.shape[1]), dtype=torch.float64,
+                      device=phi.device)
+    for lo in range(0, phi.shape[0], PLAIN_GRAM_ROWS):
+        cphi = (phi[lo:lo + PLAIN_GRAM_ROWS]
+                * c[lo:lo + PLAIN_GRAM_ROWS]).double()
+        acc += cphi.T @ cphi
+    return acc.to(phi.dtype)
 
 
 def scaled_matmul_plain(phi: torch.Tensor, c: torch.Tensor,
                         B: torch.Tensor) -> torch.Tensor:
-    return (phi * c) @ B
+    """(diag(c) phi) @ B, summed in float64 by row chunks and rounded once
+    to phi's dtype (as scaled_gram_plain, for the same reason)."""
+    B64 = B.double()
+    return torch.cat([
+        ((phi[lo:lo + PLAIN_GRAM_ROWS] * c[lo:lo + PLAIN_GRAM_ROWS]).double()
+         @ B64).to(phi.dtype)
+        for lo in range(0, max(phi.shape[0], 1), PLAIN_GRAM_ROWS)])
 
 
 def _check_rows(phi: torch.Tensor, c: torch.Tensor) -> None:

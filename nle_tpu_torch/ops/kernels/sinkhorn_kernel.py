@@ -308,6 +308,22 @@ def colsum64(phi: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return acc.float()
 
 
+def rowdot64(phi: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """phi t for a float32 phi (rows, cols) and t (cols,), each row's sum
+    in float64 (row chunks) and rounded once to float32.
+
+    An fp32 matrix-vector product on the CPU sums in the order in which
+    the BLAS splits it over its threads, which follows the thread count
+    it picks at run time, so its bits differ between processes. A float64
+    sum of the exact fp32 products is ~1e-16 relative from exact, so its
+    one rounding to float32 gives the same bits whatever the split."""
+    out = torch.empty((phi.shape[0],), dtype=torch.float32, device=phi.device)
+    t64 = t.double()
+    for lo, hi in _row_chunks(phi.shape[0]):
+        out[lo:hi] = phi[lo:hi].double() @ t64
+    return out
+
+
 # -- K3/K4/K14 ---------------------------------------------------------------
 
 _HALFSTEP = {
@@ -323,12 +339,13 @@ def sinkhorn_halfstep_plain(Q: torch.Tensor, t: torch.Tensor, eps: float):
     rounded to bf16 before their products, as K14 (and the TPU) take them.
     s is colsum64: the kernels compensate their long sums over rows, and a
     plain fp32 matvec over ~10^4 rows on the CPU strayed 1.2e-4 from
-    float64 over ten iterations on the guard's noise frame (nle_tpu 6.6e-7)."""
+    float64 over ten iterations on the guard's noise frame (nle_tpu 6.6e-7).
+    Q t is rowdot64, so x has the same bits at every CPU thread count."""
     Qf = Q.float()
     bf16 = Q.dtype == torch.bfloat16
     if bf16:
         t = t.to(torch.bfloat16).float()
-    x = safe_reciprocal(Qf @ t, eps)
+    x = safe_reciprocal(rowdot64(Qf, t), eps)
     return x, colsum64(Qf, x.to(torch.bfloat16).float() if bf16 else x)
 
 
@@ -626,20 +643,37 @@ def sinkhorn_vectors_split(Um_pad: torch.Tensor, lam_pad: torch.Tensor,
     (t_q = scale * t in, scale * s_q out).
 
     phib_pad (npad_b, mpad) f32 with exact-zero pad rows/columns. Returns
-    (r_top (p,), c_top (p,), r_b (npad_b,), c_b (npad_b,), crush (0-d))."""
+    (r_top (p,), c_top (p,), r_b (npad_b,), c_b (npad_b,), crush (0-d)).
+
+    On the card the top block's matvecs are cuBLAS fp32 products, whose
+    order is fixed for the shapes; on the CPU they sum in float64 and
+    round once (rowdot64, colsum64), as the plain K3 does, so the
+    Sinkhorn vectors have the same bits at every thread count."""
     p, mpad = Um_pad.shape
     npad_b = phib_pad.shape[0]
     q16, scale, _ = quantize_int16(phib_pad)
     crush = carrier_crush_frac(phib_pad, scale)
     ones_p = torch.ones((p,), dtype=torch.float32, device=Um_pad.device)
-    # s0 = phi^T 1: exact f32 top term plus the rest block's column sum.
-    s0 = Um_pad.T @ ones_p + phib_pad.sum(dim=0)
+    if Um_pad.device.type == "cuda":
+        def top_w(t):
+            return Um_pad @ t
+
+        def top_s(x):
+            return Um_pad.T @ x
+    else:
+        def top_w(t):
+            return rowdot64(Um_pad, t)
+
+        def top_s(x):
+            return colsum64(Um_pad, x)
+    # s0 = phi^T 1: the top term plus the rest block's column sum.
+    s0 = top_s(ones_p) + phib_pad.sum(dim=0)
 
     def halfstep(s):
         t = lam_pad * s
-        xp = safe_reciprocal(Um_pad @ t, eps)
+        xp = safe_reciprocal(top_w(t), eps)
         xb, s_q = sinkhorn_halfstep(q16, scale * t, eps)
-        return xp, xb, Um_pad.T @ xp + scale * s_q
+        return xp, xb, top_s(xp) + scale * s_q
 
     zb = torch.zeros((npad_b,), dtype=torch.float32, device=Um_pad.device)
     if max_iter == 0:

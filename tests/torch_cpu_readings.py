@@ -3,6 +3,7 @@
 
     JAX_PLATFORMS=cpu python tests/torch_cpu_readings.py device-route
     JAX_PLATFORMS=cpu python tests/torch_cpu_readings.py fragility [runs]
+    JAX_PLATFORMS=cpu python tests/torch_cpu_readings.py fragility-nle-tpu [runs]
 
 device-route: stage1="device" (Ka's eigh in float32) against the default
 host64 route, in nle_tpu and in the port, on chip_smoke's structured frame
@@ -12,7 +13,11 @@ images), and the two packages' device routes against each other.
 fragility: NLEFilter(device="cpu").train_for_enhancement of the 208x304
 frame in `runs` fresh processes (four at a time, OMP_NUM_THREADS=2), with
 and without MKL_CBWR=COMPATIBLE: how many give a filter eigenvalue above
-1.01 (a broken train; the largest is ~0.998 otherwise).
+1.01 (a broken train; the largest is ~0.998 otherwise). Since the plain
+versions on the route sum in float64 (tests/test_torch_cpu_sum_order.py)
+every train gives the same largest eigenvalue, with or without
+MKL_CBWR=COMPATIBLE. fragility-nle-tpu: the same train by nle_tpu's
+NLEFilter on the CPU (XLA's dot, no MKL), without MKL_CBWR.
 """
 
 from __future__ import annotations
@@ -60,9 +65,18 @@ ONE_TRAIN = (
     "print(float(t.eigvals.max()))")
 
 
-def fragility(runs: int) -> None:
-    code = ONE_TRAIN.format(root=ROOT)
-    for cbwr in (None, "COMPATIBLE"):
+ONE_TRAIN_NLE_TPU = (
+    "import sys; sys.path.insert(0, {root!r}); import jax; "
+    "jax.config.update('jax_platforms', 'cpu'); import chip_smoke as cs; "
+    "from nle_tpu.models.filter import NLEFilter; "
+    "t = NLEFilter().train_for_enhancement("
+    "cs.structured_frame(208, 304), *cs.MAIN_ARGS); "
+    "print(float(t.eigvals.max()))")
+
+
+def fragility(runs: int, nle_tpu: bool = False) -> None:
+    code = (ONE_TRAIN_NLE_TPU if nle_tpu else ONE_TRAIN).format(root=ROOT)
+    for cbwr in (None,) if nle_tpu else (None, "COMPATIBLE"):
         env = dict(os.environ, OMP_NUM_THREADS="2")
         if cbwr:
             env["MKL_CBWR"] = cbwr
@@ -76,14 +90,17 @@ def fragility(runs: int) -> None:
         bad = [t for t in tops if t > 1.01]
         print(f"MKL_CBWR={cbwr}: {len(bad)} of {len(tops)} trains broken "
               f"(largest eigenvalue {max(tops):.6g}; good ones "
-              f"{min(tops):.6g})", flush=True)
+              f"{min(tops):.6g}; {len(set(tops))} distinct values)",
+              flush=True)
 
 
 if __name__ == "__main__":
     what = sys.argv[1] if len(sys.argv) > 1 else "device-route"
     if what == "device-route":
         device_route()
-    elif what == "fragility":
-        fragility(int(sys.argv[2]) if len(sys.argv) > 2 else 16)
+    elif what in ("fragility", "fragility-nle-tpu"):
+        fragility(int(sys.argv[2]) if len(sys.argv) > 2 else 16,
+                  nle_tpu=what == "fragility-nle-tpu")
     else:
-        sys.exit(f"unknown reading {what!r}: device-route | fragility")
+        sys.exit(f"unknown reading {what!r}: device-route | fragility | "
+                 "fragility-nle-tpu")
