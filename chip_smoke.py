@@ -104,12 +104,17 @@
    48 44 500 5 50 50 (m = 2078, mb 2112, mpad 2176) through the auto rule
    on the int16 route (K3) and the f32 route (K4), >= 45 dB apart, then K1
    at p = 2112 and K3/K4 (and K13/K14 for [10a]) and K6/K7 at mpad 2176
-   held and timed on 2^20 of its rest pixels;
+   held and timed on 2^20 of its rest pixels, K13 there also bit for bit
+   its earlier sweep (k13_bitwise);
 10. the Sinkhorn modes: (a) K13 (NLE_SINKHORN_KERNEL=auto), K14 (the bf16
    preview branch) and K15's three probe variants (the TPU probe's (8,
    max(mpad, chunk)) block at chunk 1024; dmaonly exact) held against
    their plain versions and timed at the 1 MP assembled shape (npad
-   1,011,712, mpad 640), K13 and K14 also at mpad 2176 ([9d]); (b) the 1 MP
+   1,011,712, mpad 640), K13 and K14 also at mpad 2176 ([9d]); K13 also
+   bit for bit its earlier sweep, rebuilt in this process from the
+   unchanged tiled_sweep_kernel (k13_by_old_sweep: x and the tile partials
+   from nle_ab_tiles variant 0, s striped over them on the card), max |dx|
+   and |ds| printed, both must be 0; (b) the 1 MP
    main frame through NLEFilter(device="cuda").train_and_enhance under
    each mode, cold then warm (bitwise equal), with the counts and the
    stage-2a layouts that prove the route: =auto K13 x 100 and no K3/K4;
@@ -131,7 +136,8 @@
    (bench_sk_2stream, 1/2/4 streams at chunks 1024 and 2048): one cold
    call each, whose own launch counts must be exactly one per
    configuration, held against the plain twins (x and s bounds as K3/K4's,
-   K19 exact), timed beside their bounds and torch.mv on the same factor;
+   K19 exact), K13's mxu calls also bit for bit its earlier sweep at both
+   tiles, timed beside their bounds and torch.mv on the same factor;
    then each tool's table through its own table function, whose launch
    counts are the rows' `launches`;
 12. stream mode, host Lab and the port bench: (a) four exposure-jittered
@@ -361,6 +367,50 @@ def hold_halfstep(torch, label: str, Q, t, eps: float, kernel=None,
     ex = check(f"{label} x", xk - xp, bx)
     es = check(f"{label} s", sk - sp, S_SUM_TOL * (Qa.T @ xp.abs()) + 1e-30)
     return xk, (max(ex[0], es[0]), max(ex[1], es[1]))
+
+
+def k13_by_old_sweep(torch, phi, t, eps: float, tile: int):
+    """K13's (x, s) as its earlier sweep gives them, rebuilt in this process
+    from the unchanged tiled_sweep_kernel<kHalfstep> (csrc/
+    sinkhorn_sweep.cuh): x and the per-tile partials from nle_ab_tiles
+    variant 0 (K17's launch of that kernel) at the same tile, into this
+    function's own partial tensor; s = striped_sum(partial, 8) on the card,
+    the 8-stripe reduce's fp32 adds in its order. Not counted: it is a
+    reference for K13's bits, on no path."""
+    from nle_tpu_torch.ops.kernels import _build
+    from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
+        K13_STRIPES,
+        launch_sweep,
+        striped_sum,
+    )
+
+    npad, mpad = phi.shape
+    x = torch.empty((npad,), dtype=torch.float32, device=phi.device)
+    s_tile_order = torch.empty((mpad,), dtype=torch.float32,
+                               device=phi.device)
+    partial = torch.empty((npad // tile, mpad), dtype=torch.float32,
+                          device=phi.device)
+    _build.check(launch_sweep(_build.load().nle_ab_tiles, phi, t, x, partial,
+                              s_tile_order, npad, mpad, tile, 0, float(eps)),
+                 "K13's earlier sweep (nle_ab_tiles variant 0)")
+    return x, striped_sum(partial, K13_STRIPES)
+
+
+def k13_bitwise(torch, label: str, got, phi, t, eps: float,
+                tile: int) -> float:
+    """K13's (x, s) `got` on (phi, t) at `tile` against its earlier sweep's
+    (k13_by_old_sweep): prints max |x - x_old| and |s - s_old| and fails
+    unless both are 0 and the tensors equal. Returns the max |diff| (0)."""
+    xo, so = k13_by_old_sweep(torch, phi, t, eps, tile)
+    dx = float((got[0] - xo).abs().max())
+    ds = float((got[1] - so).abs().max())
+    print(f"  {label}: K13 vs its earlier sweep at tile {tile}: max |dx| "
+          f"{dx:.3e}, max |ds| {ds:.3e} (bit for bit: must be 0)")
+    if not (dx == 0 and ds == 0 and torch.equal(got[0], xo)
+            and torch.equal(got[1], so)):
+        raise AssertionError(f"{label}: K13 is not bitwise its earlier sweep "
+                             f"(max |dx| {dx}, max |ds| {ds})")
+    return max(dx, ds)
 
 
 def path_operands(torch, L: np.ndarray, args, dev):
@@ -1420,6 +1470,35 @@ def mode_routes(iters: int):
          {"sinkhorn_halfstep_int16": 2 * iters}, [True]))
 
 
+def assembled_factor(torch, L: np.ndarray, dev):
+    """The assembled f32 factor [Um; phi_b] (npad, mpad) of the Lab
+    frame L at MAIN_ARGS (phi_b by K1) and the first half-step's t = lam
+    phi^T 1, the operands of the assembled route's half-steps at 1 MP.
+    Returns (phi, t, n, mb)."""
+    from nle_tpu_torch.ops.kernels.affinity_kernel import (
+        affinity_matmul_kernel,
+    )
+    from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
+        colsum64,
+        padded_shape,
+        split_row_pad,
+    )
+
+    op = path_operands(torch, L, MAIN_ARGS, dev)
+    n, p, mb, mpad = op.n, op.p, op.mb, op.mpad
+    nb = n - p
+    npad, _ = padded_shape(n, mb)
+    phib = affinity_matmul_kernel(op.fa, op.fb, op.Uinv, op.sw, op.pw,
+                                  out_rows=split_row_pad(nb))
+    phi = torch.zeros((npad, mpad), device=dev)
+    phi[:p, :mb] = op.Um
+    phi[p:n] = phib[:nb]
+    lam_pad = torch.nn.functional.pad(op.lam, (0, mpad - mb))
+    del phib, op
+    t = (lam_pad * colsum64(phi, torch.ones(npad, device=dev))).contiguous()
+    return phi, t, n, mb
+
+
 def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
                    wide10) -> dict:
     """[10] K13, K14 and K15 against their plain versions at the 1 MP
@@ -1427,22 +1506,16 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
     table through the probe tool. split_out is the default (split) route's
     1 MP output; wide10 the mpad 2176 readings [9d] took for K13/K14.
     Returns {path: launch counts} for the rows' `launches`."""
-    from nle_tpu_torch.ops.kernels.affinity_kernel import (
-        affinity_matmul_kernel,
-    )
     from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
         PROBE_VARIANTS,
         PROBE_WONLY_COLS,
-        colsum64,
         k13_tile,
-        padded_shape,
         sinkhorn_halfstep,
         sinkhorn_halfstep_plain,
         sinkhorn_halfstep_tiled,
         sinkhorn_halfstep_tiled_plain,
         sinkhorn_probe,
         sinkhorn_probe_plain,
-        split_row_pad,
     )
     from nle_tpu_torch.ops.pipeline import DENSE_PEAK_PER_PHI_BYTE
     from nle_tpu_torch.tools._sk_bench import FLOOR_CHUNK
@@ -1452,20 +1525,9 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
     dev = torch.device("cuda")
     eps = 1e-10
     iters = MAIN_ARGS[4]
-    op = path_operands(torch, L, MAIN_ARGS, dev)
-    n, p, mb, mpad = op.n, op.p, op.mb, op.mpad
-    nb = n - p
-    npad, _ = padded_shape(n, mb)
+    phi, t32, n, mb = assembled_factor(torch, L, dev)
+    npad, mpad = phi.shape
     tile = k13_tile(mpad)
-    # The assembled factor [Um; phi_b] and the first half-step's t.
-    phib = affinity_matmul_kernel(op.fa, op.fb, op.Uinv, op.sw, op.pw,
-                                  out_rows=split_row_pad(nb))
-    phi = torch.zeros((npad, mpad), device=dev)
-    phi[:p, :mb] = op.Um
-    phi[p:n] = phib[:nb]
-    lam_pad = torch.nn.functional.pad(op.lam, (0, mpad - mb))
-    del phib, op
-    t32 = (lam_pad * colsum64(phi, torch.ones(npad, device=dev))).contiguous()
     print(f"[10a] K13, K14, K15 vs plain at the 1 MP assembled shape: npad "
           f"{npad}, mpad {mpad}, K13 tile {tile} ({npad // tile} tiles)")
     f32_bytes = 4 * (npad * mpad + npad + 2 * mpad)
@@ -1477,11 +1539,17 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
 
     _, err = hold_halfstep(torch, "K13 sinkhorn tiled f32", phi, t32, eps,
                            sinkhorn_halfstep_tiled, tiled_plain)
-    record("sinkhorn_halfstep_tiled", src, sk_py + "sinkhorn_kernel.py:45",
-           err, cuda_ms(torch, lambda: sinkhorn_halfstep_tiled(phi, t32, eps),
-                        reps=10),
-           cuda_ms(torch, lambda: tiled_plain(phi, t32, eps)), f32_bytes,
-           4 * n * mb, launch=("mode_auto_1mp", "sinkhorn_halfstep_tiled"))
+    same = k13_bitwise(torch, "[10a]", sinkhorn_halfstep_tiled(phi, t32, eps),
+                       phi, t32, eps, tile)
+    row = record(
+        "sinkhorn_halfstep_tiled", src, sk_py + "sinkhorn_kernel.py:45", err,
+        cuda_ms(torch, lambda: sinkhorn_halfstep_tiled(phi, t32, eps),
+                reps=10),
+        cuda_ms(torch, lambda: tiled_plain(phi, t32, eps)), f32_bytes,
+        4 * n * mb, launch=("mode_auto_1mp", "sinkhorn_halfstep_tiled"))
+    row.update(earlier_sweep_max_abs_diff=same,
+               torch_mv_ms=cuda_ms(torch, lambda: torch.mv(phi, t32), reps=10))
+    print(f"  torch.mv on the same factor: {row['torch_mv_ms']:.3f} ms")
     phi_bf = phi.to(torch.bfloat16)
     _, err = hold_halfstep(torch, "K14 sinkhorn bf16", phi_bf, t32, eps)
     record("sinkhorn_halfstep_bf16", src, sk_py + "sinkhorn_kernel.py:121",
@@ -1689,6 +1757,9 @@ def ab_probes(torch, _build, record, npad: int, mpad: int) -> dict:
         es = check(f"{label} s", got[1] - sp,
                    torch.full_like(sp, 1e-30) if key[0] == "xonly" else bs)
         errs[key] = (max(ex[0], es[0]), max(ex[1], es[1]))
+    # K13 as the mxu variant: bit for bit its earlier sweep at each tile.
+    k13_same = {r: k13_bitwise(torch, "[11] mxu", cold[("mxu", r)], phi, t,
+                               eps, r) for r in tiles}
     del cold
 
     # Time each kernel, its plain twin and torch.mv beside them. One row a
@@ -1740,6 +1811,8 @@ def ab_probes(torch, _build, record, npad: int, mpad: int) -> dict:
                              key[0], bench_sk_variants.launch_key(key[0]))))
         row.update(kernel_id=kid, tool_config=label, mv_ms=mv_ms,
                    x_mv=row["ms"] / mv_ms)
+        if key[0] == "mxu":
+            row["earlier_sweep_max_abs_diff"] = k13_same[key[1]]
         by_config[label] = row
     print(f"  torch.mv(phi, t) on the same factor: {mv_ms:.3f} ms")
     del phi, phia, t, bx, bs
@@ -3653,6 +3726,11 @@ def main() -> int:
              lamw.contiguous(), "sinkhorn_halfstep_bf16", sinkhorn_halfstep,
              sinkhorn_halfstep_plain)):
         xw, errw = hold_halfstep(torch, label, Q, tq_w, eps, kernel, plain)
+        if label.startswith("K13"):
+            wide10.setdefault(row_name, {})[
+                "earlier_sweep_max_abs_diff_mpad2176"] = k13_bitwise(
+                    torch, "[9d]", kernel(Q, tq_w, eps), Q, tq_w, eps,
+                    k13_tile(WIDE_MPAD))
         if label.startswith("K4"):
             cw = xw[:, None].contiguous()   # a real balancing vector for K6/K7
         del xw

@@ -21,12 +21,9 @@
 // golden-safe (nle_tpu documents rock2 at 24 dB against golden).
 //
 // K13 replaces `_kernel` (:45, via sinkhorn_halfstep_pallas, call :95),
-// the block-pipelined f32 half-step behind NLE_SINKHORN_KERNEL=auto. Same
-// function as K4; its decomposition is the TPU kernel's: one block per
-// TILE_N row tile (the caller's tile rule), each tile's s partial to a
-// (ntiles, mpad) scratch, then tile i added to stripe i % 8 in increasing
-// i and the 8 stripes summed in order, plain fp32 — the `s_ref[i % 8] +=
-// part` accumulator (:70-71) and the final jnp.sum(s_parts, 0).
+// the block-pipelined f32 half-step behind NLE_SINKHORN_KERNEL=auto: K4's
+// function in the TPU kernel's decomposition, on a sweep of its own below
+// (striped_bulk_kernel).
 //
 // K15 replaces the probe kernel of tools/bench_sk_dmaonly.py:68 (`make`)
 // and returns what it returns: an (8, max(mpad, chunk)) block whose row 0
@@ -358,6 +355,161 @@ int launch_halfstep(const T* Q, const float* t, float* x, float* partial,
       nle::launch_reduce_partials(partial, s, ctas, mpad, st));
 }
 
+// -- K13: the striped half-step -----------------------------------------
+//
+// What it computes, for an f32 Q (npad, mpad) and a row tile `tile`
+// (sinkhorn_kernel.k13_tile, or the mxu variant's tile): x = safe_recip(w),
+// w = Q t; each tile's partial s_i = x_tile^T Q_tile; s = the partials added
+// to stripe i % 8 in increasing i, then the 8 stripes in order, plain fp32
+// (the TPU's `s_ref[i % 8] += part`, :70-71, and its final jnp.sum). Three
+// orders fix the bits, and the kernel keeps each of them as K13's earlier
+// sweep (tiled_sweep_kernel, csrc/sinkhorn_sweep.cuh) has it:
+//   w   lane l of the row's warp takes one fmaf chain from 0 over the
+//       columns j = l (mod 32) in increasing j, then the shuffle-xor adds
+//       at offsets 16, 8, 4, 2, 1;
+//   s_i one fmaf chain a column from 0 over every row of the tile in row
+//       order, carried across sub-tiles in the CTA's shared s row (never a
+//       sub-tile partial added on, never rows split among threads);
+//   s   the 8-stripe ordered reduce (launch_ordered_reduce).
+//
+// Bound on the H100: 4 (npad mpad + npad + 2 mpad) bytes over 3.35 TB/s
+// (0.774 ms at the 1 MP assembled shape, 2.726 at 2^20 x 2176) for 4 npad
+// mpad fp32 operations: memory-bound. The sweep it replaces staged each
+// sub-tile with plain loads between barriers, so no copy overlapped any
+// arithmetic, and at mpad 2176 its ~200 KB tile left one block an SM with
+// nothing in flight while it loaded (43% of the bound). This one takes
+// K4's staging with K13's arithmetic: a persistent grid (k13_plan, from the
+// shapes alone: at most two CTAs an SM of a 132-SM card) where CTA b owns
+// the whole tiles [b per_cta, min((b + 1) per_cta, ntiles)) and walks their
+// rows in sub-tiles of R rows (R divides the tile); one thread bulk-copies
+// each into a ring of S shared-memory slots on mbarriers, S sub-tiles
+// ahead, and re-issues the slot of sub-tile i - 1 after the barrier that
+// ends sub-tile i's w pass. Per sub-tile: one warp a row forms w (t read
+// through L1), x to device memory and to one of two shared buffers; the
+// barrier; then each thread carries the chains of its own 16-byte column
+// chunks over the R rows from the shared s row and back. At a tile's last
+// sub-tile the owning thread writes its chunks of the s row to row `tile
+// index` of the (ntiles, mpad) scratch and zeroes them, so a tile's end
+// needs no barrier of its own. The ring and the s row take 78,720 bytes at
+// mpad 2176, so two CTAs share an SM.
+constexpr int K13_THREADS = 256;
+constexpr int K13_MAX_ROWS = 32;      // rows a sub-tile (x's shared buffers)
+constexpr int K13_MAX_SLOTS = 16;     // mbarriers in the first 128 bytes
+constexpr int K13_BARRIER_BYTES = 128;
+
+// Shared bytes of K13's sweep: the barriers, the ring, the s row and x's
+// two buffers. sinkhorn_kernel.k13_plan computes the same.
+size_t striped_smem_bytes(int mpad, int R, int S) {
+  return K13_BARRIER_BYTES + static_cast<size_t>(S) * R * mpad * 4 +
+         4 * (static_cast<size_t>(mpad) + 2 * K13_MAX_ROWS);
+}
+
+__global__ void __launch_bounds__(K13_THREADS, 2)
+    striped_bulk_kernel(const float* __restrict__ Q,
+                        const float* __restrict__ t, float* __restrict__ x,
+                        float* __restrict__ partial, int npad, int mpad,
+                        int tile, int R, int S, int per_cta, float eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  unsigned char* ring = smem_raw + K13_BARRIER_BYTES;
+  const int slot_bytes = R * mpad * 4;
+  const int nchunks = mpad / 4;
+  float* s_s = reinterpret_cast<float*>(ring + static_cast<size_t>(S) *
+                                                   slot_bytes);
+  float* x_s = s_s + mpad;                       // [2][K13_MAX_ROWS]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rbeg = blockIdx.x * per_cta * tile;
+  const int rend = min(rbeg + per_cta * tile, npad);
+  const int nsub = (rend - rbeg) / R;
+
+  for (int j = tid; j < mpad; j += K13_THREADS) s_s[j] = 0.0f;
+  if (tid == 0) {
+    for (int b = 0; b < S; ++b) nle::mbar_init(&bars[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Sub-tile i into slot i % S; one thread.
+  auto issue = [&](int i) {
+    uint64_t* bar = &bars[i % S];
+    nle::mbar_expect_tx(bar, static_cast<uint32_t>(slot_bytes));
+    nle::bulk_copy(ring + static_cast<size_t>(i % S) * slot_bytes,
+                   Q + static_cast<size_t>(rbeg + i * R) * mpad,
+                   static_cast<uint32_t>(slot_bytes), bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < S && i < nsub; ++i) issue(i);
+  }
+  for (int i = 0; i < nsub; ++i) {
+    const int r0 = rbeg + i * R;
+    const float* slot = reinterpret_cast<const float*>(
+        ring + static_cast<size_t>(i % S) * slot_bytes);
+    float* xb = x_s + (i & 1) * K13_MAX_ROWS;
+    nle::mbar_wait(&bars[i % S], static_cast<uint32_t>((i / S) & 1));
+    for (int r = warp; r < R; r += K13_THREADS / 32) {
+      const float* row = slot + r * mpad;
+      float w = 0.0f;
+#pragma unroll 4
+      for (int j = lane; j < mpad; j += 32) w = fmaf(row[j], __ldg(t + j), w);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        w = __fadd_rn(w, __shfl_xor_sync(0xffffffffu, w, off));
+      }
+      if (lane == 0) {
+        const float xv = fabsf(w) >= eps ? 1.0f / w : 0.0f;
+        xb[r] = xv;
+        x[r0 + r] = xv;
+      }
+    }
+    // x of this sub-tile is in xb; every thread is past sub-tile i - 1.
+    __syncthreads();
+    if (tid == 0 && i >= 1 && i - 1 + S < nsub) issue(i - 1 + S);
+    // The tile's last sub-tile: its s row goes out and starts again at 0.
+    const bool last = (r0 + R - rbeg) % tile == 0;
+    float* dst = partial + static_cast<size_t>((r0 + R - 1) / tile) * mpad;
+    for (int c = tid; c < nchunks; c += K13_THREADS) {
+      float4* sp = reinterpret_cast<float4*>(s_s + 4 * c);
+      float4 a = *sp;
+#pragma unroll 4
+      for (int r = 0; r < R; ++r) {
+        const float xr = xb[r];
+        const float4 q =
+            *reinterpret_cast<const float4*>(slot + r * mpad + 4 * c);
+        a.x = fmaf(xr, q.x, a.x);
+        a.y = fmaf(xr, q.y, a.y);
+        a.z = fmaf(xr, q.z, a.z);
+        a.w = fmaf(xr, q.w, a.w);
+      }
+      if (last) {
+        *reinterpret_cast<float4*>(dst + 4 * c) = a;
+        *sp = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        *sp = a;
+      }
+    }
+  }
+}
+
+// Whether (R, S, ctas, per_cta, smem) is a plan k13_plan could give for
+// the shape: whole tiles of whole sub-tiles, every tile covered once, the
+// ring and the vectors in the shared bytes it names, 16-byte rows and
+// operands.
+bool striped_plan_ok(const float* Q, const float* t, int npad, int mpad,
+                     int tile, int R, int S, int ctas, int per_cta,
+                     int smem) {
+  if (npad < 1 || mpad < 4 || mpad % 4 != 0 || tile < 1 ||
+      npad % tile != 0 || R < 1 || R > K13_MAX_ROWS || tile % R != 0 ||
+      S < 2 || S > K13_MAX_SLOTS || ctas < 1 || per_cta < 1) {
+    return false;
+  }
+  const int ntiles = npad / tile;
+  return static_cast<long long>(ctas - 1) * per_cta < ntiles &&
+         static_cast<long long>(ctas) * per_cta >= ntiles &&
+         static_cast<size_t>(smem) == striped_smem_bytes(mpad, R, S) &&
+         aligned16(Q) && aligned16(t);
+}
+
 }  // namespace
 
 // K3: Q (npad, mpad) int16, t (mpad,) -> x (npad,), s (mpad,) on
@@ -389,18 +541,29 @@ extern "C" int nle_sinkhorn_halfstep_bf16(const void* Q, const float* t,
 }
 #undef NLE_HALFSTEP_ARGS
 
-// K13: Q (npad, mpad) float32 with npad a multiple of `rows`, the row tile;
-// partial is scratch of (npad / rows) * mpad floats.
+// K13: Q (npad, mpad) float32 with npad a multiple of `tile`, on
+// k13_plan(npad, mpad, tile) = (rows, slots, ctas, per_cta, smem); any
+// other plan is refused. partial is scratch of (npad / tile) * mpad floats.
 extern "C" int nle_sinkhorn_tiled_f32(const float* Q, const float* t,
                                       float* x, float* partial, float* s,
-                                      int npad, int mpad, int rows, float eps,
-                                      void* stream) {
+                                      int npad, int mpad, int tile, int rows,
+                                      int slots, int ctas, int per_cta,
+                                      int smem, float eps, void* stream) {
+  if (!striped_plan_ok(Q, t, npad, mpad, tile, rows, slots, ctas, per_cta,
+                       smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_tiled<kHalfstep>(Q, t, x, partial, npad, mpad,
-                                            rows, eps, st);
+  cudaError_t err = cudaFuncSetAttribute(
+      striped_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  striped_bulk_kernel<<<ctas, K13_THREADS, smem, st>>>(
+      Q, t, x, partial, npad, mpad, tile, rows, slots, per_cta, eps);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_ordered_reduce(
-      partial, mpad, npad / rows, mpad, K13_STRIPES, s, 1, mpad, st));
+      partial, mpad, npad / tile, mpad, K13_STRIPES, s, 1, mpad, st));
 }
 
 // K15: the TPU probe's (8, max(mpad, chunk)) output `out` for mode 1

@@ -1,6 +1,8 @@
-// The tiled Sinkhorn sweep shared by csrc/sinkhorn.cu (K13) and
-// csrc/sinkhorn_ab.cu (K17/K18): one read of a row range of the factor
-// through shared memory, forming
+// The tiled Sinkhorn sweep of csrc/sinkhorn_ab.cu (K17/K18), which was
+// K13's until K13 moved onto a bulk-copy ring of its own (csrc/sinkhorn.cu
+// striped_bulk_kernel, the same bits: chip_smoke.py holds the two to each
+// other): one read of a row range of the factor through shared memory,
+// forming
 //   x = safe_recip(Q t, eps)     |w| >= eps -> 1/w, else 0
 //   s = Q^T x                    the block's partial, a shared-memory row
 // or x alone (K18's xonly); and the second pass that sums per-tile
@@ -120,7 +122,8 @@ __device__ __forceinline__ void stage_vectors(const float* __restrict__ t,
 }
 
 // One block per tile of `rows` rows, its s partial to row blockIdx.x of
-// the (ntiles, mpad) scratch: K13 and K17 (kHalfstep), and K18's xonly.
+// the (ntiles, mpad) scratch: K17 (kHalfstep; K13's earlier form) and
+// K18's xonly.
 template <int kMode>
 __global__ void __launch_bounds__(SK_THREADS)
     tiled_sweep_kernel(const float* __restrict__ Q,

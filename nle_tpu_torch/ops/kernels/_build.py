@@ -166,7 +166,8 @@ def _declare(lib) -> None:
                                        p],
         "nle_sinkhorn_halfstep_bf16": [p, p, p, p, p, i, i, i, i, i, i, i, f,
                                        p],
-        "nle_sinkhorn_tiled_f32": [p, p, p, p, p, i, i, i, f, p],
+        "nle_sinkhorn_tiled_f32": [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                   f, p],
         "nle_sinkhorn_probe_f32": [p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                                    p],
         "nle_ab_unroll": [p, p, p, p, p, i, i, i, i, f, p],

@@ -11,7 +11,9 @@ Each half-step reads the factor once and computes
   products, as the TPU casts them; not golden-safe).
 - K13 replaces `_kernel` (:45, via `sinkhorn_halfstep_pallas`, call :95),
   the f32 half-step behind NLE_SINKHORN_KERNEL=auto: K4's function in the
-  TPU kernel's decomposition (TILE_N row tiles, s summed in 8 stripes).
+  TPU kernel's decomposition (TILE_N row tiles, s summed in 8 stripes), on
+  K4's staging (a persistent grid of whole tiles, k13_plan) with its own
+  fixed sum orders.
 - K15 replaces the probe of tools/bench_sk_dmaonly.py:68 and returns its
   (8, max(mpad, chunk)) block (dmaonly / wonly / wpart): K13's sweep with
   one block per chunk and parts of its work dropped, the measured
@@ -517,19 +519,67 @@ def sinkhorn_halfstep_tiled_plain(phi: torch.Tensor, t: torch.Tensor,
     return x, striped_sum(tile_partials(phi, x, tile), K13_STRIPES)
 
 
+class K13Plan(NamedTuple):
+    """K13's launch: CTA b owns the whole tiles [b per_cta, min((b + 1)
+    per_cta, ntiles)), their rows walked `rows` at a time (rows divides the
+    tile) through `slots` bulk-copied sub-tiles; shared_bytes: the slots'
+    mbarriers, the ring, the tile's s row and x's two buffers."""
+    rows: int
+    slots: int
+    ctas: int
+    per_cta: int
+    shared_bytes: int
+
+
+def k13_plan(npad: int, mpad: int, tile: int) -> K13Plan:
+    """K13's plan for an (npad, mpad) f32 factor in row tiles of `tile`: a
+    function of the shapes alone, so the kernel's split of the work does
+    not depend on the card. K4's staging (sinkhorn_plan: sub-tiles of at
+    most SK_SLOT_BYTES, a ring of at most SK_RING_BYTES, at most SK_CTAS
+    CTAs), with sub-tiles that divide the tile and every CTA a run of whole
+    tiles: two CTAs fit an SM to mpad 5760. Raises on shapes the
+    kernel cannot take: a tile that does not divide npad, a row that is not
+    a 16-byte multiple, or a width whose ring and s row do not fit one
+    block's shared memory."""
+    row_bytes = 4 * mpad
+    if npad < 1 or mpad < 1 or row_bytes % 16:
+        raise ValueError(f"K13 takes a non-empty factor whose rows are a "
+                         f"16-byte multiple; got ({npad}, {mpad})")
+    if tile < 1 or npad % tile:
+        raise ValueError(f"K13 tile {tile}: npad {npad} must be a positive "
+                         "multiple of it")
+    rows = 1
+    while (rows < SK_MAX_ROWS and tile % (2 * rows) == 0
+           and 2 * rows * row_bytes <= SK_SLOT_BYTES):
+        rows *= 2
+    ntiles = npad // tile
+    per_cta = -(-ntiles // SK_CTAS)
+    # No more slots than a CTA has sub-tiles.
+    slots = max(2, min(SK_MAX_SLOTS, per_cta * tile // rows,
+                       SK_RING_BYTES // (rows * row_bytes)))
+    shared = 128 + slots * rows * row_bytes + 4 * (mpad + 2 * SK_MAX_ROWS)
+    if shared > SHARED_LIMIT:
+        raise ValueError(f"K13 at mpad {mpad} needs {shared} B of shared "
+                         f"memory (limit {SHARED_LIMIT})")
+    return K13Plan(rows, slots, -(-ntiles // per_cta), per_cta, shared)
+
+
 def tiled_halfstep_launch(phi: torch.Tensor, t: torch.Tensor, eps: float,
                           tile: int):
     """Launch K13 on a CUDA phi (npad, mpad) float32 with npad a multiple
-    of `tile` (any width up to MAX_MPAD) and count it."""
+    of `tile` (any width up to MAX_MPAD) on k13_plan and count it."""
     _check_width(phi, t)
     npad, mpad = phi.shape
+    plan = k13_plan(npad, mpad, tile)
+    if phi.data_ptr() % 16 or t.data_ptr() % 16:
+        raise ValueError("K13 operands must be 16-byte aligned")
     lib = _build.load()
     x = torch.empty((npad,), dtype=torch.float32, device=phi.device)
     s = torch.empty((mpad,), dtype=torch.float32, device=phi.device)
     partial = torch.empty((npad // tile, mpad), dtype=torch.float32,
                           device=phi.device)
     _build.check(launch_sweep(lib.nle_sinkhorn_tiled_f32, phi, t, x, partial,
-                              s, npad, mpad, tile, float(eps)),
+                              s, npad, mpad, tile, *plan, float(eps)),
                  "sinkhorn_halfstep_tiled")
     _build.count_launch("sinkhorn_halfstep_tiled")
     return x, s

@@ -1,8 +1,9 @@
-"""K1's, K12's and the streaming kernels' outputs and the 1 MP dense
-edit from two versions of the port, on one NVIDIA GPU: is a change to the
-affinity core (K1, K2's contract, K12's phi step) or to the streaming
-kernels (K10, K11, K9's two passes) bit for bit the version it replaces,
-and how fast is each?
+"""K1's, K12's, the streaming kernels' and K13's outputs and the 1 MP
+dense edit from two versions of the port, on one NVIDIA GPU: is a change
+to the affinity core (K1, K2's contract, K12's phi step), to the streaming
+kernels (K10, K11, K9's two passes) or to K13 (the striped half-step of
+NLE_SINKHORN_KERNEL=auto) bit for bit the version it replaces, and how
+fast is each?
 
     python3 nle_tpu_torch/tools/affinity_ab.py --root DIR --out FILE.npz
     python3 nle_tpu_torch/tools/affinity_ab.py --compare A.npz B.npz [...]
@@ -20,17 +21,22 @@ the card from seed 0); on the same operands (stream_records) K10
 (streaming_ap) and K11 (streaming_atb) at R = 1 and 3, K10's unit_x pass
 (the s0 pass of streaming training), factored_apply (K10, then K11, on a
 seeded filter) and, on the 16 MP operands' first 2^20 rows with the
-samples zero-padded to Ppad 4224, K9's two passes: the SHA-256 of each
+samples zero-padded to Ppad 4224, K9's two passes; K13's (x, s) at
+chip_smoke's [10a] shape (the 1 MP assembled factor of its main frame,
+tile 1024) and [9d]'s width (2^20 rows at mpad 2176, tile 512; a factor
+normal x 0.05 + 0.1 made on the card from seed 0): the SHA-256 of each
 output and its CUDA-event ms; and the u8 edit of
 NLEFilter(device="cuda").train_and_enhance on the 1 MP frame (rock2
-parameters). --compare prints whether every file holds the same digests
-and edits as the first, and each file's times; run the versions in turns
-(A, B, B, A) in one call to compare times on one card. Imports no JAX."""
+parameters), by default and under NLE_SINKHORN_KERNEL=auto (K13 x 100).
+--compare prints whether every file holds the same digests and edits as
+the first, and each file's times; run the versions in turns (A, B, B, A)
+in one call to compare times on one card. Imports no JAX."""
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import sys
@@ -141,11 +147,52 @@ def stream_records(torch, cs, rec: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# K13's row tile at chip_smoke's [10a] shape (the 1 MP assembled factor)
+# and at [9d]'s width (K13_WIDE, a seeded factor).
+K13_TILES = {"1mp": 1024, "mpad2176": 512}
+K13_WIDE = (1 << 20, 2176)
+
+
+def k13_records(torch, cs, L, rec: dict) -> None:
+    """K13 on each K13_TILES factor into rec: k13_{tag}_sha256 of (x, s)
+    and k13_{tag}_ms."""
+    from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
+        sinkhorn_halfstep_tiled,
+    )
+
+    dev = torch.device("cuda")
+    for tag, tile in K13_TILES.items():
+        if tag == "1mp":
+            phi, t, _, _ = cs.assembled_factor(torch, L, dev)
+        else:
+            g = torch.Generator(device=dev).manual_seed(0)
+            phi = torch.randn(K13_WIDE, generator=g, device=dev) * 0.05
+            phi += 0.1
+            t = torch.rand((K13_WIDE[1],), generator=g, device=dev)
+
+        def k13():
+            return sinkhorn_halfstep_tiled(phi, t, 1e-10, tile)
+
+        x, s = k13()
+        torch.cuda.synchronize()
+        h = hashlib.sha256(x.cpu().numpy().tobytes())
+        h.update(s.cpu().numpy().tobytes())
+        rec[f"k13_{tag}_sha256"] = h.hexdigest()
+        del x, s
+        rec[f"k13_{tag}_ms"] = cs.cuda_ms(torch, k13, reps=10)
+        del phi, t
+        torch.cuda.empty_cache()
+
+
 def dump(out: str) -> None:
     import torch
 
-    sys.path.insert(1, ROOT)
-    import chip_smoke as cs
+    # This checkout's chip_smoke.py by its path: --root's checkout, first
+    # on sys.path, holds a chip_smoke of its own.
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
 
     from nle_tpu_torch import NLEFilter
     from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
@@ -194,13 +241,17 @@ def dump(out: str) -> None:
         del fa, fb, c, uinv
         torch.cuda.empty_cache()
     stream_records(torch, cs, rec)
+    k13_records(torch, cs, L, rec)
     edit = NLEFilter(device="cuda").train_and_enhance(img, *cs.MAIN_ARGS,
                                                       weights=cs.WEIGHTS)
+    with cs.knobs(NLE_SINKHORN_KERNEL="auto"):
+        edit_auto = NLEFilter(device="cuda").train_and_enhance(
+            img, *cs.MAIN_ARGS, weights=cs.WEIGHTS)
     import nle_tpu_torch
 
     rec["package"] = os.path.dirname(os.path.abspath(nle_tpu_torch.__file__))
     rec["card"] = torch.cuda.get_device_name(0)
-    np.savez(out, edit=edit, meta=json.dumps(rec))
+    np.savez(out, edit=edit, edit_auto=edit_auto, meta=json.dumps(rec))
     print(json.dumps(rec))
 
 
@@ -209,13 +260,14 @@ def compare(paths) -> int:
     same = True
     for path in paths:
         with np.load(path) as f:
-            edit, rec = f["edit"], json.loads(str(f["meta"]))
+            edits, rec = (f["edit"], f["edit_auto"]), json.loads(
+                str(f["meta"]))
         if first is None:
-            first = (edit, rec)
+            first = (edits, rec)
         digests = all(rec[k] == first[1][k] for k in rec
                       if k.endswith(("sha256", "shape")))
-        equal = np.array_equal(edit, first[0])
-        same &= digests and equal
+        equal = [np.array_equal(a, b) for a, b in zip(edits, first[0])]
+        same &= digests and all(equal)
         stream = ", ".join(f"{k[:-3]} {v:.3f}" for k, v in rec.items()
                            if k.endswith("_ms") and not k.startswith(
                                ("k1_", "k12_")))
@@ -223,7 +275,8 @@ def compare(paths) -> int:
               f", p1200 {rec['k1_p1200_ms']:.3f}, K12 16 MP "
               f"{rec['k12_16mp_ms']:.3f}, 32 MP {rec['k12_32mp_ms']:.3f}; "
               f"{stream}; every digest as the first: {digests}; 1 MP u8 "
-              f"edit as the first: {equal}")
+              f"edit as the first: {equal[0]}; under "
+              f"NLE_SINKHORN_KERNEL=auto: {equal[1]}")
     print(json.dumps({"bitwise_equal": bool(same)}))
     return 0 if same else 1
 

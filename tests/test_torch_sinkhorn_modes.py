@@ -520,18 +520,30 @@ def test_train_filter_follows_the_knobs(env, monkeypatch, frame, knobs,
 @pytest.mark.cuda
 def test_cuda_sinkhorn_modes_match_plain_versions():
     """K13, K14 and K15 against their plain versions on the card (the
-    bounds of chip_smoke.py [10a]), each launch counted once."""
+    bounds of chip_smoke.py [10a]), each launch counted once; K13 also bit
+    for bit its earlier sweep, rebuilt from the unchanged
+    tiled_sweep_kernel (nle_ab_tiles variant 0: x and the per-tile
+    partials; s striped over them in the 8-stripe reduce's order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     dev = torch.device("cuda")
     rng = np.random.default_rng(14)
     npad, mpad = tsk.padded_shape(9000, 200)
+    tile = tsk.k13_tile(mpad)
     phi, t = _factor(rng, 9000, 200, npad, mpad)
     P, T = torch.from_numpy(phi).to(dev), torch.from_numpy(t).to(dev)
+    x_old = torch.empty((npad,), device=dev)
+    s_tile_order = torch.empty((mpad,), device=dev)
+    partial = torch.empty((npad // tile, mpad), device=dev)
+    _build.check(tsk.launch_sweep(_build.load().nle_ab_tiles, P, T, x_old,
+                                  partial, s_tile_order, npad, mpad, tile, 0,
+                                  EPS), "nle_ab_tiles")
     _build.reset_launches()
+    k13 = tsk.sinkhorn_halfstep_tiled(P, T, EPS)
+    assert torch.equal(k13[0], x_old)
+    assert torch.equal(k13[1], tsk.striped_sum(partial, tsk.K13_STRIPES))
     for got, want in (
-            (tsk.sinkhorn_halfstep_tiled(P, T, EPS),
-             tsk.sinkhorn_halfstep_tiled_plain(P, T, EPS, tsk.k13_tile(mpad))),
+            (k13, tsk.sinkhorn_halfstep_tiled_plain(P, T, EPS, tile)),
             (tsk.sinkhorn_halfstep(P.to(torch.bfloat16), T, EPS),
              tsk.sinkhorn_halfstep_plain(P.to(torch.bfloat16), T, EPS))):
         for a, b in zip(got, want):
