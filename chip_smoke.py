@@ -199,7 +199,25 @@
    0: named traffic on the worker its name hashes to, a worker killed
    after its filter spilled and restarted by the supervisor, serving it
    bitwise; (c) python -m nle_tpu_torch.cli.batch on four 1 MP PNGs and
-   on two (--op=denoise), each output bitwise the per-image CLIs.
+   on two (--op=denoise), each output bitwise the per-image CLIs;
+15. multi-GPU (sharded_phase): the pixel-sharded trainers of
+   nle_tpu_torch/parallel as worker processes, one a rank
+   (nle_tpu_torch/tools/sharded_scaling.py's `run`; every worker timed
+   out, and all killed when one fails): (a) train_filter_sharded + apply_filter_sharded on [5]'s frame
+   at (data, pixel) = (1, 2), run twice (bitwise equal), and at (2, 2) on
+   two exposure-jittered copies, over gloo with the ranks sharing the
+   card: each edit >= 45 dB from the single-card NLEFilter edit of its
+   frame, each rank's own counts K1, K3 >= 2 x 50, K6, K7, its wall and
+   the guard's crush statistic printed; (b) [7]'s 32 MP frame and
+   parameters, streaming and factored at (1, 2) over gloo, then
+   apply_filter_factored_sharded: >= 45 dB from [7]'s edit, each rank K8
+   >= 101, K12, K10, K11 and no K3/K4/K6/K7, each rank's peak device bytes
+   at most SHARD_PEAK_SHARE of [7]'s run, train and apply s a rank; (c)
+   (a)'s 1 MP run over NCCL at world size device_count, >= 45 dB from
+   (a); (d) python3 -m nle_tpu_torch.tools.check_sharded ends ok. The
+   kernels line's rows gain each rank's counts of (a) at (1, 2) and (b)
+   (launches_sharded_dense_1mp, launches_sharded_factored_32mp). Ranks
+   that share one card measure the sharding code, not multi-card scaling.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -1162,7 +1180,7 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
         raise AssertionError(f"{tag} output {cold.shape} {cold.dtype}")
     if not np.array_equal(cold, warm):
         raise AssertionError(f"{tag}: cold and warm runs differ")
-    del f, cold, warm
+    del f, cold
     kernels, k12_grids = profile_call(
         torch, f"  profiled warm {mp:.0f} MP train_and_enhance",
         lambda: NLEFilter(device="cuda", factored=True).train_and_enhance(
@@ -1206,7 +1224,8 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
     del L
     errs, timing = hold_streaming(torch, op, 1e-10, f"{mp:.0f} MP")
     timing.update(p=op.p, mb=op.mb, mpad=op.mpad, sw=op.sw, pw=op.pw,
-                  phi_chunks=phi_chunks, profiled=profiled)
+                  phi_chunks=phi_chunks, profiled=profiled, edit=warm,
+                  peak_bytes=peak - before)
     del op
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2996,6 +3015,181 @@ def serving_phase(torch, img, dense_out, bench_mps: dict) -> dict:
     return paths
 
 
+# -- [15] multi-GPU: the pixel-sharded trainers over torch.distributed -----
+
+SHARD_TIMEOUT = 300          # seconds [15d]'s check tool may take
+SHARD_PEAK_SHARE = 0.6       # [15b] each rank's peak against [7]'s
+
+
+def sharded_phase(torch, img, dense_out, cap_edit, cap_peak: int) -> dict:
+    """[15] the pixel-sharded trainers on the card, as worker processes
+    (one a rank, every worker timed out and killed with the others if one
+    fails): (a) the 1 MP dense main path at (data, pixel) = (1, 2), run
+    twice, and (2, 2) on two exposure-jittered copies, over gloo with the
+    ranks sharing the card; (b) the 32 MP factored path at (1, 2); (c) the
+    1 MP dense run over NCCL at world size device_count; (d) the one-rank
+    check tool. Returns each rank's cold launch counts of (a) at (1, 2)
+    and of (b)."""
+    import tempfile
+
+    from nle_tpu_torch import NLEFilter
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np, lab_to_bgr_u8_np
+    from nle_tpu_torch.parallel.distributed import launch, worker_env
+    from nle_tpu_torch.tools.check_serving import frames as jittered
+    from nle_tpu_torch.tools.sharded_scaling import run as run_sharded
+
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def recompose(lab, plane):
+        out = lab.copy()
+        out[..., 0] = plane
+        return lab_to_bgr_u8_np(out)
+
+    lab = bgr_to_lab_u8_np(img)
+    jit = jittered(img, 4)[2:4]
+    jit_labs = [bgr_to_lab_u8_np(f) for f in jit]
+    jit_single = [NLEFilter(device="cuda").train_and_enhance(
+        f, *MAIN_ARGS, weights=WEIGHTS) for f in jit]
+    big = structured_frame(*CAP_SHAPE, seed=7)
+    lab_big = bgr_to_lab_u8_np(big)
+    del big
+    ndev = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, arr in (("dense1", lab[None, ..., 0]),
+                          ("dense2", np.stack([x[..., 0] for x in jit_labs])),
+                          ("cap", lab_big[..., 0])):
+            paths[name] = os.path.join(tmp, f"{name}.npy")
+            np.save(paths[name], arr)
+        t0 = time.perf_counter()
+        paths["noise"] = os.path.join(tmp, "noise.npy")
+        np.save(paths["noise"],
+                bgr_to_lab_u8_np(noise_frame())[None, ..., 0])
+        a12 = run_sharded(tmp, "a12", (1, 2), "gloo", [
+            dict(tag="dense", kind="dense", frames=paths["dense1"],
+                 args=MAIN_ARGS, reps=2),
+            dict(tag="guard", kind="dense", frames=paths["noise"], reps=1,
+                 args=(10, 10, 5.0, 30.0, GUARD_ITERS, 5)),
+            dict(tag="cap", kind="factored", frames=paths["cap"],
+                 args=CAP_ARGS, reps=1)])
+        a12_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a22 = run_sharded(tmp, "a22", (2, 2), "gloo", [
+            dict(tag="dense", kind="dense", frames=paths["dense2"],
+                 args=MAIN_ARGS, reps=1)])
+        a22_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c1 = run_sharded(tmp, "nccl", (1, ndev), "nccl", [
+            dict(tag="dense", kind="dense", frames=paths["dense1"],
+                 args=MAIN_ARGS, reps=1)])
+        c_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tool = launch([[sys.executable, "-m", "nle_tpu_torch.tools.check_sharded"]],
+                  timeout=SHARD_TIMEOUT, env=worker_env())[0]
+    d_s = time.perf_counter() - t0
+
+    dense_need = {"affinity_matmul": 1,
+                  "sinkhorn_halfstep_int16": 2 * MAIN_ARGS[4],
+                  "scaled_gram": 1, "scaled_matmul": 1}
+
+    def hold_dense(label, ranks, singles, labs, spent):
+        print(f"[15a] {label}: launch {spent:.1f} s (process starts "
+              "included)")
+        for r, res in enumerate(ranks):
+            c = res["counts"][0]
+            crush = res["extra"][0][:-1]
+            print(f"  rank {r}: wall {', '.join(f'{w:.3f}' for w in res['walls'])}"
+                  f" s a train+apply of {len(labs)} frame(s); crush "
+                  f"{', '.join(f'{x:.4f}' for x in crush)}; guard tripped: "
+                  f"{'yes' if res['extra'][0][-1] else 'no'}; peak "
+                  f"{res['peak'] / 2**30:.3f} GiB; K1 {c['affinity_matmul']}, "
+                  f"K3 {c['sinkhorn_halfstep_int16']}, K4 "
+                  f"{c['sinkhorn_halfstep_f32']}, K6 {c['scaled_gram']}, K7 "
+                  f"{c['scaled_matmul']}")
+            for name, least in dense_need.items():
+                if c[name] < least:
+                    raise AssertionError(f"[15a] {label} rank {r}: {name} "
+                                         f"ran {c[name]} times (< {least})")
+            if not np.array_equal(res["edits"][0], ranks[0]["edits"][0]):
+                raise AssertionError(f"[15a] {label}: ranks' edits differ")
+        outs = []
+        for i, (single, lab_i) in enumerate(zip(singles, labs)):
+            out = recompose(lab_i, ranks[0]["edits"][0][i])
+            db = psnr(out, single)
+            print(f"  frame {i}: {db:.2f} dB from the single-card edit")
+            if not db >= 45.0:
+                raise AssertionError(f"[15a] {label} frame {i}: {db:.2f} dB")
+            outs.append(out)
+        return outs
+
+    a_out = hold_dense("(1, 2) over gloo, 1 MP", a12["dense"], [dense_out],
+                       [lab], a12_s)[0]
+    same = all(np.array_equal(r["edits"][0], r["edits"][1])
+               for r in a12["dense"])
+    print(f"  two runs at (1, 2) bitwise equal: {same}")
+    if not same:
+        raise AssertionError("[15a] two runs at (1, 2) differ")
+    hold_dense("(2, 2) over gloo, two jittered 1 MP frames", a22["dense"],
+               jit_single, jit_labs, a22_s)
+    # The carrier guard on the pixel axis: the noise frame trips it on the
+    # all-reduced crush statistic, and every rank retrains through K4.
+    for r, res in enumerate(a12["guard"]):
+        c = res["counts"][0]
+        print(f"  noise frame 120x120 at (1, 2): rank {r} crush "
+              f"{res['extra'][0][0]:.4f}, retrained: "
+              f"{'yes' if res['extra'][0][-1] else 'no'}; K3 "
+              f"{c['sinkhorn_halfstep_int16']}, K4 "
+              f"{c['sinkhorn_halfstep_f32']}")
+        if not (res["extra"][0][-1]
+                and c["sinkhorn_halfstep_f32"] >= 2 * GUARD_ITERS):
+            raise AssertionError(f"[15a] the guard did not retrain rank {r}")
+
+    need = {"streaming_halfstep": 2 * CAP_ARGS[4] + 1, "streaming_gram": 1,
+            "streaming_ap": 1, "streaming_atb": 1}
+    print(f"[15b] 32 MP factored at (1, 2) over gloo: launch {a12_s:.1f} s "
+          f"with [15a]'s (1, 2) runs; [7]'s single-card peak "
+          f"{cap_peak / 2**30:.3f} GiB")
+    for r, res in enumerate(a12["cap"]):
+        c = res["counts"][0]
+        print(f"  rank {r}: train {res['extra'][0][0]:.3f} s, apply "
+              f"{res['walls'][0]:.3f} s; peak {res['peak'] / 2**30:.3f} GiB "
+              f"= {res['peak'] / cap_peak:.3f} x [7]'s; K8 "
+              f"{c['streaming_halfstep']}, K12 {c['streaming_gram']}, K10 "
+              f"{c['streaming_ap']}, K11 {c['streaming_atb']}")
+        for name, least in need.items():
+            if c[name] < least:
+                raise AssertionError(f"[15b] rank {r}: {name} ran {c[name]} "
+                                     f"times (< {least})")
+        for name in DENSE_KERNELS:
+            if c[name]:
+                raise AssertionError(f"[15b] rank {r}: {name} launched")
+        if not res["peak"] <= SHARD_PEAK_SHARE * cap_peak:
+            raise AssertionError(f"[15b] rank {r}: peak {res['peak']} > "
+                                 f"{SHARD_PEAK_SHARE} x {cap_peak}")
+    db = psnr(recompose(lab_big, a12["cap"][0]["edits"][0][0]), cap_edit)
+    print(f"  {db:.2f} dB from [7]'s single-card factored edit")
+    if not db >= 45.0:
+        raise AssertionError(f"[15b] {db:.2f} dB from [7]")
+
+    res = c1["dense"][0]
+    db = psnr(recompose(lab, res["edits"][0][0]), a_out)
+    print(f"[15c] 1 MP dense over NCCL at world size {ndev}: launch "
+          f"{c_s:.1f} s, wall {res['walls'][0]:.3f} s; {db:.2f} dB from "
+          f"[15a]'s (1, 2) edit")
+    if not db >= 45.0:
+        raise AssertionError(f"[15c] {db:.2f} dB from (a)")
+    line = tool.strip().splitlines()[-1]
+    print(f"[15d] nle_tpu_torch.tools.check_sharded ({d_s:.1f} s): {line}")
+    if not json.loads(line).get("ok"):
+        raise AssertionError(f"[15d] the check failed: {line}")
+    print(f"[15] multi-GPU: {time.perf_counter() - t15:.1f} s (ranks "
+          "sharing one card over gloo measure the sharding code, not "
+          "multi-card scaling)")
+    return {"sharded_dense_1mp": [r["counts"][0] for r in a12["dense"]],
+            "sharded_factored_32mp": [r["counts"][0] for r in a12["cap"]]}
+
+
 def main() -> int:
     import torch
 
@@ -3405,6 +3599,7 @@ def main() -> int:
     # -- [7] the capacity path at 32 MP; [8] cross-path checks ------------
     cap_counts, cap_errs, t = capacity_path(torch, NLEFilter, _build, "[7]",
                                             CAP_SHAPE, CAP_ARGS, seed=7)
+    cap_edit, cap_peak = t.pop("edit"), t["peak_bytes"]
     # K8 at 32 MP, its busiest path (2 x iters launches a train).
     fa_rows, fb_cols, mask, u = t["fa_rows"], t["fb_cols"], t["mask"], t["u"]
     qpad, ppad = t["qpad"], t["ppad"]
@@ -3779,6 +3974,10 @@ def main() -> int:
     # -- [14] serving and the batch CLI -----------------------------------
     serve_paths = serving_phase(torch, img, warm, bench_mps)
 
+    # -- [15] multi-GPU ---------------------------------------------------
+    shard_paths = sharded_phase(torch, img, warm, cap_edit, cap_peak)
+    del cap_edit
+
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the
     # rows [9] adds); every path's count rides beside it.
@@ -3794,6 +3993,9 @@ def main() -> int:
         row["launches"] = paths[path][key]
         for pname, counts in paths.items():
             row[f"launches_{pname}"] = counts[key]
+        # Each rank's own count on the sharded paths ([15a] at (1, 2), [15b]).
+        for pname, ranks in shard_paths.items():
+            row[f"launches_{pname}"] = [c[key] for c in ranks]
         if path == "factored_32mp" and key in cap_errs:
             row["max_abs_err_32mp"], row["err_over_bound_32mp"] = (
                 cap_errs[key])

@@ -56,6 +56,11 @@ class FactoredFilter:
     # apply and kept on the filter, so they free with it.
     _dev: tuple | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    # (mesh, fa_rows, fb_cols, c_row) of the rank's rows for
+    # parallel/sharded.py apply_filter_factored_sharded, rebuilt when the
+    # mesh changes.
+    _dev_sharded: tuple | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def n_pixels(self) -> int:

@@ -683,8 +683,14 @@ def sinkhorn_probe(phi: torch.Tensor, t: torch.Tensor, variant: str,
 
 # -- the Sinkhorn loops of stage 2a ----------------------------------------
 
+def _no_reduce(v: torch.Tensor) -> torch.Tensor:
+    return v
+
+
 def sinkhorn_vectors_split(Um_pad: torch.Tensor, lam_pad: torch.Tensor,
-                           phib_pad: torch.Tensor, max_iter: int, eps: float):
+                           phib_pad: torch.Tensor, max_iter: int, eps: float,
+                           *, int16: bool = True, reduce_s=_no_reduce,
+                           reduce_counts=_no_reduce):
     """Split-buffer Sinkhorn (port of nle_tpu sinkhorn_vectors_split): the
     top (sampled-pixel) block Um stays a separate f32 (p, mpad) operand
     whose matvecs are exact f32, while only the rest block streams as the
@@ -698,11 +704,25 @@ def sinkhorn_vectors_split(Um_pad: torch.Tensor, lam_pad: torch.Tensor,
     On the card the top block's matvecs are cuBLAS fp32 products, whose
     order is fixed for the shapes; on the CPU they sum in float64 and
     round once (rowdot64, colsum64), as the plain K3 does, so the
-    Sinkhorn vectors have the same bits at every thread count."""
+    Sinkhorn vectors have the same bits at every thread count.
+
+    The pixel-sharded trainers (parallel/sharded.py) run this loop on a
+    rank's own rows of the rest block: reduce_s sums the rest block's
+    (mpad,) share of s (the s0 column sum and each half-step's scale * s_q)
+    over the ranks, reduce_counts the carrier's (crushed, nonzero) counts,
+    so the column scale is the rank's own and s stays in true scale.
+    int16=False streams phib_pad itself through K4 (the sharded carrier
+    guard's f32 body; crush -1.0)."""
     p, mpad = Um_pad.shape
     npad_b = phib_pad.shape[0]
-    q16, scale, _ = quantize_int16(phib_pad)
-    crush = carrier_crush_frac(phib_pad, scale)
+    if int16:
+        Q, scale, _ = quantize_int16(phib_pad)
+        counts = reduce_counts(torch.stack(crush_counts(phib_pad, scale)))
+        crush = counts[0] / torch.clamp(counts[1], min=1.0)
+    else:
+        Q, scale = phib_pad, None
+        crush = torch.tensor(-1.0, dtype=torch.float32,
+                             device=phib_pad.device)
     ones_p = torch.ones((p,), dtype=torch.float32, device=Um_pad.device)
     if Um_pad.device.type == "cuda":
         def top_w(t):
@@ -717,13 +737,16 @@ def sinkhorn_vectors_split(Um_pad: torch.Tensor, lam_pad: torch.Tensor,
         def top_s(x):
             return colsum64(Um_pad, x)
     # s0 = phi^T 1: the top term plus the rest block's column sum.
-    s0 = top_s(ones_p) + phib_pad.sum(dim=0)
+    s0 = top_s(ones_p) + reduce_s(phib_pad.sum(dim=0))
 
     def halfstep(s):
         t = lam_pad * s
         xp = safe_reciprocal(top_w(t), eps)
-        xb, s_q = sinkhorn_halfstep(q16, scale * t, eps)
-        return xp, xb, top_s(xp) + scale * s_q
+        if scale is None:
+            xb, s_b = sinkhorn_halfstep(Q, t, eps)
+            return xp, xb, top_s(xp) + reduce_s(s_b)
+        xb, s_q = sinkhorn_halfstep(Q, scale * t, eps)
+        return xp, xb, top_s(xp) + reduce_s(scale * s_q)
 
     zb = torch.zeros((npad_b,), dtype=torch.float32, device=Um_pad.device)
     if max_iter == 0:
