@@ -218,6 +218,14 @@
    kernels line's rows gain each rank's counts of (a) at (1, 2) and (b)
    (launches_sharded_dense_1mp, launches_sharded_factored_32mp). Ranks
    that share one card measure the sharding code, not multi-card scaling.
+16. the reference's dense free functions (free_api_phase): sinkhorn and
+   orthogonalize on [5]'s frame at the rock2 parameters, plain PyTorch on
+   the card: (a) in float64 (phi built as the plain routes build it):
+   Wa (m, m) and Wab (m, N - m) on the card, the edit >= 45 dB from the
+   port's float64 route (train_filter(dtype=torch.float64)); max |Sq - S|
+   / S, the largest |row sum - 1| of [Wa Wab], wall s and peak GiB
+   printed; (b) the chain in float32 with eigh_method="host64": its
+   edit's dB from (a), a reading.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -1335,6 +1343,120 @@ def train_routes(torch, _build, tag: str, frame: np.ndarray, args, routes):
             raise AssertionError(f"{tag}: the {label} train did not take its "
                                  f"route: {st}")
     return outs, counts, (lab, L, grid)
+
+
+def free_api_chain(torch, L: np.ndarray, dtype, dev,
+                   eigh_method: str = "xla"):
+    """The reference's dense free functions on a luminance frame L (H, W
+    u8) at the rock2 parameters, in `dtype` on `dev`: host stage 1, phi
+    (N, m) as the plain routes build it (`plain_phi`: the features, then
+    affinity_matmul_plain), `sinkhorn` and `orthogonalize`. Returns (Wa's
+    and Wab's shapes, the largest |row sum - 1| of [Wa Wab], V in pixel
+    order, S, m)."""
+    from nle_tpu_torch.ops.affinity import bandwidth_weights
+    from nle_tpu_torch.ops.orthogonalize import orthogonalize
+    from nle_tpu_torch.ops.pipeline import (
+        grid_coords,
+        host_stage1,
+        pack_channel,
+        plain_phi,
+    )
+    from nle_tpu_torch.ops.sampling import sample_grid
+    from nle_tpu_torch.ops.sinkhorn import sinkhorn
+
+    rows_s, cols_s, hx, hy, iters, k = MAIN_ARGS
+    grid = sample_grid(*L.shape, rows_s, cols_s)
+    Um64, lam64, m, _ = host_stage1(L, grid, hx, hy, 1e-10)
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    y = card(pack_channel(L, grid.perm)[0])
+    rr, cc = (t.to(dtype) for t in grid_coords(grid, dev))
+    sw, pw = bandwidth_weights(hx, hy, dtype)
+    phi = plain_phi(y, rr, cc, card(Um64), card(Um64 / lam64[None, :]), sw,
+                    pw, p=grid.n_samples)
+    Wa, Wab = sinkhorn(phi, card(lam64), iters)
+    del phi
+    V, S = orthogonalize(Wa, Wab, k, eigh_method=eigh_method)
+    devices = {t.device.type for t in (Wa, Wab, V, S)}
+    if devices != {dev.type}:
+        raise AssertionError(f"[16] the free functions left {dev}: "
+                             f"{devices}")
+    rows = float((Wa.sum(1) + Wab.sum(1) - 1).abs().max())
+    order = torch.from_numpy(grid.unpack_indices()).to(dev)
+    return tuple(Wa.shape), tuple(Wab.shape), rows, V[order], S, m
+
+
+def free_api_phase(torch, img, card: str, dev) -> None:
+    """[16] the reference's dense free functions (ops/sinkhorn.sinkhorn,
+    ops/orthogonalize.orthogonalize) on the card, on [5]'s frame at the
+    rock2 parameters: (a) in float64, gated >= 45 dB from the port's own
+    float64 route (train_filter(dtype=torch.float64)) on the same L
+    channel; (b) in float32 with eigh_method="host64" (the f32 chain is the
+    known chaos case of host_chain64's docstring): its dB from (a), a
+    reading."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.kernels import _build
+    from nle_tpu_torch.ops.pipeline import apply_filter_u8, train_filter
+    from nle_tpu_torch.ops.transform import transform_eigenvalues
+
+    t16 = time.perf_counter()
+    L = bgr_to_lab_u8_np(img)[..., 0]
+    n = L.size
+    y_u8 = torch.from_numpy(L.reshape(-1)).to(dev)
+
+    def edit(V, S):
+        return apply_filter_u8(V, transform_eigenvalues(S, WEIGHTS),
+                               y_u8).cpu().numpy()
+
+    peak = PeakMeter(torch)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    wa_shape, wab_shape, rows, V, S, m = free_api_chain(torch, L,
+                                                        torch.float64, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sum(_build.LAUNCHES.values())
+    gib = (torch.cuda.max_memory_allocated() - peak.base) / 2**30
+    edit_a = edit(V, S)
+    print(f"[16a] sinkhorn + orthogonalize in float64 on the card, [5]'s "
+          f"frame ({n} px, m = {m}): Wa {wa_shape}, Wab {wab_shape}; "
+          f"wall {wall:.3f} s, peak {gib:.3f} GiB above the "
+          f"{peak.base / 2**30:.3f} held before ({card}); largest |row sum "
+          f"- 1| of [Wa Wab] {rows:.3e}; kernel launches {launches}")
+    if wa_shape != (m, m) or wab_shape != (m, n - m):
+        raise AssertionError(f"[16a] Wa {wa_shape}, Wab {wab_shape} at m = "
+                             f"{m}, N = {n}")
+    del V
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    V64, S64 = train_filter(L, *MAIN_ARGS, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    nz = S64 > 0
+    rel = float(((S - S64).abs()[nz] / S64[nz]).max())
+    db = psnr(edit_a, edit(V64, S64))
+    del V64
+    print(f"  the float64 route (train_filter(dtype=torch.float64)): wall "
+          f"{wall64:.3f} s ({card}); max |Sq - S| / S {rel:.3e}; edit "
+          f"{db:.2f} dB from it")
+    if not db >= 45.0:
+        raise AssertionError(f"[16a] {db:.2f} dB from the float64 route")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    *_, V32, S32, _ = free_api_chain(torch, L, torch.float32, dev,
+                                     "host64")
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    db32 = psnr(edit(V32, S32), edit_a)
+    print(f"[16b] the same chain in float32, eigh_method='host64': wall "
+          f"{wall32:.3f} s ({card}); {S32.dtype}, on {V32.device.type}; "
+          f"edit {db32:.2f} dB from [16a]'s (a reading)")
+    del V32
+    torch.cuda.empty_cache()
+    print(f"[16] the free-function API: {time.perf_counter() - t16:.1f} s "
+          f"({card})")
 
 
 class PeakMeter:
@@ -3977,6 +4099,9 @@ def main() -> int:
     # -- [15] multi-GPU ---------------------------------------------------
     shard_paths = sharded_phase(torch, img, warm, cap_edit, cap_peak)
     del cap_edit
+
+    # -- [16] the reference's dense free functions ------------------------
+    free_api_phase(torch, img, card, dev)
 
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the

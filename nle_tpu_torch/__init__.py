@@ -20,13 +20,18 @@ from nle_tpu_torch.models.filter import (  # noqa: E402
     TrainedFilter,
     load_filter,
 )
-from nle_tpu_torch.ops.pipeline import apply_filter_u8, train_filter  # noqa: E402
+from nle_tpu_torch.ops.pipeline import (  # noqa: E402
+    apply_filter,
+    apply_filter_u8,
+    train_filter,
+)
 from nle_tpu_torch.ops.transform import transform_eigenvalues  # noqa: E402
 
 __all__ = [
     "FactoredFilter",
     "NLEFilter",
     "TrainedFilter",
+    "apply_filter",
     "apply_filter_u8",
     "load_filter",
     "train_filter",

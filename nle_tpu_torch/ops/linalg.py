@@ -3,8 +3,9 @@
 - `eigh64`: float64 LAPACK (scipy's evd solver, ascending), reading the
   LOWER triangle only — the repo-wide eigh rule.
 - `eigh_descending` == `eigenDecomposition` (src/filter.cpp:204-228) on a
-  tensor, in its dtype and on its device: the lower triangle mirrored,
-  eigenvalues descending, those below eps masked to zero.
+  tensor: the lower triangle mirrored, eigenvalues descending, those below
+  eps masked to zero; in its dtype on its device, or with
+  method="host64" in float64 LAPACK on the host.
 - `topk_eigendecomposition`: the reference's optional Spectra path
   (src/filter.cpp:169-200) on ARPACK with a pinned start vector, so
   repeated trainings are bitwise repeatable.
@@ -40,13 +41,30 @@ def safe_rsqrt(x: torch.Tensor, eps: float) -> torch.Tensor:
                        torch.zeros_like(x))
 
 
-def eigh_descending(M: torch.Tensor, eps: float):
+EIGH_METHODS = ("xla", "host64", "host64-chain")
+
+
+def eigh_descending(M: torch.Tensor, eps: float, method: str = "xla"):
     """Full symmetric eigendecomposition, descending, eps-masked: (U (n, n),
-    lam (n,)) with lam[i] < eps replaced by 0, by torch.linalg.eigh in M's
-    dtype on M's device. Only the lower triangle is read (mirrored
-    explicitly, as Eigen's SelfAdjointEigenSolver reads it)."""
+    lam (n,)) with lam[i] < eps replaced by 0. Only the lower triangle is
+    read (mirrored explicitly, as Eigen's SelfAdjointEigenSolver reads it).
+
+    method takes nle_tpu's strings: "xla" (and "host64-chain", whose float64
+    work lives in an outer host chain) is torch.linalg.eigh in M's dtype on
+    M's device; "host64" is float64 LAPACK on the host (eigh64), cast back
+    to M's dtype and device."""
+    if method not in EIGH_METHODS:
+        # A misspelt method must not fall through to the f32 device eigh:
+        # the chain's fidelity rests on which solver runs.
+        raise ValueError(f"unknown eigh method {method!r} "
+                         "(expected 'xla', 'host64', or 'host64-chain')")
     M = torch.tril(M) + torch.tril(M, -1).T
-    lam, U = torch.linalg.eigh(M)
+    if method == "host64":
+        lam64, U64 = eigh64(M.detach().cpu().numpy().astype(np.float64))
+        lam = torch.from_numpy(lam64).to(M.device, M.dtype)
+        U = torch.from_numpy(U64).to(M.device, M.dtype)
+    else:
+        lam, U = torch.linalg.eigh(M)
     lam = torch.flip(lam, (0,))
     U = torch.flip(U, (1,))
     return U, torch.where(lam >= eps, lam, torch.zeros_like(lam))

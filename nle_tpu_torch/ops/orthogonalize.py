@@ -1,7 +1,7 @@
 """Orthogonalization (port of nle_tpu/ops/orthogonalize.py: the host
 float64 chain `_scaled_congruence` and `host_chain64`, arithmetic
-unchanged, and `orthogonalize_factored`, the whole-float64 route's chain
-on the device).
+unchanged; `orthogonalize_factored`, the whole-float64 route's chain on
+the device; and `orthogonalize`, the reference's dense free function).
 
 Reference semantics (src/filter.cpp:282-331):
     Wa^{-1/2} = U diag(lam^{-1/2}) U^T
@@ -107,6 +107,24 @@ def host_chain64(wa, rga, sb, k: int, eps: float, q_solver: str = "auto"):
     va = wa @ T
     grt = E.T @ X
     return va, grt, Sq
+
+
+def orthogonalize(Wa: torch.Tensor, Wab: torch.Tensor, n_eig_vectors: int = 5,
+                  eps: float = 1e-10, eigh_method: str = "xla"):
+    """The reference's dense free function (src/filter.cpp:282-331) on the
+    explicit blocks Wa (m, m) and Wab (m, N - m): (V (N, k), Sq (k,)), k =
+    min(n_eig_vectors, m), in the operands' dtype on their device. Both
+    eighs read the lower triangle; eigh_method="host64" runs them in
+    float64 LAPACK on the host (eigh_descending). The pipeline uses the
+    factored forms; this one is for API parity."""
+    Uw, lw = eigh_descending(Wa, eps, eigh_method)
+    inv_root_wa = (Uw * safe_rsqrt(lw, eps)[None, :]) @ Uw.T
+    Q = Wa + inv_root_wa @ (Wab @ Wab.T) @ inv_root_wa
+    Uq, lq = eigh_descending(Q, eps, eigh_method)
+    k = min(n_eig_vectors, Q.shape[0])
+    Sq = lq[:k]
+    T = inv_root_wa @ (Uq[:, :k] * safe_rsqrt(Sq, eps)[None, :])
+    return torch.cat([Wa @ T, Wab.T @ T], dim=0), Sq
 
 
 def orthogonalize_factored(Wa: torch.Tensor, RGa: torch.Tensor,

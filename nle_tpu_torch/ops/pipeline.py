@@ -89,7 +89,7 @@ from nle_tpu_torch.ops.orthogonalize import (
     orthogonalize_factored,
 )
 from nle_tpu_torch.ops.sampling import SampleGrid, sample_grid
-from nle_tpu_torch.ops.sinkhorn import sinkhorn_vectors
+from nle_tpu_torch.ops.sinkhorn import balanced_top, sinkhorn_vectors
 from nle_tpu_torch.ops.transform import transform_eigenvalues
 from nle_tpu_torch.utils.logging import (
     carrier_log,
@@ -789,14 +789,19 @@ def _stage2_outputs(V, S, edit_weights, y):
 
 # -- the routes that run no kernel (use_kernels=False, dtype=float64) --------
 
+def plain_phi(y, rr, cc, Um, Uinv, sw, pw, *, p: int):
+    """The Nystrom factor phi = [Um; K(rest, samples) Uinv] (N, m') in plain
+    PyTorch in y's dtype on its device (rr, cc, y: the packed pixels' rows,
+    columns and intensities)."""
+    f = features(rr, cc, y, y.dtype)
+    return torch.cat([Um, affinity_matmul_plain(f[:p], f[p:], Uinv, sw, pw)])
+
+
 def plain_phi_balance(y, rr, cc, Um, lam_m, Uinv, sw, pw, *, p: int,
                       n_sinkhorn_iter: int, eps: float):
-    """The plain routes' shared prologue, in plain PyTorch in y's dtype on
-    its device: phi = [Um; K(rest, samples) Uinv] (N, m') and its Sinkhorn
+    """The plain routes' shared prologue: plain_phi and its Sinkhorn
     vectors (r, c)."""
-    f = features(rr, cc, y, y.dtype)
-    phi = torch.cat([Um, affinity_matmul_plain(f[:p], f[p:], Uinv, sw, pw)])
-    del f
+    phi = plain_phi(y, rr, cc, Um, Uinv, sw, pw, p=p)
     return (phi, *sinkhorn_vectors(phi, lam_m, n_sinkhorn_iter, eps))
 
 
@@ -852,12 +857,7 @@ def train_filter_stage2(y, rr, cc, Um, lam_m, Uinv, sw, pw, *, p: int, m: int,
     (V packed (N, k), S (k,)), k = min(n_eig_vectors, m)."""
     phi, r, c = plain_phi_balance(y, rr, cc, Um, lam_m, Uinv, sw, pw, p=p,
                                   n_sinkhorn_iter=n_sinkhorn_iter, eps=eps)
-    # The balanced blocks split at the kept rank m (the reference's
-    # sinkhorn reads p = phi.cols(), src/filter.cpp:247-250).
-    phi_top = phi[:m]
-    Ga = phi_top * lam_m[None, :]
-    RGa = r[:m, None] * Ga
-    Wa = RGa @ (c[:m, None] * phi_top).T
+    Ga, RGa, Wa = balanced_top(phi, lam_m, r, c, m)
     check_nans("r/c", r, c)
     return orthogonalize_factored(Wa, RGa, phi[m:], c[m:], r[:m], Ga,
                                   min(n_eig_vectors, m), eps)

@@ -354,7 +354,7 @@ def file_init(directory: str) -> str:
     return "file://" + os.path.join(directory, "pg_init")
 
 
-def run_localhost_workers(n_proc: int, *, device: str = "cpu",
+def run_localhost_workers(n_proc: int, *, device: str = "cuda",
                           backend: str | None = None,
                           timeout: float = 600.0) -> list[str]:
     """Spawn n_proc selfcheck workers on this host; raise if any fails or

@@ -200,8 +200,9 @@ def test_train_and_enhance_equals_train_then_enhance():
 
 def test_port_imports_no_jax():
     """Every module of the port (stream mode, the C Lab loader, the bench,
-    the tools, the CLIs, the batch CLI, the serving subpackage and the
-    multi-GPU subpackage with its check tool included), imported in a
+    the tools, the CLIs, the batch CLI, the serving subpackage, the
+    multi-GPU subpackage with its check tool, and the free functions'
+    utils/indexing included), imported in a
     fresh process, imports no JAX, no nle_tpu and no triton."""
     code = ("import importlib, pkgutil, sys, nle_tpu_torch; "
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
@@ -219,6 +220,7 @@ def test_port_imports_no_jax():
             "assert 'nle_tpu_torch.parallel.dryrun' in sys.modules; "
             "assert 'nle_tpu_torch.tools.check_sharded' in sys.modules; "
             "assert 'nle_tpu_torch.tools.sharded_scaling' in sys.modules; "
+            "assert 'nle_tpu_torch.utils.indexing' in sys.modules; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nle_tpu', 'triton')))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
