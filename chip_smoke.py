@@ -40,8 +40,13 @@
    [4, 3, 4, 1], cold then warm. The launch counts of the cold run alone
    prove which kernels the path went through (K1, K3 >= 2 x 50, K6, K7);
    its peak device memory over the padded phi must stay within the
-   streaming rule's DENSE_PEAK_PER_PHI_BYTE. Then one uniform-noise frame, whose int16 carrier guard trips, drives
-   the f32 fallback; its own counts (guard_launches) prove K4 ran;
+   streaming rule's DENSE_PEAK_PER_PHI_BYTE. Then one 120x120
+   uniform-noise frame, whose int16 carrier guard trips, drives the f32
+   fallback from each layout it can take (guard_paths): the small layout,
+   its default (retrained on the small layout: K4, no K6/K7), and under
+   NLE_CPHI_BYTES=0 the split layout (retrained on the assembled f32
+   layout: K4, K6, K7); the stage-2a calls in order and the counts of each
+   run gate its route;
 6. profiles one more warm 1 MP call (torch.profiler): wall, device time and
    busy share, host time per pipeline stage, and the device time per kernel
    ([7] profiles one more 32 MP call the same way);
@@ -121,8 +126,10 @@
    NLE_SINKHORN_BF16=auto K14 x 96 and K4 x 4; NLE_STAGE2_SPLIT=off K3 x
    100 on the assembled layout; NLE_SINKHORN_INT16=off K4 x 100;
    NLE_SINKHORN_INT16=on K3 x 100, and on the noise frame that trips the
-   guard no re-dispatch. Gates: K13 vs K4 route and assembled int16 vs the
-   split route >= 45 dB, card vs CPU >= 45 dB per mode on a small frame,
+   guard no re-dispatch, on the small layout and (NLE_CPHI_BYTES=0) on the
+   split layout, with K6 and K7 there. Gates: K13 vs K4 route and
+   assembled int16 vs the split route >= 45 dB, card vs CPU >= 45 dB per
+   mode on a small frame,
    peak <= DENSE_PEAK_PER_PHI_BYTE x phi; the bf16 route's PSNR against
    the K4 route is printed, ungated (not golden-safe); (c) K15's table
    through the port's probe tool (nle_tpu_torch/tools/bench_sk_dmaonly.py):
@@ -226,6 +233,28 @@
    / S, the largest |row sum - 1| of [Wa Wab], wall s and peak GiB
    printed; (b) the chain in float32 with eigh_method="host64": its
    edit's dB from (a), a reading.
+17. the small stage-2a layout and the reference's configurations: (a) the
+   denoise configuration's sampler 10 10 200 30 10 10 (p = 100, mpad 128)
+   enhancing the largest square structured frame that stage2_dense_small
+   admits (362x362 at NLE_CPHI_BYTES' 64 MiB), cold then warm (bitwise
+   equal): its one stage-2a call on the small layout, its own launches
+   exactly K1 once and K3 twice an iteration (no K4, K6, K7: the gram and
+   the V tail are plain fp32 products), K1, K3 and K4 held against their
+   plain versions and timed on its own tensors (the frame's features, the
+   assembled 131,072 x 128 factor and its int16 carrier), its peak bytes
+   within DENSE_PEAK_PER_PHI_BYTE x phi plus the carrier prep's chunk
+   (PREP_BYTES_PER_ENTRY), and its edit >= 45 dB from the same frame
+   through the split layout (NLE_CPHI_BYTES=0) and from the port's float64
+   route on the card; then a frame of 1.5 GiB of phi under a raised
+   NLE_CPHI_BYTES on the small layout, its peak within
+   DENSE_PEAK_PER_PHI_BYTE x phi, >= 45 dB from its split layout; (b)
+   each configuration of the port's golden_configs whose input shape
+   SURVEY.md records (the ten README enhance configurations, the denoise
+   configuration, and the links.md recipes snow-mountain-links,
+   red-cherries-links and brickwall-links) on a structured frame of that
+   shape through NLEFilter on the card, cold then warm: the layout taken,
+   m, mpad, the guard's trips and the warm wall printed, cold == warm bit
+   for bit and >= 45 dB from the float64 route on the card.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -277,6 +306,14 @@ GRAM_STREAM_TOL = 1e-5
 LOOP_C_TOL = 1.362e-4
 TWIN_DB = 52.5
 GUARD_ITERS = 10                              # Sinkhorn iterations, noise frame
+# [17a] the int16 carrier's prep (quantize_int16, carrier_crush_frac) works
+# on PREP_CHUNK_ROWS rows at a time: its f32 and bool temporaries, bytes an
+# entry of one chunk (|phi| or phi / scale 4, three bool masks or the int16
+# cast, the allocator's rounding), over phi and its int16 copy. Measured
+# 8.5 with the O(N) vectors on [17a]'s 64 MiB phi (its peak 2.566 x phi).
+PREP_BYTES_PER_ENTRY = 10
+# [17a] phi bytes of the frame run under a raised NLE_CPHI_BYTES (twice this).
+RAISED_PHI = 3 << 29                          # 1.5 GiB
 CAP_SHAPE = (5656, 5656)                      # 31,990,336 px
 CAP_ARGS = (24, 25, 5000.0, 30.0, 50, 50)     # p = 600 samples
 CAP_BYTES_PER_PIXEL = 256                     # phi would be 2,560, V 200
@@ -1459,6 +1496,326 @@ def free_api_phase(torch, img, card: str, dev) -> None:
           f"({card})")
 
 
+# [17b] the input shapes (width, height) of the reference's data files,
+# as SURVEY.md:117-121 records them; the files themselves are not read.
+GOLDEN_SHAPES = {
+    "flower-50.bmp": (400, 267), "bird.bmp": (365, 501),
+    "canyon-dawn-20.bmp": (667, 1000), "brickwall-20.bmp": (600, 406),
+    "conifer-10.bmp": (400, 600), "forest-10.bmp": (491, 736),
+    "snow-mountain-15.bmp": (691, 389), "paper.jpg": (460, 463),
+    "rock2.jpg": (876, 584), "red-cherries-10.bmp": (416, 624),
+    "taj-rgb-noise.jpg": (300, 300)}
+
+
+def cphi_limit(limit: int | None):
+    """NLE_CPHI_BYTES for the calls inside (the port reads it per frame):
+    0 sends every frame to the split layout; None leaves the default."""
+    return knobs() if limit is None else knobs(NLE_CPHI_BYTES=str(limit))
+
+
+def noise_train(torch, NLEFilter, _build, limit: int | None, **env):
+    """The 120x120 uniform-noise frame, whose int16 carrier guard trips,
+    through train_and_enhance under NLE_CPHI_BYTES = limit and the knobs
+    in env. Returns (output, launches, stage-2a calls)."""
+    seen = []
+    _build.reset_launches()
+    with cphi_limit(limit), knobs(**env), stage2a_layouts(seen):
+        out = NLEFilter(device="cuda").train_and_enhance(
+            noise_frame(), 10, 10, 5.0, 30.0, GUARD_ITERS, 5, weights=WEIGHTS)
+    torch.cuda.synchronize()
+    if out.shape != (120, 120, 3) or out.dtype != np.uint8:
+        raise AssertionError(f"noise frame output {out.shape} {out.dtype}")
+    return out, dict(_build.LAUNCHES), seen
+
+
+def guard_paths(torch, NLEFilter, _build) -> dict:
+    """[5]'s guard fallback on each layout the noise frame can take: the
+    small layout (its default: a trip retrains the small layout's f32
+    Sinkhorn on K4; no K6 or K7) and, under NLE_CPHI_BYTES=0, the split
+    layout of the frames past it (a trip retrains the assembled f32
+    layout: K4, then K6 and K7). Gates the stage-2a calls in order, the
+    trip, K4 >= 2 x GUARD_ITERS, K6 once a stage-2a call on the split
+    and assembled layouts (none on the small one) and K7 once on the
+    assembled factor. Returns {path: launch counts}."""
+    paths = {}
+    for path, limit, want, (gram, matmul) in (
+            ("guard_frame", None, ["small", "small"], (0, 0)),
+            ("guard_frame_split", 0, ["split", "assembled"], (2, 1))):
+        _, counts, seen = noise_train(torch, NLEFilter, _build, limit)
+        print(f"  noise frame 120x120 (guard fallback) from the {want[0]} "
+              f"layout: stage 2a {seen}; launches {counts}")
+        if ([c["layout"] for c in seen] != want
+                or not seen[0]["crush"] > 0.2 or seen[1]["crush"] != -1.0
+                or counts["sinkhorn_halfstep_f32"] < 2 * GUARD_ITERS
+                or counts["scaled_gram"] != gram
+                or counts["scaled_matmul"] != matmul):
+            raise AssertionError(f"[5] {path}: not the guard's route from "
+                                 f"the {want[0]} layout")
+        paths[path] = counts
+    return paths
+
+
+def small_launches(counts: dict, iters: int) -> None:
+    """[17a]'s route: K1 once, K3 twice an iteration, and no K4, K6, K7
+    or streaming kernel (the gram and V tail are plain products)."""
+    want = {"affinity_matmul": 1, "sinkhorn_halfstep_int16": 2 * iters}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"[17a] not the small layout's route: "
+                             f"launches {got}, expected {want}")
+
+
+def run_config(torch, NLEFilter, frame, params, weights, denoise=None,
+               **train):
+    """One configuration through NLEFilter on the card: train_and_enhance,
+    or train_for_denoise + denoise when `denoise` is (sigma_color,
+    sigma_space, shrink). Returns (output, wall s)."""
+    t0 = time.perf_counter()
+    f = NLEFilter(device="cuda", **train)
+    if denoise is None:
+        out = f.train_and_enhance(frame, *params, weights=weights)
+    else:
+        sigma_color, sigma_space, shrink = denoise
+        f.train_for_denoise(frame, *params, sigma_color, sigma_space)
+        out = f.denoise(frame, shrink, sigma_color, sigma_space)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hold_small_kernels(torch, frame, params) -> dict:
+    """[17a]'s kernels on its own card tensors, each against its plain
+    version within [3]'s bounds: K1 on the frame's rest pixels against
+    the p samples (the assembled layout's call, no out_rows), then K3 on
+    the int16 carrier of every row of the assembled (npad, mpad) factor
+    and K4 on the f32 factor (the guard's retrain on this layout). Returns
+    {kernel name: {field + "_small_17a": value}} for the kernels line."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.kernels.affinity_kernel import (
+        affinity_matmul_kernel,
+        affinity_matmul_plain,
+    )
+    from nle_tpu_torch.ops.kernels.sinkhorn_kernel import (
+        padded_shape,
+        quantize_int16,
+        sinkhorn_halfstep,
+        sinkhorn_halfstep_plain,
+    )
+
+    dev = torch.device("cuda")
+    L = bgr_to_lab_u8_np(frame)[..., 0].astype(np.float32)
+    op = path_operands(torch, L, params, dev)
+    p, n, mb = op.p, op.n, op.mb
+    npad, mpad = padded_shape(n, mb)
+    eps = 1e-10
+    out = {}
+
+    def keep(name, err, fn, plain, nbytes, flops):
+        ms, plain_ms = cuda_ms(torch, fn, reps=10), cuda_ms(torch, plain)
+        bms, by = bound_ms(nbytes, flops)
+        out[name] = {"max_abs_err_small_17a": err[0],
+                     "err_over_bound_small_17a": err[1],
+                     "ms_small_17a": ms, "plain_ms_small_17a": plain_ms,
+                     "bound_ms_small_17a": bms, "bound_by_small_17a": by}
+        print(f"  {name} at [17a]'s shapes (n {n}, p {p}, mb {mb}, npad "
+              f"{npad}, mpad {mpad}): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+
+    args = (op.fa, op.fb, op.Uinv, op.sw, op.pw)
+    phib = affinity_matmul_kernel(*args)
+    want = affinity_matmul_plain(*args)
+    absb = affinity_matmul_plain(op.fa, op.fb, op.Uinv.abs(), op.sw, op.pw)
+    err = check("[17a] K1 affinity_matmul", phib - want,
+                (2 * p + 4) * U * absb + 1e-30)
+    del want, absb
+    nb = n - p
+    keep("affinity_matmul", err, lambda: affinity_matmul_kernel(*args),
+         lambda: affinity_matmul_plain(*args),
+         4 * (3 * nb + p * mb + nb * mb),
+         2 * nb * p * mb + ENTRY_FLOPS * nb * p)
+    phi = torch.zeros((npad, mpad), device=dev)
+    phi[:p, :mb] = op.Um
+    phi[p:n, :mb] = phib
+    del phib
+    lam_pad = torch.nn.functional.pad(op.lam, (0, mpad - mb))
+    s0 = phi.T @ torch.ones(npad, device=dev)
+    q16, scale, _ = quantize_int16(phi)
+    tq = (scale * (lam_pad * s0)).contiguous()
+    _, err = hold_halfstep(torch, "[17a] K3 sinkhorn int16", q16, tq, eps)
+    keep("sinkhorn_halfstep_int16", err,
+         lambda: sinkhorn_halfstep(q16, tq, eps),
+         lambda: sinkhorn_halfstep_plain(q16, tq, eps),
+         2 * npad * mpad + 4 * (npad + 2 * mpad), 4 * n * mb)
+    del q16
+    t32 = (lam_pad * s0).contiguous()
+    _, err = hold_halfstep(torch, "[17a] K4 sinkhorn f32", phi, t32, eps)
+    keep("sinkhorn_halfstep_f32", err,
+         lambda: sinkhorn_halfstep(phi, t32, eps),
+         lambda: sinkhorn_halfstep_plain(phi, t32, eps),
+         4 * (npad * mpad + npad + 2 * mpad), 4 * n * mb)
+    del phi
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_layout_phase(torch, NLEFilter, _build, card: str):
+    """[17a] the small layout at its full width: the denoise
+    configuration's sampler on the largest square structured frame that
+    stage2_dense_small admits, cold then warm (bitwise equal), its
+    launches (small_launches), its kernels held on its own tensors
+    (hold_small_kernels), its peak bytes within the streaming rule's
+    DENSE_PEAK_PER_PHI_BYTE x phi plus the carrier prep's temporaries
+    (PREP_BYTES_PER_ENTRY), >= 45 dB from the same frame through the split
+    layout and from the port's float64 route on the card. Then a frame of
+    ~RAISED_PHI bytes of phi under a raised NLE_CPHI_BYTES: the small
+    layout, its peak within DENSE_PEAK_PER_PHI_BYTE x phi (the rule's own
+    gate), >= 45 dB from its split layout. Returns ({path: launch counts},
+    {kernel name: readings at [17a]'s shapes})."""
+    from nle_tpu_torch.golden_configs import DENOISE_CONFIG
+    from nle_tpu_torch.ops.kernels.sinkhorn_kernel import PREP_CHUNK_ROWS
+    from nle_tpu_torch.ops.pipeline import (
+        DENSE_PEAK_PER_PHI_BYTE,
+        cphi_bytes_limit,
+        padded_shape,
+        stage2_dense_small,
+    )
+
+    params = DENOISE_CONFIG[2]
+    iters, p = params[4], params[0] * params[1]
+    side = 1
+    while stage2_dense_small((side + 1) ** 2, p):
+        side += 1
+    frame = structured_frame(side, side, seed=17)
+    n = side * side
+    npad, mpad = padded_shape(n, p)
+    phi = 4 * npad * mpad
+    print(f"[17a] the small layout: {side}x{side} ({n} px), the denoise "
+          f"sampler {' '.join(map(str, params))}; phi {phi} B at mpad "
+          f"{mpad}, NLE_CPHI_BYTES {cphi_bytes_limit()} ({side + 1}x"
+          f"{side + 1} would take the split layout)")
+    seen = []
+    peak = PeakMeter(torch)
+    _build.reset_launches()
+    with stage2a_layouts(seen):
+        cold, cold_s = run_config(torch, NLEFilter, frame, params, WEIGHTS)
+    counts = dict(_build.LAUNCHES)
+    call = seen[0]
+    peak_b = torch.cuda.max_memory_allocated() - peak.base
+    # Below ~4 prep chunks of rows the carrier prep's temporaries pass the
+    # ratio's slack (pipeline.py, DENSE_PEAK_PER_PHI_BYTE).
+    allowed = (DENSE_PEAK_PER_PHI_BYTE * phi
+               + PREP_BYTES_PER_ENTRY * min(npad, PREP_CHUNK_ROWS) * mpad)
+    warm, warm_s = run_config(torch, NLEFilter, frame, params, WEIGHTS)
+    same = bool(np.array_equal(cold, warm))
+    print(f"  stage 2a {call}; launches {counts}; cold {cold_s:.3f} s, "
+          f"warm {warm_s:.3f} s ({card}); peak {peak_b} B above the "
+          f"{peak.base} held before = {peak_b / phi:.3f} x phi (allowed "
+          f"{allowed / phi:.3f}: {DENSE_PEAK_PER_PHI_BYTE} and the prep's "
+          f"{PREP_BYTES_PER_ENTRY} B an entry of a {PREP_CHUNK_ROWS}-row "
+          f"chunk); cold == warm bitwise: {same}")
+    if (len(seen) != 1 or call["layout"] != "small"
+            or padded_shape(n, call["mb"])[1] != mpad):
+        raise AssertionError(f"[17a] took {seen}")
+    small_launches(counts, iters)
+    if not same or cold.shape != frame.shape or cold.dtype != np.uint8:
+        raise AssertionError("[17a] two trains differ, or a bad output")
+    if not peak_b <= allowed:
+        raise AssertionError(f"[17a] peak {peak_b} B > {allowed:.0f}")
+    errs = hold_small_kernels(torch, frame, params)
+    with cphi_limit(0), stage2a_layouts(seen):
+        split, split_s = run_config(torch, NLEFilter, frame, params, WEIGHTS)
+    f64, f64_s = run_config(torch, NLEFilter, frame, params, WEIGHTS,
+                            dtype=torch.float64)
+    for label, ref, wall in (("the split layout", split, split_s),
+                             ("the float64 route", f64, f64_s)):
+        db = psnr(warm, ref)
+        print(f"  vs {label} (wall {wall:.3f} s): {db:.2f} dB")
+        if not db >= 45.0:
+            raise AssertionError(f"[17a] {db:.2f} dB from {label}")
+    if seen[-1]["layout"] != "split":
+        raise AssertionError(f"[17a] NLE_CPHI_BYTES=0 took {seen[-1]}")
+    del cold, warm, split, f64
+
+    big_side = int((RAISED_PHI / (4 * mpad)) ** 0.5)
+    big = structured_frame(big_side, big_side, seed=171)
+    big_n = big_side * big_side
+    seen = []
+    with cphi_limit(2 * RAISED_PHI):
+        peak = PeakMeter(torch)
+        _build.reset_launches()
+        with stage2a_layouts(seen):
+            out, big_s = run_config(torch, NLEFilter, big, params, WEIGHTS)
+        big_counts = dict(_build.LAUNCHES)
+        ratio = peak.dense_ratio(
+            f"  {big_side}x{big_side} under NLE_CPHI_BYTES {2 * RAISED_PHI}",
+            big_n, seen[0]["mb"])
+    with cphi_limit(0), stage2a_layouts(seen):
+        ref, _ = run_config(torch, NLEFilter, big, params, WEIGHTS)
+    db = psnr(out, ref)
+    print(f"  {big_side}x{big_side}: stage 2a {seen}; launches {big_counts}; "
+          f"cold {big_s:.3f} s; {ratio:.3f} x phi; {db:.2f} dB from its "
+          "split layout")
+    small_launches(big_counts, iters)
+    if [c["layout"] for c in seen] != ["small", "split"] or not db >= 45.0:
+        raise AssertionError(f"[17a] raised NLE_CPHI_BYTES: {seen}, "
+                             f"{db:.2f} dB")
+    return {"small_17a": counts, "small_raised_17a": big_counts}, errs
+
+
+def golden_phase(torch, NLEFilter, card: str) -> None:
+    """[17b] every configuration of the port's golden_configs whose input
+    shape is recorded (GOLDEN_SHAPES): a structured seeded BGR frame of
+    that shape through NLEFilter on the card, cold then warm, the layout
+    each stage-2a call took and the guard's trips, the warm wall, and the
+    edit's dB from the port's float64 route on the card (>= 45), and cold
+    == warm bit for bit."""
+    from nle_tpu_torch.golden_configs import (
+        DENOISE_CONFIG,
+        ENHANCE_CONFIGS,
+        EXTENDED_RECIPES,
+    )
+
+    jobs = [(name, inp, params, weights, None)
+            for name, inp, _, params, weights in ENHANCE_CONFIGS]
+    name, inp, params, dparams = DENOISE_CONFIG
+    jobs.append((name, inp, params, None, dparams))
+    jobs += [(name, inp, params, weights, None)
+             for name, inp, params, weights in EXTENDED_RECIPES
+             if inp in GOLDEN_SHAPES]
+    print(f"[17b] the reference's configurations at their recorded shapes "
+          f"({len(jobs)}; {card}):")
+    worst = None
+    for seed, (name, inp, params, weights, dparams) in enumerate(jobs):
+        w, h = GOLDEN_SHAPES[inp]
+        frame = structured_frame(h, w, seed=170 + seed)
+        seen = []
+        with stage2a_layouts(seen):
+            cold, _ = run_config(torch, NLEFilter, frame, params, weights,
+                                 dparams)
+            warm, wall = run_config(torch, NLEFilter, frame, params,
+                                    weights, dparams)
+        f64, wall64 = run_config(torch, NLEFilter, frame, params, weights,
+                                 dparams, dtype=torch.float64)
+        db = psnr(warm, f64)
+        first = seen[0]
+        trips = len(seen) // 2 - 1
+        mpad = -(-first["mb"] // 128) * 128
+        same = bool(np.array_equal(cold, warm))
+        print(f"  {name}: {h}x{w}, p {params[0] * params[1]}, m "
+              f"{first['m']}, mpad {mpad}, layout {first['layout']}, guard "
+              f"trips {trips}, warm {wall:.3f} s (float64 route "
+              f"{wall64:.3f} s), {db:.2f} dB from the float64 route, cold "
+              f"== warm bitwise: {same}")
+        if not db >= 45.0:
+            raise AssertionError(f"[17b] {name}: {db:.2f} dB < 45")
+        if not same:
+            raise AssertionError(f"[17b] {name}: cold and warm differ")
+        if len(seen) % 2 or seen[:len(seen) // 2] != seen[len(seen) // 2:]:
+            raise AssertionError(f"[17b] {name}: the two trains took "
+                                 f"different stage-2a calls: {seen}")
+        worst = db if worst is None else min(worst, db)
+    print(f"  worst {worst:.2f} dB from the float64 route")
+
+
 class PeakMeter:
     """Peak device bytes of one dense run over the padded f32 phi that
     resolve_streaming weighs, against the rule's DENSE_PEAK_PER_PHI_BYTE.
@@ -1576,15 +1933,19 @@ def near_threshold(torch, NLEFilter, _build) -> None:
 
 @contextlib.contextmanager
 def stage2a_layouts(seen: list):
-    """Records, per stage-2a call of train_filter, (True for the split
-    layout, the crush statistic rc[2, 0])."""
+    """Records each stage-2a call of train_filter as a dict: its layout
+    ("small", "split" or "assembled"), m, mb and the crush statistic
+    rc[2, 0]."""
     from nle_tpu_torch.ops import pipeline
 
     real = pipeline.train_filter_stage2a
 
     def spy(*args, **kw):
         out = real(*args, **kw)
-        seen.append((isinstance(out[2], tuple), float(out[0][2, 0])))
+        layout = ("small" if kw.get("small") else
+                  "split" if isinstance(out[2], tuple) else "assembled")
+        seen.append(dict(layout=layout, m=kw["m"], mb=kw["mb"],
+                         crush=float(out[0][2, 0])))
         return out
 
     pipeline.train_filter_stage2a = spy
@@ -1761,9 +2122,9 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
         same = bool(np.array_equal(cold, warm))
         print(f"[10b] {label} ({env}): cold {cold_s:.3f} s, warm "
               f"{warm_s[label]:.3f} s, two trains bitwise equal: {same}; "
-              f"stage 2a (split, crush) {seen[:1]}; launches {counts}")
+              f"stage 2a {seen[:1]}; launches {counts}")
         got = {k: counts[k] for k in SINKHORN_KERNELS if counts[k]}
-        if got != need or [sp for sp, _ in seen] != layouts:
+        if got != need or [c["layout"] == "split" for c in seen] != layouts:
             raise AssertionError(f"[10b] {label}: not its route: Sinkhorn "
                                  f"launches {got}, layouts {seen}")
         if any(counts[k] for k in STREAMING_KERNELS) or not same:
@@ -1782,21 +2143,25 @@ def sinkhorn_modes(torch, NLEFilter, _build, record, img, L, split_out,
         if gate and not db >= 45.0:
             raise AssertionError(f"[10b] {a} vs {b} {db:.2f} dB < 45")
     del outs
-    seen = []
-    _build.reset_launches()
-    with knobs(NLE_SINKHORN_INT16="on"), stage2a_layouts(seen):
-        noisy = NLEFilter(device="cuda").train_and_enhance(
-            noise_frame(), 10, 10, 5.0, 30.0, GUARD_ITERS, 5, weights=WEIGHTS)
-    torch.cuda.synchronize()
-    counts = paths["mode_int16_on_noise"] = dict(_build.LAUNCHES)
-    print(f"  int16 on, noise frame: stage 2a (split, crush) {seen}; "
-          f"launches {counts}")
-    if (len(seen) != 1 or not seen[0][1] > 0.2
-            or counts["sinkhorn_halfstep_f32"]
-            or counts["sinkhorn_halfstep_int16"] != 2 * GUARD_ITERS
-            or noisy.shape != (120, 120, 3)):
-        raise AssertionError("[10b] NLE_SINKHORN_INT16=on re-dispatched, or "
-                             "the noise frame no longer trips the guard")
+    # The noise frame's default is the small layout; NLE_CPHI_BYTES=0
+    # gives it the split layout of the frames past that (K6 and K7).
+    for path, limit, layout, gram in (
+            ("mode_int16_on_noise", None, "small", 0),
+            ("mode_int16_on_noise_split", 0, "split", 1)):
+        _, counts, seen = noise_train(torch, NLEFilter, _build, limit,
+                                      NLE_SINKHORN_INT16="on")
+        paths[path] = counts
+        print(f"  int16 on, noise frame, {layout} layout: stage 2a {seen}; "
+              f"launches {counts}")
+        if (len(seen) != 1 or seen[0]["layout"] != layout
+                or not seen[0]["crush"] > 0.2
+                or counts["sinkhorn_halfstep_f32"]
+                or counts["sinkhorn_halfstep_int16"] != 2 * GUARD_ITERS
+                or counts["scaled_gram"] != gram
+                or counts["scaled_matmul"] != gram):
+            raise AssertionError(f"[10b] NLE_SINKHORN_INT16=on on the "
+                                 f"{layout} layout re-dispatched, or the "
+                                 "noise frame no longer trips the guard")
     small = structured_frame(128, 192, seed=5)
     sargs = (10, 10, 100.0, 30.0, 10, 10)
     for label, env, _, _ in mode_routes(sargs[4]):
@@ -3701,18 +4066,7 @@ def main() -> int:
     if not np.array_equal(cold, warm):
         raise AssertionError("1 MP: cold and warm runs differ")
 
-    _build.reset_launches()
-    guard = NLEFilter(device="cuda").train_and_enhance(
-        noise_frame(), 10, 10, 5.0, 30.0, GUARD_ITERS, 5, weights=WEIGHTS)
-    torch.cuda.synchronize()
-    guard_counts = dict(_build.LAUNCHES)
-    print(f"  noise frame 120x120 (guard fallback): launches {guard_counts}")
-    if guard.shape != (120, 120, 3) or guard.dtype != np.uint8:
-        raise AssertionError(f"guard output {guard.shape} {guard.dtype}")
-    if guard_counts["sinkhorn_halfstep_f32"] < 2 * GUARD_ITERS:
-        raise AssertionError(
-            f"K4 ran {guard_counts['sinkhorn_halfstep_f32']} times on the "
-            "guard-tripping frame")
+    guard_counts = guard_paths(torch, NLEFilter, _build)
     # -- [6] where the time goes: one profiled warm call ------------------
     profile_call(torch, "[6] profiled warm 1 MP call",
                  lambda: NLEFilter(device="cuda").train_and_enhance(
@@ -4103,16 +4457,24 @@ def main() -> int:
     # -- [16] the reference's dense free functions ------------------------
     free_api_phase(torch, img, card, dev)
 
+    # -- [17] the small layout and the reference's configurations ---------
+    t17 = time.perf_counter()
+    small_paths, small_errs = small_layout_phase(torch, NLEFilter, _build,
+                                                 card)
+    golden_phase(torch, NLEFilter, card)
+    print(f"[17] the small layout and the golden configurations: "
+          f"{time.perf_counter() - t17:.1f} s ({card})")
+
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the
     # rows [9] adds); every path's count rides beside it.
-    paths = {"dense_1mp": main_counts, "guard_frame": guard_counts,
+    paths = {"dense_1mp": main_counts, **guard_counts,
              "factored_32mp": cap_counts, "streaming_4mp": stream_counts,
              "dense_grid_16mp": grid_counts, "dense_p1200_1mp": p1200_counts,
              "dense_grid_streaming_4mp": gs_counts,
              "dense_grid_dense_4mp": gd_counts,
              "dense_mpad2176_4mp": wd_counts, **mode_paths, **ab_paths,
-             **cli_paths, **serve_paths}
+             **cli_paths, **serve_paths, **small_paths}
     for row in rows:
         path, key = row.pop("_launch")
         row["launches"] = paths[path][key]
@@ -4121,6 +4483,8 @@ def main() -> int:
         # Each rank's own count on the sharded paths ([15a] at (1, 2), [15b]).
         for pname, ranks in shard_paths.items():
             row[f"launches_{pname}"] = [c[key] for c in ranks]
+        # [17a]'s kernels held and timed on its own tensors.
+        row.update(small_errs.get(row["name"], {}))
         if path == "factored_32mp" and key in cap_errs:
             row["max_abs_err_32mp"], row["err_over_bound_32mp"] = (
                 cap_errs[key])

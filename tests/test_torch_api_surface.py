@@ -18,22 +18,16 @@ JAX_DIR = os.path.join(ROOT, "nle_tpu")
 PORT_DIR = os.path.join(ROOT, "nle_tpu_torch")
 
 LEFT_BEHIND = "left behind (TPU-only)"
-NOT_PORTED = "not ported by decision"
 
-# "nle_tpu module:name" -> "renamed to <port module>:<name>", LEFT_BEHIND
-# or NOT_PORTED (ROADMAP Queue 1 names the decisions).
+# "nle_tpu module:name" -> "renamed to <port module>:<name>" or
+# LEFT_BEHIND.
 ACCOUNTED = {
     "config.py:default_eps": "renamed to config.py:EPS",
     "config.py:enable_persistent_cache": LEFT_BEHIND,
-    "golden_configs.py:extended_golden_path": NOT_PORTED,
-    "golden_configs.py:generate_denoise_golden": NOT_PORTED,
-    "golden_configs.py:generate_extended_goldens": NOT_PORTED,
     "ops/affinity.py:affinity_matmul_xla":
         "renamed to ops/kernels/affinity_kernel.py:affinity_matmul_plain",
     "ops/pipeline.py:resolve_sb_tri": LEFT_BEHIND,
     "ops/pipeline.py:submit_sb_fetch": LEFT_BEHIND,
-    "ops/pipeline.py:stage2_dense_small": NOT_PORTED,
-    "ops/pipeline.py:stage2b_factor_scaled": NOT_PORTED,
     "ops/pipeline.py:train_filter_stage2b_edit":
         "renamed to ops/pipeline.py:_stage2_outputs",
     "ops/pipeline.py:train_filter_stage2b_streaming_edit":
@@ -47,6 +41,8 @@ ACCOUNTED = {
         "renamed to ops/kernels/affinity_kernel.py:affinity_matmul_kernel",
     "ops/pallas/affinity_kernel.py:ptiled_fits": LEFT_BEHIND,
     "ops/pallas/scaled_matmul_kernel.py:gram_tile": LEFT_BEHIND,
+    # Also stage2_dense_small's VMEM clause: the port's predicate keeps
+    # only its NLE_CPHI_BYTES clause.
     "ops/pallas/scaled_matmul_kernel.py:scaled_fits_vmem": LEFT_BEHIND,
     "ops/pallas/scaled_matmul_kernel.py:scaled_gram_pallas":
         "renamed to ops/kernels/scaled_matmul_kernel.py:scaled_gram",
@@ -155,7 +151,7 @@ def test_every_public_name_has_a_counterpart(rel):
             assert new in _bound(_tree(os.path.join(PORT_DIR, mod))), (
                 f"{key}: {verdict} not found")
         else:
-            assert verdict in (LEFT_BEHIND, NOT_PORTED), (key, verdict)
+            assert verdict == LEFT_BEHIND, (key, verdict)
 
 
 def test_accounted_names_exist_in_nle_tpu():

@@ -39,8 +39,10 @@ from nle_tpu_torch.ops.kernels import _build
 from nle_tpu_torch.ops.kernels import affinity_kernel as tak
 from nle_tpu_torch.ops.kernels import sinkhorn_kernel as tsink
 from nle_tpu_torch.ops.kernels import streaming_kernel as tsk
+from nle_tpu_torch.ops import pipeline as tpipe
 from nle_tpu_torch.ops.pipeline import apply_filter, train_filter
 from nle_tpu_torch.ops.transform import transform_eigenvalues
+from nle_tpu_interpreted import interpreted
 
 EPS = 1e-10
 SW = float(np.float32(1e-4))
@@ -342,32 +344,68 @@ def test_float64_streaming_twin_is_the_f32_route_when_well_conditioned(
     assert _psnr(e["float64 twin"], e["streaming"]) >= 60.0
 
 
-def test_eps_1e10_exact_streaming_algebra_sides_with_the_dense_route(
-        dense_grid):
-    """The same grid at eps = 1e-10 keeps eigenvalues down to 1e-10
-    (m = 381 of 2112). The streaming route's float64 twin, its algebra with
-    the fp32 rounding taken away, lands on the dense route: >= 50 dB from
-    nle_tpu's dense edit and from the port's (measured 54.2 and 55.9 dB).
-    The fp32 streaming routes sit further off, nle_tpu's own included
-    (measured 50.9 dB for nle_tpu's, 42.9 dB for the port's plain
-    version): at this eps the streaming route's association amplifies its
-    rounding by 1/lambda, and the gap to the dense route is that rounding,
-    which chip_smoke [9c] bounds on the card against the same twin."""
-    L, grid = dense_grid
-    e = _edits(L, grid, 1e-10, (("streaming", True), ("dense", False)))
-    kw = dict(KW, eps=1e-10)
+def _jax_edits(L, grid, eps, routes, monkeypatch=None):
+    """nle_tpu's first edits (u8, packed order) along routes ((label,
+    streaming), ...): its CPU default, or with monkeypatch its kernels
+    interpreted (tests/nle_tpu_interpreted.py: the small layout for this
+    frame's dense route)."""
+    kw = dict(KW, eps=eps)
+    if monkeypatch is not None:
+        interpreted(monkeypatch)
+        kw["use_pallas"] = True
     y = L.reshape(-1)[grid.perm]
-    for label, mode in (("nle_tpu streaming", True), ("nle_tpu dense", False)):
+    out = {}
+    for label, mode in routes:
         V, S = jtrain_filter(L, 48, 44, streaming=mode, pixel_order=False,
                              **kw)
         f = japply_filter(V, jtransform(S, jnp.asarray(WEIGHTS)),
                           jnp.asarray(y))
-        e[label] = np.clip(np.rint(np.asarray(f)), 0, 255)
+        out[label] = np.clip(np.rint(np.asarray(f)), 0, 255)
+    return out
+
+
+def test_eps_1e10_exact_streaming_algebra_sides_with_the_dense_route(
+        dense_grid, monkeypatch):
+    """The same grid at eps = 1e-10 keeps eigenvalues down to 1e-10
+    (m = 381 of 2112). The streaming route's float64 twin, its algebra with
+    the fp32 rounding taken away, lands on the dense route: >= 50 dB from
+    nle_tpu's dense edit on its CPU default (measured 54.2 dB), >= 45 dB
+    on its small layout with its kernels interpreted (measured 50.7 dB),
+    the layout it takes here where its kernels run. The fp32 streaming routes
+    sit further off, nle_tpu's own included (measured 50.9 dB for
+    nle_tpu's, 42.9 dB for the port's plain version): at this eps the
+    streaming route's association amplifies its rounding by 1/lambda, and
+    the gap to the dense route is that rounding, which chip_smoke [9c]
+    bounds on the card against the same twin. The port's default dense
+    route here is the small layout, whose carrier quantizes Um's rows too:
+    >= 45 dB from the twin and from nle_tpu's small layout (measured 46.1
+    and 45.9 dB); the split layout's edit is held to 50 dB below."""
+    L, grid = dense_grid
+    monkeypatch.delenv("NLE_CPHI_BYTES", raising=False)
+    assert tpipe.stage2_dense_small(grid.n_pixels, 384)
+    e = _edits(L, grid, 1e-10, (("streaming", True), ("dense", False)))
+    e.update(_jax_edits(L, grid, 1e-10, (("nle_tpu streaming", True),
+                                         ("nle_tpu dense", False))))
+    e.update(_jax_edits(L, grid, 1e-10, (("nle_tpu small", False),),
+                        monkeypatch))
     twin = e["float64 twin"]
     assert _psnr(twin, e["nle_tpu dense"]) >= 50.0
-    assert _psnr(twin, e["dense"]) >= 50.0
+    assert _psnr(twin, e["nle_tpu small"]) >= 45.0
+    assert _psnr(twin, e["dense"]) >= 45.0
+    assert _psnr(e["nle_tpu small"], e["dense"]) >= 45.0
     assert _psnr(twin, e["nle_tpu streaming"]) >= 40.0
     assert _psnr(twin, e["streaming"]) >= 40.0
+
+
+def test_eps_1e10_split_layout_sides_with_the_streaming_twin(dense_grid,
+                                                             monkeypatch):
+    """The port's split layout (NLE_CPHI_BYTES=0: the layout of the large
+    frames [9c] runs) on the same grid at eps = 1e-10: >= 50 dB from the
+    float64 twin (measured 62.5 dB; 55.9 in an earlier reading)."""
+    L, grid = dense_grid
+    monkeypatch.setenv("NLE_CPHI_BYTES", "0")
+    e = _edits(L, grid, 1e-10, (("dense", False),))
+    assert _psnr(e["float64 twin"], e["dense"]) >= 50.0
 
 
 @pytest.fixture(scope="module")

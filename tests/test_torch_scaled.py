@@ -139,10 +139,10 @@ def test_stage2b_at_the_narrow_width_matches_the_lane_width(monkeypatch,
 
     monkeypatch.setattr(tpipe, "scaled_matmul", spy)
     narrow = tpipe._stage2b_dense_body(d["factor"], d["c"], d["va_grt"],
-                                       n=d["n"], mb=d["mb"])
+                                       n=d["n"], mb=d["mb"], scaled=False)
     monkeypatch.setattr(tpipe, "MATMUL_COL_ALIGN", 128)
     wide = tpipe._stage2b_dense_body(d["factor"], d["c"], d["va_grt"],
-                                     n=d["n"], mb=d["mb"])
+                                     n=d["n"], mb=d["mb"], scaled=False)
     assert seen == [32, 128]
     assert narrow.shape == wide.shape == (d["n"], d["k"])
     # Each column is the same mpad-term product; only the BLAS blocking of
@@ -164,7 +164,7 @@ def test_stage2b_at_the_narrow_width_matches_interpreted_pallas(layout):
     (interpret mode) on the 128-lane B the TPU path passes."""
     d = _stage2b_inputs(layout)
     got = tpipe._stage2b_dense_body(d["factor"], d["c"], d["va_grt"],
-                                    n=d["n"], mb=d["mb"]).numpy()
+                                    n=d["n"], mb=d["mb"], scaled=False).numpy()
     B = np.zeros((128, 128), np.float32)
     B[:d["mb"], :d["k"]] = d["grt"]
     v = np.asarray(scaled_matmul_pallas(jnp.asarray(d["phi"]),

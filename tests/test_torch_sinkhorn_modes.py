@@ -436,7 +436,7 @@ def _port_stage2a(d, args):
     rc, sb, factor, c_rest = tpipe.train_filter_stage2a(
         torch.from_numpy(d["y"]), torch.from_numpy(d["rr"]),
         torch.from_numpy(d["cc"]), s1, sw, pw, p=d["p"], m=d["m"],
-        mb=d["mb"], n_sinkhorn_iter=args[4], eps=EPS)
+        mb=d["mb"], n_sinkhorn_iter=args[4], eps=EPS, small=False)
     return rc.double().numpy(), sb.double().numpy(), factor, c_rest
 
 
@@ -500,6 +500,9 @@ def test_train_filter_follows_the_knobs(env, monkeypatch, frame, knobs,
         return out
 
     monkeypatch.setattr(tpipe, "train_filter_stage2a", spy)
+    # These frames stand for the large ones: past NLE_CPHI_BYTES, so the
+    # small layout does not take them.
+    monkeypatch.setenv("NLE_CPHI_BYTES", "0")
     env(**knobs)
     rng = np.random.default_rng(2)
     if frame == "noise":

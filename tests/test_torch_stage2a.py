@@ -49,7 +49,7 @@ def _jax(prob, **kw):
     return np.asarray(rc, np.float64), np.asarray(sb, np.float64)
 
 
-def _port(prob, **kw):
+def _port(prob, small=False, **kw):
     from nle_tpu_torch.ops.affinity import bandwidth_weights
 
     sw, pw = bandwidth_weights(prob["hx"], prob["hy"])
@@ -58,7 +58,7 @@ def _port(prob, **kw):
     rc, sb, factor, c_rest = tpipe.train_filter_stage2a(
         torch.from_numpy(prob["y"]), torch.from_numpy(prob["rr"]),
         torch.from_numpy(prob["cc"]), s1, sw, pw, p=prob["p"], m=prob["m"],
-        mb=prob["mb"], n_sinkhorn_iter=ITERS, eps=1e-10, **kw)
+        mb=prob["mb"], n_sinkhorn_iter=ITERS, eps=1e-10, small=small, **kw)
     return rc.double().numpy(), sb.double().numpy(), factor
 
 
@@ -125,11 +125,18 @@ def test_noise_repro_trips_the_ports_guard(monkeypatch):
 
 
 def test_unported_layouts_raise(structured_problem):
-    """The small layout is not ported and raises. (The assembled int16
-    layout, which raised here before it was ported, is held to nle_tpu in
-    tests/test_torch_sinkhorn_modes.py.)"""
-    with pytest.raises(NotImplementedError, match="small"):
-        _port(structured_problem, small=True)
+    """The small layout, which raised here before it was ported, runs: the
+    pre-scaled factor (rows below m exact zeros) with the (3, mb) rc and
+    the gram of the assembled int16 layout's trajectory. It is held to
+    nle_tpu in tests/test_torch_small_layout.py, as the assembled int16
+    layout is in tests/test_torch_sinkhorn_modes.py."""
+    prob = structured_problem
+    rc_s, sb_s, cphi = _port(prob, small=True)
+    rc_a, sb_a, phi = _port(prob, split=False)
+    assert not isinstance(cphi, tuple) and cphi.shape == phi.shape
+    assert not bool(cphi[:prob["m"]].any())
+    np.testing.assert_array_equal(rc_s, rc_a)
+    assert _rel(sb_s, sb_a) < 2e-5, _rel(sb_s, sb_a)
 
 
 @pytest.fixture()
@@ -198,6 +205,9 @@ def test_train_filter_layout_follows_carrier_and_guard(clean_carrier_env,
         return out
 
     clean_carrier_env.setattr(tpipe, "train_filter_stage2a", spy)
+    # These frames stand for the large ones: past NLE_CPHI_BYTES, so the
+    # small layout does not take them.
+    clean_carrier_env.setenv("NLE_CPHI_BYTES", "0")
     clean_carrier_env.setenv("NLE_SINKHORN_INT16", value)
     rng = np.random.default_rng(2)
     if frame == "noise":
