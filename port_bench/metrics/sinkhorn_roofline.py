@@ -1,0 +1,12 @@
+"""Kernels (K3, with K4 on a guard trip): 100 x the least time of the
+`sinkhorn` work (`work/sinkhorn.py`, from the traced frames' shapes) over
+the device time of the kernels that file names. None where none of them
+ran."""
+
+LAYER = "kernels"
+UNIT = "%"
+MOVES = "mps"
+
+
+def read(trace):
+    return trace.roofline_pct("sinkhorn")
