@@ -18,11 +18,17 @@ and raises without a card; device="cpu" runs their plain versions.
 A TrainedFilter may carry its training channel's device buffer (y_cache,
 set by `_train` and by stream mode, models/batch.py), which the first u8
 edit of that very channel reuses instead of uploading it again.
+
+Each public NLEFilter call is a span named `NLEFilter.<method>` around its
+whole body: a frame's root span. The spans inside it on the same thread
+(stages, "Sample grid", "Pack channel", "Upload", "Wait for device", and
+the edit's "Gather by perm" and "Scatter by perm") belong to that frame.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -43,7 +49,7 @@ from nle_tpu_torch.ops.transform import (
     shrink_eigenvalues,
     transform_eigenvalues,
 )
-from nle_tpu_torch.utils.logging import logger, stage
+from nle_tpu_torch.utils.logging import logger, span, stage
 from nle_tpu_torch.utils.transfer import Fetch, upload
 
 
@@ -165,6 +171,25 @@ def _check_image(image, n_pixels):
     return image
 
 
+def _root_span(method):
+    """Run the public call `method` inside the span NLEFilter.<name>."""
+    name = f"NLEFilter.{method.__name__}"
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        with span(name):
+            return method(self, *args, **kwargs)
+    return call
+
+
+def _scatter(packed: np.ndarray, perm: np.ndarray) -> np.ndarray:
+    """Packed rows back to pixel order: out[perm] = packed."""
+    with span("Scatter by perm"):
+        out = np.empty_like(packed)
+        out[perm] = packed
+        return out
+
+
 class NLEFilter:
     """Train-and-edit wrapper around the functional pipeline, on one
     explicit device ("cuda" or "cpu"). A given `trained` filter (either
@@ -256,6 +281,7 @@ class NLEFilter:
             return self._trained, out[2]
         return self._trained
 
+    @_root_span
     def train_for_enhancement(self, image_bgr_u8, n_row_samples, n_col_samples,
                               hx, hy, n_sinkhorn_iter=10, n_eigen_vectors=5):
         """Train on the 8-bit Lab luminance (src/filter.cpp:514-519)."""
@@ -264,6 +290,7 @@ class NLEFilter:
         return self._train(L, n_row_samples, n_col_samples, hx, hy,
                            n_sinkhorn_iter, n_eigen_vectors)
 
+    @_root_span
     def train_and_enhance(self, image_bgr_u8, n_row_samples, n_col_samples,
                           hx, hy, n_sinkhorn_iter=10, n_eigen_vectors=5,
                           weights=()) -> np.ndarray:
@@ -293,6 +320,7 @@ class NLEFilter:
             return Fetch(bilateral_filter_u8(L, -1, sigma_color,
                                              sigma_space)).result()
 
+    @_root_span
     def train_for_denoise(self, image_bgr_u8, n_row_samples, n_col_samples,
                           hx, hy, n_sinkhorn_iter, n_eigen_vectors,
                           sigma_color=10, sigma_space=10, *,
@@ -308,6 +336,7 @@ class NLEFilter:
                            n_row_samples, n_col_samples, hx, hy,
                            n_sinkhorn_iter, n_eigen_vectors)
 
+    @_root_span
     def apply(self, channel, transformed_eigvals) -> np.ndarray:
         """V diag(f(S)) V^T c on a pixel-order channel, no clamp
         (src/filter.cpp:445-458); host array in and out."""
@@ -321,7 +350,8 @@ class NLEFilter:
                 "image.")
         flat = channel_np.reshape(-1)
         if t.perm is not None:
-            flat = flat[t.perm]
+            with span("Gather by perm"):
+                flat = flat[t.perm]
         # In V's dtype, as nle_tpu casts the channel (float64 on that route).
         dtype = t.eigvecs.dtype
         fS = torch.as_tensor(transformed_eigvals, dtype=dtype,
@@ -329,9 +359,7 @@ class NLEFilter:
         out = Fetch(apply_filter(t.eigvecs, fS, upload(
             flat, self.device).to(dtype))).result()
         if t.perm is not None:
-            unpacked = np.empty_like(out)
-            unpacked[t.perm] = out
-            out = unpacked
+            out = _scatter(out, t.perm)
         return out.reshape(channel_np.shape)
 
     def _apply_edit_u8(self, channels_u8: np.ndarray, scale_vals) -> np.ndarray:
@@ -344,7 +372,8 @@ class NLEFilter:
         shape = channels_u8.shape
         flat = channels_u8.reshape(t.n_pixels, -1)
         if t.perm is not None:
-            flat = flat[t.perm]
+            with span("Gather by perm"):
+                flat = flat[t.perm]
         # Reuse the training channel's device buffer only when this channel
         # is that very channel (a content check, never object identity).
         y = None
@@ -360,11 +389,10 @@ class NLEFilter:
             out = Fetch(apply_filter_u8(t.eigvecs, scale_vals, y)).result()
         out = out.reshape(flat.shape)
         if t.perm is not None:
-            unpacked = np.empty_like(out)
-            unpacked[t.perm] = out
-            out = unpacked
+            out = _scatter(out, t.perm)
         return out.reshape(shape)
 
+    @_root_span
     def enhance(self, image_bgr_u8, weights) -> np.ndarray:
         """Detail-layer recomposition on L only (src/filter.cpp:412-443)."""
         t = self.trained
@@ -376,6 +404,7 @@ class NLEFilter:
         with stage("Lab to BGR"):
             return lab_to_bgr_u8_np(out)
 
+    @_root_span
     def denoise(self, image_bgr_u8, shrink_factor, sigma_color=10,
                 sigma_space=10, *, bilateral_L=None) -> np.ndarray:
         """GLIDE-style global denoise (src/filter.cpp:349-410): the
@@ -404,9 +433,7 @@ class NLEFilter:
             filtered = Fetch(filtered_dev).result()
         with stage("Lab to BGR"):
             if perm is not None:
-                unpacked = np.empty_like(filtered)
-                unpacked[perm] = filtered
-                filtered = unpacked
+                filtered = _scatter(filtered, perm)
             out = lab.copy()
             out[..., 0] = filtered.reshape(lab.shape[:2])
             return lab_to_bgr_u8_np(out)

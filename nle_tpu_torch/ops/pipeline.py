@@ -98,6 +98,7 @@ from nle_tpu_torch.ops.transform import transform_eigenvalues
 from nle_tpu_torch.utils.logging import (
     carrier_log,
     logger,
+    span,
     stage,
     warn_rank_deficient,
     warn_truncation,
@@ -213,14 +214,16 @@ def stage2b_factor_scaled(n: int, mb: int, dtype=torch.float32,
 
 def pack_channel(channel_np: np.ndarray, perm: np.ndarray):
     """Pack a channel into [selected; rest] order; returns (packed array,
-    is_8bit), the array uint8 when the values are integers in [0, 255]."""
-    packed = channel_np.reshape(-1)[perm]
-    if packed.dtype == np.uint8:
-        return packed, True
-    if (packed.min() >= 0 and packed.max() <= 255
-            and np.array_equal(packed, np.rint(packed))):
-        return packed.astype(np.uint8), True
-    return packed, False
+    is_8bit), the array uint8 when the values are integers in [0, 255].
+    The span "Pack channel"."""
+    with span("Pack channel"):
+        packed = channel_np.reshape(-1)[perm]
+        if packed.dtype == np.uint8:
+            return packed, True
+        if (packed.min() >= 0 and packed.max() <= 255
+                and np.array_equal(packed, np.rint(packed))):
+            return packed.astype(np.uint8), True
+        return packed, False
 
 
 def pack_stage1(Um64, lam64, mb: int | None = None) -> np.ndarray:

@@ -14,7 +14,8 @@ enqueue the copy non-blocking on the current stream instead:
   after it, and `result()` waits on that event alone.
 
 On the CPU both are plain views (no copy), as `torch.from_numpy` and
-`.cpu()` are. Single mode (ops/pipeline.py train_filter, NLEFilter) and
+`.cpu()` are. Each upload is the span "Upload" and each wait the span
+"Wait for device" (utils/logging.py span), on every device. Single mode (ops/pipeline.py train_filter, NLEFilter) and
 stream mode share these, so their transfers are the same code.
 """
 
@@ -23,16 +24,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nle_tpu_torch.utils.logging import span
+
 
 def upload(array, device: torch.device) -> torch.Tensor:
     """`array` (a NumPy array) as a tensor on `device`, copied without
     waiting for the work queued on the device's current stream."""
-    host = torch.from_numpy(np.ascontiguousarray(array))
-    if device.type != "cuda":
-        return host
-    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-    pinned.copy_(host)
-    return pinned.to(device, non_blocking=True)
+    with span("Upload"):
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        if device.type != "cuda":
+            return host
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        return pinned.to(device, non_blocking=True)
 
 
 class Fetch:
@@ -51,6 +55,7 @@ class Fetch:
         self._done.record(torch.cuda.current_stream(tensor.device))
 
     def result(self) -> np.ndarray:
-        if self._done is not None:
-            self._done.synchronize()
-        return self._host.numpy()
+        with span("Wait for device"):
+            if self._done is not None:
+                self._done.synchronize()
+            return self._host.numpy()
