@@ -254,7 +254,15 @@
    red-cherries-links and brickwall-links) on a structured frame of that
    shape through NLEFilter on the card, cold then warm: the layout taken,
    m, mpad, the guard's trips and the warm wall printed, cold == warm bit
-   for bit and >= 45 dB from the float64 route on the card.
+   for bit and >= 45 dB from the float64 route on the card;
+18. the u8 edit's gather and scatter by perm (pixel_order_phase): both
+   kernels bit for bit their plain versions at C = 1, 2, 3 on the 8 MP
+   frame's sample grid (3264x2448 at 10 x 10 samples) and on a ragged
+   random permutation, with exactly one launch each and a synchronize
+   after each launch; their ms beside the plain versions' and the byte
+   bound N (4 + 2C) B over 3.35 TB/s; then a denoise of [5]'s frame at
+   the denoise recipe launches each once, bit for bit the same filter's
+   edit through host fancy indexing.
 
 Any failure raises and the exit code is nonzero. The last two lines are
 the per-kernel JSON and {"ok": true, "device": {...}}. Imports no JAX.
@@ -1018,6 +1026,9 @@ def profile_call(torch, label: str, fn, mp: float, needles=(),
     return kernels, (kernel_grids(prof, needles) if needles else [])
 
 
+# The u8 edit's gather and scatter by perm: one of each an edit, but the
+# scatter alone for a fused first edit or a cached training channel.
+PERM_KERNELS = ("perm_gather_u8", "perm_scatter_u8")
 STREAMING_KERNELS = ("streaming_halfstep", "streaming_halfstep_ptiled",
                      "streaming_ap", "streaming_atb", "streaming_gram")
 DENSE_KERNELS = ("sinkhorn_halfstep_int16", "sinkhorn_halfstep_f32",
@@ -1557,8 +1568,10 @@ def guard_paths(torch, NLEFilter, _build) -> dict:
 
 def small_launches(counts: dict, iters: int) -> None:
     """[17a]'s route: K1 once, K3 twice an iteration, and no K4, K6, K7
-    or streaming kernel (the gram and V tail are plain products)."""
-    want = {"affinity_matmul": 1, "sinkhorn_halfstep_int16": 2 * iters}
+    or streaming kernel (the gram and V tail are plain products); the
+    fused first edit's scatter to pixel order once."""
+    want = {"affinity_matmul": 1, "sinkhorn_halfstep_int16": 2 * iters,
+            "perm_scatter_u8": 1}
     got = {k: v for k, v in counts.items() if v}
     if got != want:
         raise AssertionError(f"[17a] not the small layout's route: "
@@ -1759,6 +1772,99 @@ def small_layout_phase(torch, NLEFilter, _build, card: str):
         raise AssertionError(f"[17a] raised NLE_CPHI_BYTES: {seen}, "
                              f"{db:.2f} dB")
     return {"small_17a": counts, "small_raised_17a": big_counts}, errs
+
+
+# [18] the denoise recipe's sampler (the benchmark cell's), the 8 MP
+# frame's shape and a ragged row count past two of the kernel's tiles.
+DENOISE_ARGS = (10, 10, 200.0, 30.0, 10, 10)
+PHOTO8MP_SHAPE = (2448, 3264)
+RAGGED_ROWS = 2 * 4096 + 77
+
+
+def pixel_order_phase(torch, NLEFilter, _build, card: str):
+    """[18] the edit's gather and scatter by perm. Returns (paths, the
+    kernels' readings at 8 MP: {name: {c: (ms, plain_ms, nbytes)}})."""
+    from nle_tpu_torch.color.lab import bgr_to_lab_u8_np
+    from nle_tpu_torch.ops.kernels.pixel_order_kernel import (
+        device_index,
+        perm_gather,
+        perm_gather_plain,
+        perm_scatter,
+        perm_scatter_plain,
+    )
+    from nle_tpu_torch.ops.pipeline import apply_filter_u8
+    from nle_tpu_torch.ops.sampling import sample_grid
+    from nle_tpu_torch.ops.transform import shrink_eigenvalues
+
+    dev = torch.device("cuda")
+    t18 = time.perf_counter()
+    grid_perm = sample_grid(*PHOTO8MP_SHAPE, *DENOISE_ARGS[:2]).perm
+    ragged = np.random.default_rng(18).permutation(RAGGED_ROWS)
+    modes = (("perm_gather_u8", perm_gather, perm_gather_plain),
+             ("perm_scatter_u8", perm_scatter, perm_scatter_plain))
+    readings = {name: {} for name, _, _ in modes}
+    for label, perm in (("8mp", grid_perm), ("ragged", ragged)):
+        n = perm.size
+        idx = device_index(perm, dev)
+        for c in (1, 2, 3):
+            rng = np.random.default_rng(c)
+            x = torch.from_numpy(rng.integers(0, 256, (n, c), np.uint8)).to(
+                dev)
+            if c == 1:
+                x = x[:, 0].contiguous()
+            for name, kernel, plain in modes:
+                _build.reset_launches()
+                got = kernel(x, idx)
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+                want = plain(x, idx)
+                if counts != {name: 1} or not torch.equal(got, want):
+                    raise AssertionError(
+                        f"[18] {name} C = {c} on {label} ({n} rows): "
+                        f"launches {counts}, bitwise the plain version: "
+                        f"{bool(torch.equal(got, want))}")
+                if label != "8mp":
+                    continue
+                nbytes = n * (4 + 2 * c)
+                ms = cuda_ms(torch, lambda: kernel(x, idx), reps=50)
+                plain_ms = cuda_ms(torch, lambda: plain(x, idx), reps=20)
+                bms = nbytes / PEAK_BYTES * 1e3
+                readings[name][c] = (ms, plain_ms, nbytes)
+                print(f"[18] {name} C = {c}, {n} rows: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms (bytes: "
+                      f"{nbytes} B), {ms / bms:.2f} x the bound ({card})")
+        print(f"[18] {label}: both modes at C = 1, 2, 3 bitwise their plain "
+              f"versions, one launch each")
+
+    # A denoise frame at the cell's recipe: its edit's launches and bits.
+    img = structured_frame(*MAIN_SHAPE)
+    f = NLEFilter(device="cuda")
+    f.train_for_denoise(img, *DENOISE_ARGS, 10, 10)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = f.denoise(img, 2.0, 10, 10)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    t = f.trained
+    lab = bgr_to_lab_u8_np(img)
+    flat = np.ascontiguousarray(lab[..., 1:]).reshape(t.n_pixels, 2)[t.perm]
+    edit = apply_filter_u8(t.eigvecs, shrink_eigenvalues(t.eigvals, 2.0),
+                           torch.from_numpy(flat).to(dev)).cpu().numpy()
+    unpacked = np.empty_like(edit)
+    unpacked[t.perm] = edit
+    same = bool(np.array_equal(f._apply_edit_u8(
+        np.ascontiguousarray(lab[..., 1:]),
+        shrink_eigenvalues(t.eigvals, 2.0)),
+        unpacked.reshape(lab.shape[:2] + (2,))))
+    perm_counts = {k: counts[k] for k in PERM_KERNELS}
+    print(f"[18] denoise of [5]'s frame at {' '.join(map(str, DENOISE_ARGS))}:"
+          f" output {got.shape} {got.dtype}, launches {launches_of(counts)};"
+          f" its edit bitwise the host route's: {same}; "
+          f"{time.perf_counter() - t18:.1f} s")
+    if perm_counts != {"perm_gather_u8": 1, "perm_scatter_u8": 1} or not same:
+        raise AssertionError(f"[18] denoise: launches {perm_counts}, edit "
+                             f"bitwise the host route's: {same}")
+    return {"denoise_1mp": counts}, readings
 
 
 def golden_phase(torch, NLEFilter, card: str) -> None:
@@ -3256,16 +3362,22 @@ def serving_phase(torch, img, dense_out, bench_mps: dict) -> dict:
                     f"/train?name=fd&mode=denoise&factored=1&{qtrain}&{dn}")
             outs["apply_denoise_factored"] = imdecode_bgr(counted(
                 "apply_denoise_factored", f"/apply?name=fd&op=denoise&{dn}"))
+            # /enhance edits the training channel: its cached buffer
+            # serves, so the edit launches the scatter alone.
             c = paths["serve_enhance"]
+            train_c = {k: 0 if k in PERM_KERNELS else v for k, v in c.items()}
             dense_ok = (c["affinity_matmul"] == 1 and c["scaled_gram"] == 1
                         and c["scaled_matmul"] == 1
                         and c["sinkhorn_halfstep_int16"] == 2 * MAIN_ARGS[4]
-                        and sum(c.values()) == 2 * MAIN_ARGS[4] + 3)
-            if not dense_ok or paths["serve_train"] != c:
+                        and sum(train_c.values()) == 2 * MAIN_ARGS[4] + 3
+                        and c["perm_gather_u8"] == 0
+                        and c["perm_scatter_u8"] == 1)
+            if not dense_ok or paths["serve_train"] != train_c:
                 raise AssertionError(f"[14a] a dense train must launch K1, "
-                                     f"K6, K7 once and K3 x100: {c}, "
+                                     f"K6, K7 once and K3 x100, its edit the "
+                                     f"scatter alone: {c}, "
                                      f"{paths['serve_train']}")
-            if any(paths["serve_apply"].values()):
+            if launches_of(paths["serve_apply"]) != {"perm_scatter_u8": 1}:
                 raise AssertionError(f"[14a] a dense apply launched "
                                      f"{launches_of(paths['serve_apply'])}")
             cf = paths["serve_enhance_factored"]
@@ -4465,6 +4577,19 @@ def main() -> int:
     print(f"[17] the small layout and the golden configurations: "
           f"{time.perf_counter() - t17:.1f} s ({card})")
 
+    # -- [18] the edit's gather and scatter by perm -----------------------
+    po_paths, po = pixel_order_phase(torch, NLEFilter, _build, card)
+    for name in po:
+        ms, plain_ms, nbytes = po[name][2]
+        row = record(name, "nle_tpu_torch/csrc/pixel_order.cu",
+                     "none (nle_tpu permutes on the host: "
+                     "nle_tpu/models/filter.py)", (0.0, 0.0), ms, plain_ms,
+                     nbytes, 0.0, library_ms=plain_ms,
+                     launch=("denoise_1mp", name))
+        for c in (1, 3):
+            row[f"ms_c{c}"], row[f"plain_ms_c{c}"], row[f"bytes_c{c}"] = (
+                po[name][c])
+
     # launches: the count of each row's own path (the dense 1 MP run for
     # K1-K7, the 32 MP factored run for K8-K12, the dense-grid runs for the
     # rows [9] adds); every path's count rides beside it.
@@ -4474,7 +4599,7 @@ def main() -> int:
              "dense_grid_streaming_4mp": gs_counts,
              "dense_grid_dense_4mp": gd_counts,
              "dense_mpad2176_4mp": wd_counts, **mode_paths, **ab_paths,
-             **cli_paths, **serve_paths, **small_paths}
+             **cli_paths, **serve_paths, **small_paths, **po_paths}
     for row in rows:
         path, key = row.pop("_launch")
         row["launches"] = paths[path][key]

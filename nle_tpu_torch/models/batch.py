@@ -167,15 +167,15 @@ def train_filters_iter(channels, n_row_samples: int, n_col_samples: int,
                 continue
             if reuse_delta is not None:
                 ref = chan
-            packed_np, is_8bit = pack_channel(chan, grid.perm)
+            packed_np, flat_u8 = pack_channel(chan, grid.perm)
             y_dev = upload(packed_np, dev)
             V, S = train_filter(
                 chan, n_row_samples, n_col_samples, hx, hy, n_sinkhorn_iter,
                 n_eig_vectors, device=dev, eps=eps, grid=grid,
                 pixel_order=False, packed_y=y_dev)
             last = TrainedFilter(V, S, nrows, ncols, perm=grid.perm,
-                                 y_cache=(packed_np, y_dev) if is_8bit
-                                 else None)
+                                 y_cache=None if flat_u8 is None
+                                 else (flat_u8, y_dev))
             yield last
         return
 
@@ -186,7 +186,7 @@ def train_filters_iter(channels, n_row_samples: int, n_col_samples: int,
     def submit(chan):
         """Host stage 1, then queue the frame's stage 2a."""
         Um64, lam64, m, mb = host_stage1(chan, grid, hx, hy, eps)
-        packed_np, is_8bit = pack_channel(chan, grid.perm)
+        packed_np, flat_u8 = pack_channel(chan, grid.perm)
         y_dev = upload(packed_np, dev)
         with stage("Nystrom approximation + Sinkhorn"):
             frame = submit_dense(
@@ -194,7 +194,7 @@ def train_filters_iter(channels, n_row_samples: int, n_col_samples: int,
                 upload(pack_stage1(Um64, lam64, mb=mb), dev), sw, pw, Um64,
                 lam64, p=p, m=m, mb=mb, n_sinkhorn_iter=n_sinkhorn_iter,
                 eps=eps)
-        return frame, ((packed_np, y_dev) if is_8bit else None)
+        return frame, (None if flat_u8 is None else (flat_u8, y_dev))
 
     def finish(state) -> TrainedFilter:
         """Wait for the frame's stage 2a (its event only), the guard and

@@ -17,7 +17,17 @@ The device is explicit: NLEFilter(device="cuda") runs the CUDA kernels
 and raises without a card; device="cpu" runs their plain versions.
 A TrainedFilter may carry its training channel's device buffer (y_cache,
 set by `_train` and by stream mode, models/batch.py), which the first u8
-edit of that very channel reuses instead of uploading it again.
+edit of that very channel reuses instead of uploading and gathering it
+again.
+
+The u8 edits permute on the device: the host uploads and fetches
+pixel-order planes, and the gather into the filter's packed [selected;
+rest] row order and the scatter back run as kernels
+(ops/kernels/pixel_order_kernel.py) against `perm` as an int32 device
+index, which the TrainedFilter builds at its first u8 edit and keeps. The
+routes that run no hand-written kernel (use_kernels=False, float64)
+permute on the device with the kernels' plain versions. The float `apply`
+still permutes on the host.
 
 Each public NLEFilter call is a span named `NLEFilter.<method>` around its
 whole body: a frame's root span. The spans inside it on the same thread
@@ -38,6 +48,11 @@ from nle_tpu_torch.color.bilateral import bilateral_filter_u8
 from nle_tpu_torch.color.lab import bgr_to_lab_u8_np, lab_to_bgr_u8_np
 from nle_tpu_torch.config import resolve_device
 from nle_tpu_torch.models.factored import FactoredFilter, train_filter_factored
+from nle_tpu_torch.ops.kernels.pixel_order_kernel import (
+    device_index,
+    perm_gather,
+    perm_scatter,
+)
 from nle_tpu_torch.ops.pipeline import (
     apply_filter,
     apply_filter_u8,
@@ -58,18 +73,27 @@ class TrainedFilter:
     """Top-k orthonormal eigenvectors and eigenvalues of the balanced
     affinity matrix W. `eigvecs` rows are in packed [selected; rest] order
     when `perm` is set (perm[i] = flat pixel index of packed row i);
-    perm=None means pixel order."""
+    perm=None means pixel order. The u8 edits permute their channels on
+    the filter's device against `perm_index`, perm as int32 there
+    (`device_perm`); the float `apply` and `eigvecs_pixel_order` permute
+    on the host."""
 
     eigvecs: torch.Tensor  # (N, k), float32 (float64 on the float64 route)
     eigvals: torch.Tensor  # (k,), the same dtype
     nrows: int
     ncols: int
     perm: np.ndarray | None = None
-    # (packed u8 host copy, device tensor) of the TRAINING channel: the
-    # train->edit flow filters that very channel, so the u8 edit reuses the
-    # device buffer when the channel it is given equals the host copy.
-    # Never serialized; a transfer cache only.
+    # (pixel-order u8 host copy, packed device tensor) of the TRAINING
+    # channel: the train->edit flow filters that very channel, so the u8
+    # edit reuses the device buffer, and skips its upload and its gather,
+    # when the channel it is given equals the host copy. Never serialized;
+    # a transfer cache only.
     y_cache: tuple | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # `perm` as int32 on the filter's device: the index of the u8 edit's
+    # gather and scatter kernels, built at the first u8 edit (after
+    # training, so never alive at its peak). A transfer cache like y_cache.
+    perm_index: torch.Tensor | None = dataclasses.field(
         default=None, repr=False, compare=False)
 
     @property
@@ -78,15 +102,25 @@ class TrainedFilter:
 
     def nbytes(self) -> int:
         """Host and device bytes this filter holds: eigvecs (4k B/pixel)
-        and eigvals, perm, and the training-channel cache."""
+        and eigvals, perm and its device index, and the training-channel
+        cache. The index (4 B/pixel) counts before the first u8 edit builds
+        it, so a byte budget read before the edits holds it."""
         n = sum(t.numel() * t.element_size()
                 for t in (self.eigvecs, self.eigvals))
         if self.perm is not None:
-            n += self.perm.nbytes
+            n += self.perm.nbytes + 4 * self.perm.size
         if self.y_cache is not None:
-            packed_np, y_dev = self.y_cache
-            n += packed_np.nbytes + y_dev.numel() * y_dev.element_size()
+            flat_np, y_dev = self.y_cache
+            n += flat_np.nbytes + y_dev.numel() * y_dev.element_size()
         return int(n)
+
+    def device_perm(self) -> torch.Tensor:
+        """`perm` as the int32 index on the filter's device (built once)."""
+        idx = self.perm_index
+        if idx is None or idx.device != self.eigvecs.device:
+            idx = self.perm_index = device_index(self.perm,
+                                                 self.eigvecs.device)
+        return idx
 
     def eigvecs_pixel_order(self) -> np.ndarray:
         """Eigenvectors with rows in flat pixel order (host array)."""
@@ -109,14 +143,20 @@ class TrainedFilter:
 
     def to(self, device) -> "TrainedFilter":
         """This filter with its tensors on `device` (the training-channel
-        cache kept only where it already lies on `device`)."""
-        dev = resolve_device(device)
-        y_cache = self.y_cache
+        cache and the device index kept only where they already lie on
+        `device`)."""
+        eigvecs = self.eigvecs.to(resolve_device(device))
+        # Compared with a tensor's device, not the request: "cuda" names
+        # the device that tensors report as "cuda:0".
+        dev = eigvecs.device
+        y_cache, perm_index = self.y_cache, self.perm_index
         if y_cache is not None and y_cache[1].device != dev:
             y_cache = None
-        return dataclasses.replace(self, eigvecs=self.eigvecs.to(dev),
+        if perm_index is not None and perm_index.device != dev:
+            perm_index = None
+        return dataclasses.replace(self, eigvecs=eigvecs,
                                    eigvals=self.eigvals.to(dev),
-                                   y_cache=y_cache)
+                                   y_cache=y_cache, perm_index=perm_index)
 
     @classmethod
     def from_numpy(cls, arrays, device) -> "TrainedFilter":
@@ -183,11 +223,20 @@ def _root_span(method):
 
 
 def _scatter(packed: np.ndarray, perm: np.ndarray) -> np.ndarray:
-    """Packed rows back to pixel order: out[perm] = packed."""
+    """Packed rows back to pixel order on the host: out[perm] = packed."""
     with span("Scatter by perm"):
         out = np.empty_like(packed)
         out[perm] = packed
         return out
+
+
+def _unpermute_u8(t: TrainedFilter, packed: torch.Tensor,
+                  plain: bool) -> torch.Tensor:
+    """A u8 edit's packed device rows back to pixel order, on the device."""
+    if t.perm is None:
+        return packed
+    with span("Scatter by perm"):
+        return perm_scatter(packed, t.device_perm(), plain=plain)
 
 
 class NLEFilter:
@@ -265,10 +314,11 @@ class NLEFilter:
             return self._trained
         nrows, ncols = channel.shape
         grid = sample_grid(nrows, ncols, n_row_samples, n_col_samples)
-        packed_np, is_8bit = pack_channel(channel, grid.perm)
+        packed_np, flat_u8 = pack_channel(channel, grid.perm)
         packed_y = upload(packed_np, self.device)
         # Keep the uploaded u8 channel: the train->edit flow edits it.
-        self._packed_y_cache = (packed_np, packed_y) if is_8bit else None
+        self._packed_y_cache = (None if flat_u8 is None
+                                else (flat_u8, packed_y))
         out = train_filter(
             channel, n_row_samples, n_col_samples, hx, hy, n_sinkhorn_iter,
             n_eigen_vectors, device=self.device, grid=grid,
@@ -310,7 +360,7 @@ class NLEFilter:
         trained, edit = self._train(
             L, n_row_samples, n_col_samples, hx, hy, n_sinkhorn_iter,
             n_eigen_vectors, edit_weights=list(weights))
-        return self._recompose(lab, edit, trained.perm)
+        return self._recompose(lab, edit, trained, self._plain_edit(trained))
 
     def _bilateral_L(self, lab, sigma_color, sigma_space) -> np.ndarray:
         """The bilateral-filtered L plane (host u8), computed on the
@@ -362,6 +412,13 @@ class NLEFilter:
             out = _scatter(out, t.perm)
         return out.reshape(channel_np.shape)
 
+    def _plain_edit(self, t: TrainedFilter) -> bool:
+        """Whether the u8 edit permutes with the plain versions of the
+        kernels: on the routes that run no hand-written kernel
+        (use_kernels=False, and the float64 route, whose V is float64)."""
+        return (self._train_kwargs.get("use_kernels") is False
+                or t.eigvecs.dtype == torch.float64)
+
     def _apply_edit_u8(self, channels_u8: np.ndarray, scale_vals) -> np.ndarray:
         """Filter and clamp 8-bit channel(s), pixel order in and out: (H, W)
         or (H, W, C), all C channels through one application. The single
@@ -371,11 +428,10 @@ class NLEFilter:
             return t.apply_u8(channels_u8, scale_vals)
         shape = channels_u8.shape
         flat = channels_u8.reshape(t.n_pixels, -1)
-        if t.perm is not None:
-            with span("Gather by perm"):
-                flat = flat[t.perm]
-        # Reuse the training channel's device buffer only when this channel
-        # is that very channel (a content check, never object identity).
+        plain = self._plain_edit(t)
+        # Reuse the training channel's packed device buffer only when this
+        # channel is that very channel (a content check in pixel order,
+        # never object identity).
         y = None
         if (self._packed_y_cache is not None and flat.shape[1] == 1
                 and flat.dtype == np.uint8):
@@ -385,11 +441,12 @@ class NLEFilter:
         if y is None:
             y = upload(flat[:, 0] if flat.shape[1] == 1 else flat,
                        self.device)
+            if t.perm is not None:
+                with span("Gather by perm"):
+                    y = perm_gather(y, t.device_perm(), plain=plain)
         with stage("Fetch edit"):
-            out = Fetch(apply_filter_u8(t.eigvecs, scale_vals, y)).result()
-        out = out.reshape(flat.shape)
-        if t.perm is not None:
-            out = _scatter(out, t.perm)
+            out = apply_filter_u8(t.eigvecs, scale_vals, y)
+            out = Fetch(_unpermute_u8(t, out, plain)).result()
         return out.reshape(shape)
 
     @_root_span
@@ -426,14 +483,13 @@ class NLEFilter:
             return lab_to_bgr_u8_np(out)
 
     @staticmethod
-    def _recompose(lab, filtered_dev, perm) -> np.ndarray:
-        # The fetch waits for the edit (stage 2b, apply) and for nothing
-        # queued after it.
+    def _recompose(lab, filtered_dev, trained, plain) -> np.ndarray:
+        # The fetch waits for the edit (stage 2b, apply) and its scatter
+        # to pixel order, and for nothing queued after them.
         with stage("Fetch edit"):
-            filtered = Fetch(filtered_dev).result()
+            filtered = Fetch(_unpermute_u8(trained, filtered_dev,
+                                           plain)).result()
         with stage("Lab to BGR"):
-            if perm is not None:
-                filtered = _scatter(filtered, perm)
             out = lab.copy()
             out[..., 0] = filtered.reshape(lab.shape[:2])
             return lab_to_bgr_u8_np(out)

@@ -58,6 +58,8 @@ LAUNCHES = {
     "streaming_ap": 0,             # K10
     "streaming_atb": 0,            # K11
     "streaming_gram": 0,           # K12
+    "perm_gather_u8": 0,           # the edit's pixel order (no TPU kernel)
+    "perm_scatter_u8": 0,
 }
 
 # What the last build printed (ptxas registers/spills per kernel) and how
@@ -184,6 +186,7 @@ def _declare(lib) -> None:
         "nle_stream_atb": [p, p, p, p] + [i] * 8 + [f, f, p],
         "nle_stream_gram": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                             i, i, i, f, f, p],
+        "nle_permute_rows_u8": [p, p, p, i, i, i, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -214,16 +214,21 @@ def stage2b_factor_scaled(n: int, mb: int, dtype=torch.float32,
 
 def pack_channel(channel_np: np.ndarray, perm: np.ndarray):
     """Pack a channel into [selected; rest] order; returns (packed array,
-    is_8bit), the array uint8 when the values are integers in [0, 255].
-    The span "Pack channel"."""
+    flat_u8). When the values are integers in [0, 255], flat_u8 is the
+    channel in pixel order as a uint8 array of its own and the packed
+    array is gathered from it (uint8 too); else flat_u8 is None and the
+    packed array keeps the channel's dtype. The check is order-free, so it
+    runs in pixel order, before the gather. The span "Pack channel"."""
     with span("Pack channel"):
-        packed = channel_np.reshape(-1)[perm]
-        if packed.dtype == np.uint8:
-            return packed, True
-        if (packed.min() >= 0 and packed.max() <= 255
-                and np.array_equal(packed, np.rint(packed))):
-            return packed.astype(np.uint8), True
-        return packed, False
+        flat = np.asarray(channel_np).reshape(-1)
+        if flat.dtype == np.uint8:
+            flat_u8 = flat.copy()
+        elif (flat.min() >= 0 and flat.max() <= 255
+                and np.array_equal(flat, np.rint(flat))):
+            flat_u8 = flat.astype(np.uint8)
+        else:
+            return flat[perm], None
+        return flat_u8[perm], flat_u8
 
 
 def pack_stage1(Um64, lam64, mb: int | None = None) -> np.ndarray:

@@ -33,7 +33,10 @@ class SampleGrid:
       perm: (N,) int64 — flat pixel index of each packed position; packed
         order is [selected; rest], both row-major (src/filter.cpp:156-164).
         `pixel_array[perm] == packed_array` scatter / `packed = flat[perm]`
-        gather.
+        gather. A trained filter's u8 edits run that gather and scatter on
+        the device against perm as an int32 index
+        (models/filter.py TrainedFilter.device_perm,
+        ops/kernels/pixel_order_kernel.py).
     """
 
     nrows: int

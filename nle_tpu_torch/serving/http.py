@@ -772,9 +772,11 @@ class _Service:
             # the worker still holds it while training the REST of the
             # batch, and this request's apply queues on the same default
             # stream between those trainings (the stream orders it after
-            # its own filter's stage 2b). Memory-safe: the apply adds only
-            # the u8 channel in/out on top of a V that is resident either
-            # way.
+            # its own filter's stage 2b). Memory-safe: on top of a V that is
+            # resident either way, the apply adds a few bytes a pixel: the
+            # u8 channel in and out, the gather's and scatter's u8 buffers
+            # and the filter's int32 index of perm (4 B/pixel, built at its
+            # first edit and counted by its nbytes from the start).
             flt, lab = self.trainer.train_enhancement(img, params)
             f = NLEFilter(trained=flt, device=self.device)
             # Reuse the trainer's BGR->Lab conversion: converting again per

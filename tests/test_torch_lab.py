@@ -183,7 +183,9 @@ def test_y_cache_is_adopted_counted_and_not_compared():
     plain = TrainedFilter(t.eigvecs, t.eigvals, t.nrows, t.ncols,
                           perm=t.perm)
     assert plain == t                        # the cache is not compared
-    n = t.eigvecs.numel() * 4 + t.eigvals.numel() * 4 + t.perm.nbytes
+    # perm and the int32 index of the u8 edits (counted before it exists)
+    n = (t.eigvecs.numel() * 4 + t.eigvals.numel() * 4 + t.perm.nbytes
+         + 4 * t.n_pixels)
     assert plain.nbytes() == n
     assert t.nbytes() == n + 2 * t.n_pixels  # host u8 + device u8
     f2 = NLEFilter(device="cpu", factored=True)

@@ -711,7 +711,7 @@ def test_trained_filter_nbytes_accounting():
     n, k, p = 1000, 5, 16
     t = TrainedFilter(eigvecs=torch.zeros((n, k)), eigvals=torch.zeros(k),
                       nrows=25, ncols=40, perm=np.arange(n))
-    base = n * k * 4 + k * 4 + n * 8
+    base = n * k * 4 + k * 4 + n * 8 + n * 4     # perm and its int32 index
     assert t.nbytes() == base
     t.y_cache = (np.zeros(n, np.uint8), torch.zeros(n, dtype=torch.uint8))
     assert t.nbytes() == base + 2 * n
