@@ -10,8 +10,8 @@
    kernel's entry loop per entry (every needle of SASS_KEYS and CORE_KEYS
    must find its loop); K8's one-build kernel must hold one
    MUFU.EX2 per entry its row groups build (one barrier a group), and the
-   affinity core (csrc/affinity_core.cuh: K1, K2's contract, K12's phi
-   step) one per entry a column panel in its main loop, whose FFMA share
+   affinity core (csrc/affinity_core.cuh: K1, K2's contract, the fp32
+   K12's phi step) one per entry a column panel in its main loop, whose FFMA share
    it prints;
 3. checks each kernel against its plain PyTorch version on the card at the
    1 MP main path's shapes (real data: the rock2-parameter frame below),
@@ -25,12 +25,12 @@
    repeatable; K7 is held and timed on the 64-wide B the path passes (and
    beside the TPU's 128-lane B), and K6's plan and scratch bytes printed;
    the half-step (K8, and K9 in [9a]) and K3/K4/K14 must be bitwise
-   repeatable, K4 is timed beside torch.mv on the same factor; K12's Sb
-   must be bitwise symmetric and repeatable, the phi rows of its last
-   chunk bitwise K1's for the same pixels, and its phi step's main loop
-   must hold one MUFU.EX2 per entry it builds (each entry built once per
-   column panel: once at mpad 384); K1's builds an entry and MUFU.EX2 an
-   entry are read from a profiled call;
+   repeatable, K4 is timed beside torch.mv on the same factor; K12 (its
+   float64 form, the sample-basis gram H = (c K)^T (c K), the only K12 a
+   route runs) must be bitwise symmetric and repeatable, and within
+   GRAM64 of its plain version on the same fp32 entries, a bound that the
+   same H summed in fp32 must fail on the same operands; K1's builds an
+   entry and MUFU.EX2 an entry are read from a profiled call;
 4. runs a small frame on device="cuda" and device="cpu" (>= 45 dB between
    them) and twice on the card (bitwise equal), and edits on the card with
    the filter the CPU trained;
@@ -89,8 +89,8 @@
    timed, and their entry loops counted into K9's row; (b) NLEFilter(device="cuda") at 1 MP with
    40 30 500 10 50 50 (p = 1200): K1 at K2's contract, K3, K6, K7, its
    edit >= 45 dB from the assembled f32 route's (K4), and K1 held and
-   timed at p = 1200 (the K2 row), and K12's phi rows on the same pixels
-   and Uinv bitwise K1's; (c) train_filter(streaming=True), the
+   timed at p = 1200 (the K2 row), and K12 held at p = 1200 as in [3];
+   (c) train_filter(streaming=True), the
    default dense route (K3) and the f32 dense route (K4) on the 2000x2000
    frame with 48 44 500 10 50 50, whose rank is cut at eigenvalues of
    1e-10, and the streaming route's float64 plain twin on the same frame,
@@ -274,6 +274,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -301,12 +302,20 @@ GRAM_SUM_TOL = 2.5e-4
 # blocks differently. Rounding of such sums grows like sqrt(terms) u: a few
 # 1e-6 at most here. A dropped 32-row tile moves s by ~3e-5 of the sum.
 S_SUM_TOL = 1e-5
-# Tolerance of K12's Sb, relative to the gram of absolute terms. Its deepest
-# fp32 chains: a 2048-row split inside each chunk, then one add per 32,768-row
-# chunk (977 at 32 MP), then 16 split partials. The reference is float64, so
-# this bounds the kernel's own rounding (~sqrt(chain) u: a few 1e-6). A
-# dropped 16-row k-step moves a 1 MP gram by ~1.6e-5, a 64-row tile by ~6e-5.
-GRAM_STREAM_TOL = 1e-5
+# Tolerance of K12's H = (c K)^T (c K) against its plain version on the
+# same fp32 entries, relative to the gram of absolute terms, for Qpad rest
+# rows: each product of two entries is exact in float64 but for one
+# rounding, and each side sums an element's q products in float64 chains of
+# at most Qpad adds (the kernel: a row split's rows in order, then the
+# splits in order; the plain version: cuBLAS blocks and one add a chunk),
+# so each is within (Qpad + 1) 2^-53 of the exact sum and the two within
+# GRAM64 = 2 (Qpad + 1) 2^-53: 7e-9 at 32 MP. An H summed in fp32 is off by
+# its fp32 roundings, about 2^-24 = 6e-8 of an element at the least, and
+# fails it; a dropped 32-row step moves H by 1e-6 of its sum or more.
+def gram64(qpad: int) -> float:
+    return 2 * (qpad + 1) * 2.0 ** -53
+
+
 # [9c]: the streaming loop's c against its float64 twin's, median over the
 # rest pixels, at most the two-pass K9's reading on this frame
 # (tools/stream_precision.py, seed 9); the streaming edit against the
@@ -339,6 +348,9 @@ WIDE_MPAD = 2176
 # FLOP/s outside the tensor cores (TF32 is barred by the fidelity contract).
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+# float64 FLOP/s outside the tensor cores: K12's float64 form runs its
+# products there; bounds weigh them PEAK_FP32 / PEAK_FP64 fp32 operations.
+PEAK_FP64 = 34e12
 # fp32 operations of one affinity entry's argument: three differences, five
 # multiplies, two adds (the IEEE expf is not counted, so the bound is low).
 ENTRY_FLOPS = 10
@@ -567,7 +579,8 @@ def hold_streaming(torch, op, eps: float, label: str,
     if not torch.equal(x0, mask[0]):
         raise AssertionError(f"{ku} unit_x: x is not the mask")
     # A real half-step input: u = Uinv t for t = lam s0, s0 = phi^T 1.
-    u = pad(op.Uinv @ (op.lam * (op.Um.sum(dim=0) + op.Uinv.T @ ap0[:p])),
+    u = pad(op.Uinv @ (op.lam * (op.Um.sum(dim=0)
+                                 + op.Uinv.T @ ap0[:p].to(op.Uinv.dtype))),
             (0, ppad - p)).contiguous()
     xk, apk = streaming_halfstep(fa_rows, fb_cols, mask, u, sw, pw, eps)
     xk2, apk2 = streaming_halfstep(fa_rows, fb_cols, mask, u, sw, pw, eps)
@@ -613,59 +626,84 @@ def hold_streaming(torch, op, eps: float, label: str,
             - kref[:R], (2 * ppad + 4) * U * kref[3:3 + R])
     del ref, kref, xp, fa64, fb64
     c_row = xk[None].contiguous()               # zero on the pad rows
-    uinv_pad = pad(op.Uinv, (0, op.mpad - op.mb, 0, ppad - p)).contiguous()
     out["streaming_gram"] = hold_gram(torch, op, label, fa_rows, fb_cols,
-                                      c_row, uinv_pad)
+                                      c_row)
     timing = dict(fa_rows=fa_rows, fb_cols=fb_cols, mask=mask, u=u,
                   X=X[:1].contiguous(), b=B[:1].contiguous(),
                   X2=X[:2].contiguous(), b2=B[:2].contiguous(), c_row=c_row,
-                  uinv_pad=uinv_pad, q=q, qpad=qpad, ppad=ppad)
+                  q=q, qpad=qpad, ppad=ppad)
     return out, timing
 
 
-def hold_gram(torch, op, label: str, fa_rows, fb_cols, c_row, uinv_pad):
-    """K12 on the path's own operands: Sb against its float64 plain
-    version at GRAM_STREAM_TOL of the gram of absolute terms, bitwise
-    symmetric, two launches bitwise equal; the phi rows of its last chunk
-    bitwise K1's rows (affinity_matmul) for the same pixels. Returns
-    (max_abs_err, max err/bound)."""
-    from nle_tpu_torch.ops.kernels.affinity_kernel import (
-        affinity_matmul_kernel,
-    )
+def gram_fp32_sums(torch, fa_rows, fb_cols, c_row, sw, pw):
+    """K12's H on the plain version's fp32 entries, summed in fp32 (fp32
+    products a chunk, the chunks added in fp32): what the float64 form
+    replaced, to show that GRAM64 tells the two apart."""
     from nle_tpu_torch.ops.kernels.streaming_kernel import (
-        stream_gram_plan,
-        streaming_scaled_gram,
-        streaming_scaled_gram_plain,
+        _affinity_rows,
+        _chunks,
     )
 
-    f64 = torch.float64
-    sw, pw, p, q = op.sw, op.pw, op.p, op.n - op.p
-    qpad, ppad, mpad = fb_cols.shape[1], fa_rows.shape[1], uinv_pad.shape[1]
-    plan = stream_gram_plan(qpad, ppad, mpad)
-    gk, phi = streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw,
-                                    pw, keep_phi=True)
-    lo = qpad - plan.last
-    phi = phi[:max(q - lo, 0), :op.mb].clone()
-    gk2 = streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw)
-    if not torch.equal(gk, gk2):
+    ppad = fa_rows.shape[1]
+    H = fa_rows.new_zeros((ppad, ppad))
+    for lo, hi in _chunks(fa_rows, fb_cols):
+        ck = c_row[0, lo:hi, None] * _affinity_rows(fa_rows, fb_cols, lo, hi,
+                                                    sw, pw)
+        H += ck.T @ ck
+    return H
+
+
+def gram_bound(p: int, q: int, qpad: int, ppad: int) -> tuple:
+    """(bytes, fp32-rate operations) of K12's float64 form: the rest rows'
+    features and c, the samples' features, H written in float64; the
+    entries' arguments in fp32, their products with c and H's lower
+    triangle in float64, weighed at the fp32 over the float64 peak."""
+    f64_ops = q * p + q * p * (p + 1)
+    return (4 * (4 * qpad + 3 * ppad) + 8 * p * p,
+            ENTRY_FLOPS * q * p + f64_ops * PEAK_FP32 / PEAK_FP64)
+
+
+def hold_gram(torch, op, label: str, fa_rows, fb_cols, c_row):
+    """K12 (its float64 form, H = (c K)^T (c K), Sb = Uinv^T H Uinv by the
+    caller) on the path's own operands: bitwise symmetric, two launches
+    bitwise equal, and H within GRAM64 of the gram of absolute terms from
+    its plain version on the same fp32 entries, a bound that the same H
+    summed in fp32 (gram_fp32_sums) must fail. Returns (max_abs_err, max
+    err/bound) over the p samples' block."""
+    from nle_tpu_torch.ops.kernels.streaming_kernel import (
+        stream_sample_gram_plan,
+        streaming_sample_gram,
+        streaming_sample_gram_plain,
+    )
+
+    sw, pw, p = op.sw, op.pw, op.p
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    plan = stream_sample_gram_plan(qpad, ppad)
+    H = streaming_sample_gram(fa_rows, fb_cols, c_row, sw, pw)
+    H2 = streaming_sample_gram(fa_rows, fb_cols, c_row, sw, pw)
+    if not torch.equal(H, H2):
         raise AssertionError(f"{label} K12: two launches differ")
-    if not torch.equal(gk, gk.T):
-        raise AssertionError(f"{label} K12: Sb is not bitwise symmetric")
-    k1 = affinity_matmul_kernel(op.fa, op.fb[lo:], op.Uinv, sw, pw)
-    same = torch.equal(phi, k1)
-    print(f"  {label} K12: planned {plan.nchunks} chunks of {plan.chunk} "
-          f"rows, column panels {plan.panels}; "
-          f"Sb bitwise symmetric, two launches bitwise equal; the last "
-          f"chunk's {phi.shape[0]} phi rows bitwise K1's: {same}")
-    if not same:
-        raise AssertionError(f"{label} K12: phi rows differ from K1's")
-    del gk2, phi, k1
-    fa64, fb64 = fa_rows.to(f64), fb_cols.to(f64)
-    gref = streaming_scaled_gram_plain(fa64, fb64, c_row.to(f64),
-                                       uinv_pad.to(f64), sw, pw)
-    gabs = streaming_scaled_gram_plain(fa64, fb64, c_row.abs().to(f64),
-                                       uinv_pad.abs().to(f64), sw, pw)
-    return check(f"{label} K12 Sb", gk - gref, GRAM_STREAM_TOL * gabs)
+    if not torch.equal(H, H.T):
+        raise AssertionError(f"{label} K12: H is not bitwise symmetric")
+    del H2
+    print(f"  {label} K12: {plan.tiles} lower tiles x {plan.nsplit} row "
+          f"splits of {plan.split_rows} rows; H bitwise symmetric, two "
+          "launches bitwise equal")
+    ref = streaming_sample_gram_plain(fa_rows, fb_cols, c_row, sw, pw)
+    habs = (ref if bool((c_row >= 0).all()) else
+            streaming_sample_gram_plain(fa_rows, fb_cols, c_row.abs(), sw, pw))
+    ref, bound = ref[:p, :p], gram64(qpad) * habs[:p, :p]
+    del habs
+    h32 = gram_fp32_sums(torch, fa_rows, fb_cols, c_row, sw, pw)[:p, :p]
+    live = bound > 0
+    r32 = float(((h32.double() - ref).abs()[live] / bound[live]).max())
+    print(f"  {label} K12: H summed in fp32 reads {r32:.4g} of GRAM64 "
+          f"({gram64(qpad):.3g} of the gram of absolute terms)")
+    if not r32 > 1.0:
+        raise AssertionError(f"{label} K12: H summed in fp32 is within "
+                             "GRAM64: the bound does not tell float64 sums")
+    del h32
+    return check(f"{label} K12 H", H[:p, :p] - ref, bound)
 
 
 # K9's two passes: past the one-build kernel's Ppad 4096 the wrapper runs
@@ -886,74 +924,44 @@ def kernel_grids(prof, needles) -> list:
     return [(name, grid) for _, name, grid in sorted(found)]
 
 
-# K12's launches in a profile: its phi step (one launch of the affinity
-# core, affinity_panel_kernel<TN>, for each panel width a
-# chunk takes, grid (chunk rows / rows, panels)) and the in-order add that
-# closes each chunk. K1's launches are the core's alone (CORE_TRACE).
+# K1's launches in a profile: one launch of the affinity core,
+# affinity_panel_kernel<TN>, for each panel width the call takes, grid
+# (rows / rows a block, panels).
 CORE_TRACE = ("affinity_panel_kernel",)
-K12_TRACE = CORE_TRACE + ("gram_chunk_add_kernel",)
 
 
-def phi_builds(grids) -> list:
-    """K12's phi step per chunk from a profile's K12_TRACE launches: for
-    each chunk (closed by its gram_chunk_add_kernel launch), [(TN, blocks
-    down the rows, column panels)] of its affinity core launches. A
-    block builds each entry of its rows once for every panel of its grid,
-    so the panels of a chunk's launches summed are its builds an entry.
-    Without chunk adds (K1's profile) the launches are one chunk."""
-    import re
-
-    chunks, cur = [], []
-    for name, (gx, gy, _) in grids:
-        if "gram_chunk_add_kernel" in name:
-            chunks.append(cur)
-            cur = []
-        else:
-            cur.append((int(re.search(r"affinity_panel_kernel<(\d+)>",
-                                      name).group(1)), gx, gy))
-    if cur and not chunks and not any("gram_chunk_add" in n for n, _ in
-                                      grids):
-        chunks, cur = [cur], []
-    if cur or not chunks or not all(chunks):
-        raise AssertionError(f"K12's trace is not phi launches closed by "
-                             f"chunk adds: {grids}")
-    return chunks
-
-
-def phi_expf(chunks, ex2_build: dict) -> tuple:
-    """(builds an entry, MUFU.EX2 an entry) of K12's phi step (or K1), the
-    most over the chunks: each launch's panels times the MUFU.EX2 its
-    instantiation's SASS issues for one build (ex2_build, by TN; the EX2
-    count is None without cuobjdump). A launch's blocks must cover the same
-    rows as the chunk's other launches."""
-    builds, ex2 = 0, 0.0
-    for chunk in chunks:
-        if len({gx for _, gx, _ in chunk}) != 1:
-            raise AssertionError(f"K12's phi launches of one chunk cover "
-                                 f"different rows: {chunk}")
-        builds = max(builds, sum(gy for _, _, gy in chunk))
-        if ex2 is not None and all(tn in ex2_build for tn, _, _ in chunk):
-            ex2 = max(ex2, sum(gy * ex2_build[tn] for tn, _, gy in chunk))
-        else:
-            ex2 = None
+def core_builds(grids, ex2_build: dict) -> tuple:
+    """(builds an entry, MUFU.EX2 an entry) of K1 from its profiled
+    launches [(name, grid)]: a block builds each entry of its rows once
+    for every panel of its grid, so the launches' panels summed are the
+    builds an entry, each times the MUFU.EX2 its instantiation's SASS
+    issues for one build (ex2_build, by TN; the EX2 count is None without
+    cuobjdump). Every launch must cover the same rows."""
+    launches = [(int(re.search(r"affinity_panel_kernel<(\d+)>",
+                               name).group(1)), gx, gy)
+                for name, (gx, gy, _) in grids]
+    if not launches or len({gx for _, gx, _ in launches}) != 1:
+        raise AssertionError(f"K1's core launches cover different rows or "
+                             f"none: {grids}")
+    builds = sum(gy for _, _, gy in launches)
+    ex2 = (sum(gy * ex2_build[tn] for tn, _, gy in launches)
+           if all(tn in ex2_build for tn, _, _ in launches) else None)
     return builds, ex2
 
 
-def k12_expf(row: dict, suffix: str, chunks, ex2_build: dict, mpad: int,
-             where: str) -> None:
-    """Put K12's (or K1's) measured builds an entry and MUFU.EX2 an entry
-    (phi_expf)
-    into its kernels-line row under expf_per_entry + suffix; fail where
-    Mpad fits one panel (AFF_PANEL_COLS) and an entry was built more than
-    once a chunk, or where a build issued other than one MUFU.EX2."""
+def core_expf(row: dict, grids, ex2_build: dict, mpad: int,
+              where: str) -> None:
+    """Put K1's measured builds an entry and MUFU.EX2 an entry
+    (core_builds) into its kernels-line row; fail where Mpad fits one
+    panel (AFF_PANEL_COLS) and an entry was built more than once, or where
+    a build issued other than one MUFU.EX2."""
     from nle_tpu_torch.ops.kernels.affinity_kernel import AFF_PANEL_COLS
 
-    builds, ex2 = phi_expf(chunks, ex2_build)
-    row["builds_per_entry" + suffix] = builds
-    row["expf_per_entry" + suffix] = ex2
-    print(f"  {row['name']} in {where}: {len(chunks)} chunk(s), {builds} "
-          f"build(s) of "
-          f"each entry a chunk at mpad {mpad}, "
+    builds, ex2 = core_builds(grids, ex2_build)
+    row["builds_per_entry"] = builds
+    row["expf_per_entry"] = ex2
+    print(f"  {row['name']} in {where}: {builds} build(s) of each entry at "
+          f"mpad {mpad}, "
           f"{'not measured (no cuobjdump)' if ex2 is None else ex2} "
           "MUFU.EX2 an entry")
     if mpad <= AFF_PANEL_COLS and builds != 1:
@@ -1056,7 +1064,7 @@ def recompose(lab, edit_packed, perm):
 # 4 rows x 5 columns a thread, AP_TILES), K11 (R = 1: 16 samples x 4 rows
 # a thread, AT_TILES) and the two-pass K9's first pass (K11's kernel with
 # the reciprocal; its second pass is K10's); and the affinity core (K1,
-# K2's contract, K12's phi step) in its three column-panel widths (8 x TN
+# K2's contract, the fp32 K12's phi step) in its three column-panel widths (8 x TN
 # outputs a thread, TN = 12, 8, 4), whose main loop builds AFF_BUILD
 # entries a thread a step, one MUFU.EX2 each.
 SASS_KEYS = ("stream_halfstep_kernelILi4ELi4E",
@@ -1237,15 +1245,18 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
     if not np.array_equal(cold, warm):
         raise AssertionError(f"{tag}: cold and warm runs differ")
     del f, cold
-    kernels, k12_grids = profile_call(
+    kernels, _ = profile_call(
         torch, f"  profiled warm {mp:.0f} MP train_and_enhance",
         lambda: NLEFilter(device="cuda", factored=True).train_and_enhance(
-            big, *args, weights=WEIGHTS), mp, needles=K12_TRACE)
-    # K12's phi step as this run launched it: the panels of each chunk.
-    phi_chunks = phi_builds(k12_grids)
-    print(f"  K12's phi step: {len(phi_chunks)} chunk(s), launches (TN, "
-          f"blocks, panels) {phi_chunks[0]} a chunk; "
-          f"{phi_expf(phi_chunks, {})[0]} build(s) an entry")
+            big, *args, weights=WEIGHTS), mp)
+    # K12 once a train, in its float64 form (its tiles, then their reduce).
+    grams = {k: sum(n for _, n, name in kernels
+                    if re.search(rf"\b{k}\b", name))
+             for k in ("stream_sample_gram_kernel",
+                       "stream_sample_gram_reduce_kernel")}
+    print(f"  K12's kernels in the profiled call: {grams}")
+    if set(grams.values()) != {1}:
+        raise AssertionError(f"{tag}: K12's float64 form launched {grams}")
     # One entry-building launch per half-step: K8's one-build kernel once
     # for each of the 2 x iters half-steps (K9 included), each followed by
     # the fixed-order reduction of its partials, and no two-pass K9 (K11's
@@ -1280,7 +1291,7 @@ def capacity_path(torch, NLEFilter, _build, tag: str, shape, args,
     del L
     errs, timing = hold_streaming(torch, op, 1e-10, f"{mp:.0f} MP")
     timing.update(p=op.p, mb=op.mb, mpad=op.mpad, sw=op.sw, pw=op.pw,
-                  phi_chunks=phi_chunks, profiled=profiled, edit=warm,
+                  profiled=profiled, edit=warm,
                   peak_bytes=peak - before)
     del op
     torch.cuda.synchronize()
@@ -1326,11 +1337,8 @@ def cross_paths(torch, NLEFilter, _build, img, dense_out) -> dict:
     # K8 and K12 on this frame's own operands, held to float64.
     op = path_operands(torch, L, MAIN_ARGS, torch.device("cuda"))
     _, t = hold_streaming(torch, op, 1e-10, "[8c] 4 MP", halfstep_only=True)
-    pad = torch.nn.functional.pad
     hold_gram(torch, op, "[8c] 4 MP", t["fa_rows"], t["fb_cols"],
-              t["x"][None].contiguous(), pad(op.Uinv, (
-                  0, op.mpad - op.mb, 0, t["fa_rows"].shape[1] - op.p))
-              .contiguous())
+              t["x"][None].contiguous())
     del op, t
     torch.cuda.empty_cache()
     return counts["streaming"]
@@ -3826,8 +3834,8 @@ def main() -> int:
         streaming_halfstep,
         streaming_halfstep_plain,
         streaming_halfstep_ptiled_plain,
-        streaming_scaled_gram,
-        streaming_scaled_gram_plain,
+        streaming_sample_gram,
+        streaming_sample_gram_plain,
         streaming_sinkhorn_vectors,
     )
     from nle_tpu_torch.tools.stream_precision import streaming_edit_f64
@@ -3873,8 +3881,8 @@ def main() -> int:
         tn = int(key.split("ILi")[1].split("E")[0])
         ex2_build[tn] = nexp / AFF_BUILD
         core_sass[tn] = (ninst, nffma)
-        print(f"  sass: {key} (the affinity core: K1, K2's contract, K12's "
-              f"phi step) main loop {ninst} instructions, {nffma} FFMA "
+        print(f"  sass: {key} (the affinity core: K1, K2's contract, the "
+              f"fp32 K12's phi step) main loop {ninst} instructions, {nffma} FFMA "
               f"({nffma / ninst:.3f} of them), {nbar} barrier a step; "
               f"{nexp} MUFU.EX2 for the {AFF_BUILD} entries a thread builds "
               f"a step = {nexp / AFF_BUILD:.2f} per entry a panel")
@@ -3950,12 +3958,12 @@ def main() -> int:
         return rows[-1]
 
     def k1_core(row, fn, mpad_, where):
-        """K1's builds an entry and MUFU.EX2 an entry, measured as for
-        K12 (the launch grids of one profiled call times the SASS's
-        MUFU.EX2 a build), and the core's main-loop FFMA share (TN = 12,
-        the full panel's instantiation)."""
-        k12_expf(row, "", phi_builds(profile_grids(torch, fn, CORE_TRACE)),
-                 ex2_build, mpad_, where)
+        """K1's builds an entry and MUFU.EX2 an entry (the launch grids of
+        one profiled call times the SASS's MUFU.EX2 a build), and the
+        core's main-loop FFMA share (TN = 12, the full panel's
+        instantiation)."""
+        core_expf(row, profile_grids(torch, fn, CORE_TRACE), ex2_build,
+                  mpad_, where)
         if 12 in core_sass:
             ninst, nffma = core_sass[12]
             row["core_main_loop_sass"] = ninst
@@ -4044,7 +4052,7 @@ def main() -> int:
     # against the p samples, R = 1 row for the timed K10/K11 calls.
     errs, t = hold_streaming(torch, op, eps, "1 MP")
     fa_rows, fb_cols, mask, u = t["fa_rows"], t["fb_cols"], t["mask"], t["u"]
-    X, b, c_row, uinv_pad = t["X"], t["b"], t["c_row"], t["uinv_pad"]
+    X, b, c_row = t["X"], t["b"], t["c_row"]
     qpad, ppad = t["qpad"], t["ppad"]
     unit_ms = cuda_ms(torch, lambda: streaming_halfstep(
         fa_rows, fb_cols, mask, u, sw, pw, eps, unit_x=True), reps=10)
@@ -4099,19 +4107,12 @@ def main() -> int:
     record("streaming_gram", "nle_tpu_torch/csrc/streaming.cu",
            "nle_tpu/ops/pallas/streaming_kernel.py:453",
            errs["streaming_gram"],
-           cuda_ms(torch, lambda: streaming_scaled_gram(
-               fa_rows, fb_cols, c_row, uinv_pad, sw, pw)),
-           cuda_ms(torch, lambda: streaming_scaled_gram_plain(
-               fa_rows, fb_cols, c_row, uinv_pad, sw, pw)),
-           4 * (4 * qpad + 3 * ppad + ppad * mpad + mpad * mpad),
-           2 * entries * mb + ENTRY_FLOPS * entries + nb * mb * (mb + 1))
-    # Builds of each affinity entry a chunk, and MUFU.EX2 an entry, as one
-    # profiled call launched the phi step.
-    k12_expf(rows[-1], "", phi_builds(profile_grids(
-        torch, lambda: streaming_scaled_gram(fa_rows, fb_cols, c_row,
-                                             uinv_pad, sw, pw),
-        K12_TRACE)), ex2_build, mpad, "[3] 1 MP")
-    del fa_rows, fb_cols, mask, u, X, b, X2, b2, c_row, uinv_pad, t, op
+           cuda_ms(torch, lambda: streaming_sample_gram(
+               fa_rows, fb_cols, c_row, sw, pw)),
+           cuda_ms(torch, lambda: streaming_sample_gram_plain(
+               fa_rows, fb_cols, c_row, sw, pw)),
+           *gram_bound(p, nb, qpad, ppad))
+    del fa_rows, fb_cols, mask, u, X, b, X2, b2, c_row, t, op
     torch.cuda.empty_cache()
 
     # -- [4] small frame: card against CPU, and repeatability ------------
@@ -4236,20 +4237,17 @@ def main() -> int:
               f"{row['launches_profiled_32mp']}")
     # K12 at 32 MP, once a train.
     k12 = next(r for r in rows if r["name"] == "streaming_gram")
-    c_row, uinv_pad, mb7, mpad7 = t["c_row"], t["uinv_pad"], t["mb"], t["mpad"]
-    k12["ms_32mp"] = cuda_ms(torch, lambda: streaming_scaled_gram(
-        fa_rows, fb_cols, c_row, uinv_pad, sw7, pw7), reps=1)
-    k12["plain_ms_32mp"] = cuda_ms(torch, lambda: streaming_scaled_gram_plain(
-        fa_rows, fb_cols, c_row, uinv_pad, sw7, pw7), reps=1)
+    c_row = t["c_row"]
+    k12["ms_32mp"] = cuda_ms(torch, lambda: streaming_sample_gram(
+        fa_rows, fb_cols, c_row, sw7, pw7), reps=1)
+    k12["plain_ms_32mp"] = cuda_ms(torch, lambda: streaming_sample_gram_plain(
+        fa_rows, fb_cols, c_row, sw7, pw7), reps=1)
     k12["bound_ms_32mp"], k12["bound_by_32mp"] = bound_ms(
-        4 * (4 * qpad + 3 * ppad + ppad * mpad7 + mpad7 * mpad7),
-        2 * entries * mb7 + ENTRY_FLOPS * entries + t["q"] * mb7 * (mb7 + 1))
-    print(f"[7] K12 at 32 MP (mpad={mpad7}): kernel {k12['ms_32mp']:.3f} ms, "
+        *gram_bound(t["p"], t["q"], qpad, ppad))
+    print(f"[7] K12 at 32 MP (Ppad={ppad}): kernel {k12['ms_32mp']:.3f} ms, "
           f"plain {k12['plain_ms_32mp']:.3f} ms, bound "
           f"{k12['bound_ms_32mp']:.4f} ms ({k12['bound_by_32mp']})")
-    k12_expf(k12, "_32mp", t["phi_chunks"], ex2_build, mpad7,
-             "[7] the profiled 32 MP call")
-    del t, fa_rows, fb_cols, mask, u, c_row, uinv_pad, X7, b7
+    del t, fa_rows, fb_cols, mask, u, c_row, X7, b7
     torch.cuda.empty_cache()
     stream_counts = cross_paths(torch, NLEFilter, _build, img, warm)
     near_threshold(torch, NLEFilter, _build)
@@ -4298,20 +4296,17 @@ def main() -> int:
            sass_key="stream_atb_kernelILi1ELb0E", entries=entries,
            launch=(grid_launch, "streaming_atb"))
     rows[-1]["launches_profiled"] = t["profiled"]["streaming_atb"]
-    c_row, uinv_pad, mbg, mpg = t["c_row"], t["uinv_pad"], t["mb"], t["mpad"]
+    c_row = t["c_row"]
     record(f"streaming_gram@ppad{ppad}", "nle_tpu_torch/csrc/streaming.cu",
            "nle_tpu/ops/pallas/streaming_kernel.py:453",
            grid_errs["streaming_gram"],
-           cuda_ms(torch, lambda: streaming_scaled_gram(
-               fa_rows, fb_cols, c_row, uinv_pad, sw, pw), reps=1),
-           cuda_ms(torch, lambda: streaming_scaled_gram_plain(
-               fa_rows, fb_cols, c_row, uinv_pad, sw, pw), reps=1),
-           4 * (4 * qpad + 3 * ppad + ppad * mpg + mpg * mpg),
-           2 * entries * mbg + ENTRY_FLOPS * entries + qg * mbg * (mbg + 1),
+           cuda_ms(torch, lambda: streaming_sample_gram(
+               fa_rows, fb_cols, c_row, sw, pw), reps=1),
+           cuda_ms(torch, lambda: streaming_sample_gram_plain(
+               fa_rows, fb_cols, c_row, sw, pw), reps=1),
+           *gram_bound(pg, qg, qpad, ppad),
            launch=(grid_launch, "streaming_gram"))
-    k12_expf(rows[-1], "", t["phi_chunks"], ex2_build, mpg,
-             "[9a] the profiled 16 MP call")
-    del t, fa_rows, fb_cols, mask, u, Xg, bg, c_row, uinv_pad
+    del t, fa_rows, fb_cols, mask, u, Xg, bg, c_row
     torch.cuda.empty_cache()
 
     # [9b] the dense route past p = 1024 at 1 MP: K1 at K2's contract.
@@ -4382,14 +4377,11 @@ def main() -> int:
            2 * nb1 * op.p * op.mb + ENTRY_FLOPS * nb1 * op.p,
            launch=("dense_p1200_1mp", "affinity_matmul"))
     rows[-1].update(k2_core)
-    # K12's phi rows on the same pixels and Uinv are K1's bits (one core).
+    # K12 at p = 1200 on the same pixels (c = the mask).
     from nle_tpu_torch.ops.kernels.streaming_kernel import pad_stream_operands
     fa_r, fb_c, mask1 = pad_stream_operands(op.fa, op.fb)
-    uinv1 = torch.nn.functional.pad(op.Uinv, (0, op.mpad - op.mb, 0,
-                                              fa_r.shape[1] - op.p))
-    hold_gram(torch, op, "[9b] p = 1200", fa_r, fb_c, mask1,
-              uinv1.contiguous())
-    del op, out, fa_r, fb_c, mask1, uinv1
+    hold_gram(torch, op, "[9b] p = 1200", fa_r, fb_c, mask1)
+    del op, out, fa_r, fb_c, mask1
     torch.cuda.empty_cache()
 
     # [9c] streaming vs dense at p = 2112, the rank cut at eigenvalues of

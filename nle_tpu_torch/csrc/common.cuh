@@ -73,6 +73,14 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                : "memory");
 }
 
+// 8 bytes from global to shared with cp.async (through L1): a double.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -40,30 +40,40 @@
 // entry twice: pass 1 is K11's kernel with b = u and x = mask *
 // safe_recip(w) as its epilogue, pass 2 is K10 on that x.
 //
-// Cross-block sums (K8's, K9's and K10's ap, K12's Sb) never use float atomics:
-// a bounded number of blocks each own a fixed contiguous row range and
-// write a partial, and a second kernel sums the partials in block order
-// (K12: K6's row splits of each chunk, then the chunks in order), so
-// training stays bitwise repeatable. The TPU carries these sums across its
-// sequential grid in VMEM, which CUDA blocks cannot do.
+// Cross-block sums (K8's, K9's and K10's ap, K12's Sb and H) never use
+// float atomics: a bounded number of blocks each own a fixed contiguous row
+// range and write a partial, and a second kernel sums the partials in
+// block order (K12's fp32 form: K6's row splits of each chunk, then the
+// chunks in order), so training stays bitwise repeatable. The TPU carries
+// these sums across its sequential grid in VMEM, which CUDA blocks cannot
+// do.
 //
-// K12 per row chunk (streaming_kernel.stream_gram_plan): the chunk's phi
-// rows into a scratch by the affinity core K1 runs on (csrc/
+// K12's fp32 form per row chunk (streaming_kernel.stream_gram_plan; the
+// port of nle_tpu's streaming_scaled_gram, off the training path): the
+// chunk's phi rows into a scratch by the affinity core K1 runs on (csrc/
 // affinity_core.cuh: each entry built once per column panel of up to 384
 // columns, once at the capacity paths' mpad 384, and multiplied by an
 // 8 x 12-a-thread fp32 core fed by a cp.async ring of Uinv slabs); then
 // K6's lower-triangle gram of diag(c) phi over its planned splits
 // (csrc/scaled_matmul.cu), mirrored; then that chunk's gram added into Sb
-// with compensation.
+// with compensation (nle::kahan_add). The training routes take K12's
+// float64 form, stream_sample_gram_kernel below.
 //
-// Long fp32 chains are compensated (nle::kahan_add): the sums over rows
-// (K8's and K10's 32-row chains, every kernel's block partials) and over
-// samples (K8's sum of w over 256-sample segments, the two-pass K9's pass
-// 1, K11). The streaming route turns ap into
-// u = Uinv (lambda * Uinv^T ap) with eigenvalues down to 1e-10, so a
-// chain's rounding reaches the Sinkhorn vectors amplified: plain chains
-// put the card's c 3x further from float64 than the plain version's cuBLAS
-// sums do, compensated ones 5.6x closer (PERF.md).
+// Every sum over pixels or samples of K8, K9, K10, K11 and K12's float64
+// form is float64, on fp32 entries widened exactly where they are used:
+// K8's u and K11's b come in float64, w = K u (K b) is summed in float64
+// and rounded once (x = 1/w rounded once to fp32), and ap is summed,
+// written as block partials and reduced in float64. The streaming route
+// turns ap into u = Uinv (lambda * Uinv^T ap) with eigenvalues down to
+// 1e-10, and the factored apply multiplies ap by W = Uinv GrT, so the
+// rounding of these sums reaches the small eigenpairs amplified. Their
+// earlier fp32 sums, compensated, left the Sinkhorn's r and c at the
+// sampled rows proportional (the converged r = t c) only to ~1e-5 (the
+// rounding of u, of w's terms and of ap, fresh at every half-step), which
+// lifted Wa's eigenvalues near eps = 1e-10 over it, and lost Sb's and the
+// apply's small directions; in float64 r and c stay proportional to ~1e-9
+// and the factored edit follows the float64 reference (PERF.md: the kept
+// rank of the factored route).
 
 #include "common.cuh"
 
@@ -126,15 +136,15 @@ __device__ __forceinline__ void load_rows(const float* src, float (&v)[G]) {
 // chunks in shared memory with cp.async, two chunks ahead (one barrier a
 // chunk); every warp reads G rows of each array as one broadcast load, so
 // a row's loads are shared by its C entries a thread and no device load
-// sits in the entry loop. Each column sums its rows in increasing order,
-// two-level: a 32-row chunk as one fp32 fmaf chain, each chain added into
-// the block's sum with compensation (kahan_add): a block owns ~4,000 rows
-// at 4 MP and ~30,000 at 32 MP, and the streaming route divides ap's
-// rounding by eigenvalues down to 1e-10 (PERF.md). Rows whose x entries
-// are zero (the pad rows) add exact zeros (fmaf(0, a, s) is s: a is finite
-// and a chain never holds -0), so the sums are bitwise those of a loop that
-// skips them, and a column's sum depends on neither the tiling of the
-// samples nor the plan's C and G.
+// sits in the entry loop. Each column sums its rows in increasing order in
+// float64 (the fp32 entry and x widened exactly): a block owns ~4,000 rows
+// at 4 MP and ~30,000 at 32 MP, and the factored route multiplies ap by
+// W = Uinv GrT, whose columns carry 1/lambda down to eigenvalues of 1e-10
+// and cancel (PERF.md). Rows whose x entries are zero (the pad rows) add
+// exact zeros (fma(0, a, s) is s: a is finite and a sum never holds -0),
+// so the sums are bitwise those of a loop that skips them, and a column's
+// sum depends on neither the tiling of the samples nor the plan's C and
+// G. The block partials are float64 and reduced in float64.
 constexpr int AP_RING = 3;
 
 // The instantiations K10's kernel has, one per R: (R, C columns a thread,
@@ -158,7 +168,7 @@ AP_TILES(AP_TILE_BOUND)
 template <int R>
 __global__ void __launch_bounds__(ApTile<R>::kMaxThreads)
     stream_ap_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
-                     const float* __restrict__ X, float* __restrict__ partial,
+                     const float* __restrict__ X, double* __restrict__ partial,
                      int qpad, int ppad, int ptile, int per_block, float sw,
                      float pw) {
   constexpr int C = ApTile<R>::kCols;
@@ -172,7 +182,7 @@ __global__ void __launch_bounds__(ApTile<R>::kMaxThreads)
   const int j0 = blockIdx.y * ptile;
   const int jend = min(j0 + ptile, ppad);
   float sr[C], sc[C], sy[C];
-  float acc[R][C], comp[R][C];
+  double acc[R][C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int j = j0 + tid * C + c;
@@ -181,7 +191,7 @@ __global__ void __launch_bounds__(ApTile<R>::kMaxThreads)
     sc[c] = in ? fa[ppad + j] : 0.0f;
     sy[c] = in ? fa[2 * ppad + j] : 0.0f;
 #pragma unroll
-    for (int k = 0; k < R; ++k) acc[k][c] = comp[k][c] = 0.0f;
+    for (int k = 0; k < R; ++k) acc[k][c] = 0.0;
   }
   const int rbeg = blockIdx.x * per_block;
   // Whole chunks: qpad and per_block are multiples of ST_ROW_GRAIN.
@@ -214,11 +224,6 @@ __global__ void __launch_bounds__(ApTile<R>::kMaxThreads)
       nle::cp_async_commit();
     }
     const float* rows = ring + (k % AP_RING) * kChunk;
-    float part[R][C];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c) part[r][c] = 0.0f;
 #pragma unroll 1
     for (int i = 0; i < ST_ROW_GRAIN; i += G) {
       float br[G], bc[G], by[G], xv[R][G];
@@ -229,27 +234,26 @@ __global__ void __launch_bounds__(ApTile<R>::kMaxThreads)
       for (int r = 0; r < R; ++r) load_rows<G>(rows + (3 + r) * ST_ROW_GRAIN + i, xv[r]);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
+        double xd[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) xd[r] = static_cast<double>(xv[r][g]);
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const float a =
-              nle::affinity(br[g], bc[g], by[g], sr[c], sc[c], sy[c], sw, pw);
+          const double a = static_cast<double>(
+              nle::affinity(br[g], bc[g], by[g], sr[c], sc[c], sy[c], sw, pw));
 #pragma unroll
-          for (int r = 0; r < R; ++r) part[r][c] = fmaf(xv[r][g], a, part[r][c]);
+          for (int r = 0; r < R; ++r) acc[r][c] = fma(xd[r], a, acc[r][c]);
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c) nle::kahan_add(acc[r][c], comp[r][c], part[r][c]);
   }
-  float* dst = partial + static_cast<size_t>(blockIdx.x) * R * ppad;
+  double* dst = partial + static_cast<size_t>(blockIdx.x) * R * ppad;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int j = j0 + tid * C + c;
     if (j < jend) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) dst[r * ppad + j] = __fsub_rn(acc[r][c], comp[r][c]);
+      for (int r = 0; r < R; ++r) dst[r * ppad + j] = acc[r][c];
     }
   }
 }
@@ -265,53 +269,56 @@ __global__ void __launch_bounds__(ApTile<R>::kMaxThreads)
 //      once (warp_rows_sum); one lane per row writes the warp's sum to
 //      ws[buf][g][warp];
 //   3. one barrier; then lane g of the finalizing warp adds row g's
-//      HS_SEGMENT-sample segments in sample order with compensation
-//      (kahan_add: u carries 1/lambda up to 1e10 and w cancels) and
-//      writes x = mask * safe_recip(w) to xs[buf] and to x;
+//      HS_SEGMENT-sample segments in sample order (float64: u carries
+//      1/lambda up to 1e10 and w cancels) and writes x = mask *
+//      safe_recip(w), rounded once to fp32, to xs[buf] and to x;
 //   4. the entries of the previous group, still in registers, take their
-//      x (written before this step's barrier) into ap's column chains.
+//      x (written before this step's barrier) into ap's float64 column
+//      sums.
 // The x of a group is read one step after it is formed and the shared
 // buffers alternate, so one barrier a group suffices and no entry is ever
 // stored. The pixel rows' features and mask are staged in shared memory
 // two chunks ahead by the finalizing warp (a three-chunk ring; every warp
 // reads a row as one broadcast), so no step waits on device memory. ap is
-// two-level as in K10: a chain per chunk, added into the block's sum with
-// compensation, written as the block's partial. The plan (threads, C, G,
+// each column's float64 sum over the block's rows in increasing order,
+// written as the block's float64 partial. The plan (threads, C, G,
 // blocks, rows a block, shared bytes) is streaming_kernel.halfstep_plan, a
 // function of (qpad, ppad) alone.
 //
-// w's order of adds is one fixed tree over the sample index j, whatever
-// the plan (C, G, threads) and the padding: pairs of consecutive samples
-// fmaf(K[2k+1], u[2k+1], K[2k] u[2k]), then aligned pairs of nodes up to
-// HS_SEGMENT samples (within a thread, across the warp's lanes, across
-// the segment's warps; float adds commute, so which side holds a node
-// does not matter), then the segments in increasing order with
-// compensation. Pad samples (u = 0) add exact zeros to their segment and
-// make all-pad segments zero, which kahan_add skips: x, and with it ap,
-// is bitwise the same at every Ppad and every plan.
-constexpr int HS_SUM_ROWS = 32;   // rows of a chunk: one fp32 chain of ap
+// w's order of adds is one fixed float64 tree over the sample index j,
+// whatever the plan (C, G, threads) and the padding: pairs of consecutive
+// samples fma(K[2k+1], u[2k+1], K[2k] u[2k]), then aligned pairs of nodes
+// up to HS_SEGMENT samples (within a thread, across the warp's lanes,
+// across the segment's warps; adds commute, so which side holds a node
+// does not matter), then the segments in increasing order. Pad samples
+// (u = 0) add exact zeros to their segment and make all-pad segments
+// zero, which add nothing: x, and with it ap, is bitwise the same at every
+// Ppad and every plan.
+constexpr int HS_SUM_ROWS = 32;   // rows of a chunk of the ring
 constexpr int HS_RING = 3;        // chunks of staged pixel rows
-constexpr int HS_SEGMENT = 256;   // samples of w's tree below the Kahan sum
+constexpr int HS_SEGMENT = 256;   // samples of w's tree below the segment sum
 
 __host__ __device__ constexpr int hs_log2(int g) {
   return g <= 1 ? 0 : 1 + hs_log2(g / 2);
 }
 
 // The thread's part of w's tree: its C consecutive columns (an aligned
-// subtree, C a power of two) in pairs, then pairwise.
+// subtree, C a power of two) in pairs, then pairwise, in float64 on the
+// fp32 entries (each widened once, exactly).
 template <int C>
-__device__ __forceinline__ float cols_sum(const float (&e)[C],
-                                          const float (&u)[C]) {
+__device__ __forceinline__ double cols_sum(const float (&e)[C],
+                                           const double (&u)[C]) {
   static_assert(C >= 2 && C == 1 << hs_log2(C), "C is a power of two");
-  float n[C / 2];
+  double n[C / 2];
 #pragma unroll
   for (int k = 0; k < C / 2; ++k) {
-    n[k] = fmaf(e[2 * k + 1], u[2 * k + 1], __fmul_rn(e[2 * k], u[2 * k]));
+    n[k] = fma(static_cast<double>(e[2 * k + 1]), u[2 * k + 1],
+               __dmul_rn(static_cast<double>(e[2 * k]), u[2 * k]));
   }
 #pragma unroll
   for (int w = C / 2; w > 1; w /= 2) {
 #pragma unroll
-    for (int k = 0; k < w / 2; ++k) n[k] = __fadd_rn(n[2 * k], n[2 * k + 1]);
+    for (int k = 0; k < w / 2; ++k) n[k] = __dadd_rn(n[2 * k], n[2 * k + 1]);
   }
   return n[0];
 }
@@ -331,7 +338,7 @@ __device__ __forceinline__ int hs_lane_row(int lane) {
 }
 
 template <int G>
-__device__ __forceinline__ float warp_rows_sum(float (&v)[G], int lane) {
+__device__ __forceinline__ double warp_rows_sum(double (&v)[G], int lane) {
   constexpr int kSteps = hs_log2(G);
   static_assert(G == 1 << kSteps && G <= 8, "G is 1, 2, 4 or 8");
 #pragma unroll
@@ -341,23 +348,24 @@ __device__ __forceinline__ float warp_rows_sum(float (&v)[G], int lane) {
     const bool hi = lane & off;
 #pragma unroll
     for (int k = 0; k < half; ++k) {
-      const float send = hi ? v[k] : v[k + half];
-      const float keep = hi ? v[k + half] : v[k];
-      v[k] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, off));
+      const double send = hi ? v[k] : v[k + half];
+      const double keep = hi ? v[k + half] : v[k];
+      v[k] = __dadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, off));
     }
   }
-  float t = v[0];
+  double t = v[0];
 #pragma unroll
   for (int off = G; off < 32; off <<= 1) {
-    t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, off));
+    t = __dadd_rn(t, __shfl_xor_sync(0xffffffffu, t, off));
   }
   return t;
 }
 
 template <int C, int G>
 struct HalfstepState {
-  float sr[C], sc[C], sy[C], su[C];   // the thread's sample columns
-  float part[C], acc[C], comp[C];     // ap: the chunk's chain, the block's sum
+  float sr[C], sc[C], sy[C];   // the thread's sample columns
+  double su[C];                // and their u
+  double acc[C];               // the block's sum of ap
 };
 
 // Pixel row i as the ring holds it: (row, col, y, mask).
@@ -372,31 +380,35 @@ __device__ __forceinline__ int finalizing_warp() {
   return blockDim.x > 32 ? 1 : 0;
 }
 
-// A 32-row chunk's chain of ap into the block's sum.
+// The G rows of a group (x, their entries still in registers) into the
+// block's float64 sums of ap, row after row.
 template <int C, int G>
-__device__ __forceinline__ void halfstep_flush(HalfstepState<C, G>& st) {
+__device__ __forceinline__ void halfstep_add(HalfstepState<C, G>& st,
+                                             const float* xp,
+                                             const float (&e)[G][C]) {
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    nle::kahan_add(st.acc[c], st.comp[c], st.part[c]);
-    st.part[c] = 0.0f;
+  for (int g = 0; g < G; ++g) {
+    const double xv = static_cast<double>(xp[g]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      st.acc[c] = fma(xv, static_cast<double>(e[g][c]), st.acc[c]);
+    }
   }
 }
 
 // One step: build the group of rows r0..r0 + G (features `rows`) into
 // `cur` and publish its warp sums; after the barrier, finalize its x into
 // xs[buf] and, if has_prev, add the previous group (`prev`, x in
-// xs[buf ^ 1]) into ap, then, if it was the last group of a chunk
-// (close_prev), flush the chunk's chain: every chain is one whole 32-row
-// chunk whatever G is.
+// xs[buf ^ 1]) into ap.
 template <int C, int G>
 __device__ __forceinline__ void halfstep_step(
     HalfstepState<C, G>& st, float (&cur)[G][C], const float (&prev)[G][C],
-    const float4* rows, float* __restrict__ x, float* xs, float* ws, int buf,
-    int r0, bool has_prev, bool close_prev, float sw, float pw, float eps) {
+    const float4* rows, float* __restrict__ x, float* xs, double* ws,
+    int buf, int r0, bool has_prev, float sw, float pw, float eps) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  float w[G];
+  double w[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const float4 f = rows[g];
@@ -407,7 +419,7 @@ __device__ __forceinline__ void halfstep_step(
     }
     w[g] = cols_sum<C>(cur[g], st.su);
   }
-  const float wsum = warp_rows_sum<G>(w, lane);
+  const double wsum = warp_rows_sum<G>(w, lane);
   if (lane < G) ws[(buf * G + hs_lane_row<G>(lane)) * nwarps + warp] = wsum;
   __syncthreads();
   if (warp == finalizing_warp() && lane < G) {
@@ -415,29 +427,22 @@ __device__ __forceinline__ void halfstep_step(
     // missing second warp is all pad, a zero).
     constexpr int kSegWarps = HS_SEGMENT / (32 * C);
     static_assert(kSegWarps == 1 || kSegWarps == 2, "C is 4 or 8");
-    const float* row = ws + (buf * G + lane) * nwarps;
-    float s = 0.0f, comp = 0.0f;
+    const double* row = ws + (buf * G + lane) * nwarps;
+    double wv = 0.0;
     for (int k = 0; k < nwarps; k += kSegWarps) {
-      const float seg = kSegWarps == 2 && k + 1 < nwarps
-                            ? __fadd_rn(row[k], row[k + 1]) : row[k];
-      nle::kahan_add(s, comp, seg);
+      const double seg = kSegWarps == 2 && k + 1 < nwarps
+                             ? __dadd_rn(row[k], row[k + 1]) : row[k];
+      wv = __dadd_rn(wv, seg);
     }
-    const float wv = __fsub_rn(s, comp);
-    // Pad rows have real affinities: the mask kills them here.
-    const float xv = (fabsf(wv) >= eps ? 1.0f / wv : 0.0f) * rows[lane].w;
+    // x is w's reciprocal rounded once to fp32. Pad rows have real
+    // affinities: the mask kills them here.
+    const float xv = (fabs(wv) >= static_cast<double>(eps)
+                          ? __double2float_rn(1.0 / wv) : 0.0f) *
+                     rows[lane].w;
     xs[buf * G + lane] = xv;
     x[r0 + lane] = xv;
   }
-  if (has_prev) {
-    const float* xp = xs + (buf ^ 1) * G;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float xv = xp[g];
-#pragma unroll
-      for (int c = 0; c < C; ++c) st.part[c] = fmaf(xv, prev[g][c], st.part[c]);
-    }
-    if (close_prev) halfstep_flush(st);
-  }
+  if (has_prev) halfstep_add(st, xs + (buf ^ 1) * G, prev);
 }
 
 // The instantiations K8's kernel has: (C columns a thread, G rows a
@@ -464,13 +469,16 @@ __global__ void __launch_bounds__(HsTile<C, G>::kMaxThreads)
     stream_halfstep_kernel(const float* __restrict__ fb,
                            const float* __restrict__ fa,
                            const float* __restrict__ mask,
-                           const float* __restrict__ u, float* __restrict__ x,
-                           float* __restrict__ partial, int qpad, int ppad,
+                           const double* __restrict__ u,
+                           float* __restrict__ x,
+                           double* __restrict__ partial, int qpad, int ppad,
                            int per_block, float sw, float pw, float eps) {
   extern __shared__ float4 smem4[];
   float4* ring = smem4;                                   // [3][32] rows
   float* xs = reinterpret_cast<float*>(smem4 + HS_RING * HS_SUM_ROWS);
-  float* ws = xs + 2 * G;          // xs: [2][G]; ws: [2][G][warps]
+  // xs: [2][G] floats (8 G bytes, so ws stays 8-byte aligned); ws:
+  // [2][G][warps] doubles.
+  double* ws = reinterpret_cast<double*>(xs + 2 * G);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -482,8 +490,8 @@ __global__ void __launch_bounds__(HsTile<C, G>::kMaxThreads)
     st.sr[c] = in ? fa[j] : 0.0f;
     st.sc[c] = in ? fa[ppad + j] : 0.0f;
     st.sy[c] = in ? fa[2 * ppad + j] : 0.0f;
-    st.su[c] = in ? u[j] : 0.0f;
-    st.part[c] = st.acc[c] = st.comp[c] = 0.0f;
+    st.su[c] = in ? u[j] : 0.0;
+    st.acc[c] = 0.0;
   }
   const int rbeg = blockIdx.x * per_block;
   // Whole chunks: qpad and per_block are multiples of HS_SUM_ROWS.
@@ -503,55 +511,44 @@ __global__ void __launch_bounds__(HsTile<C, G>::kMaxThreads)
     const int c0 = rbeg + k * HS_SUM_ROWS;
     for (int i = 0; i < HS_SUM_ROWS; i += 2 * G) {
       // The adds lag the build by one group: the first step of a chunk
-      // adds, and closes, the previous chunk's last group.
+      // adds the previous chunk's last group.
       halfstep_step<C, G>(st, e0, e1, rows + i, x, xs, ws, 0, c0 + i,
-                          k > 0 || i > 0, k > 0 && i == 0, sw, pw, eps);
+                          k > 0 || i > 0, sw, pw, eps);
       halfstep_step<C, G>(st, e1, e0, rows + i + G, x, xs, ws, 1, c0 + i + G,
-                          true, false, sw, pw, eps);
+                          true, sw, pw, eps);
     }
     // The ring slot chunk k - 1 used takes chunk k + 2.
     if (stage) ring[((k + 2) % HS_RING) * HS_SUM_ROWS + lane] = next;
   }
   __syncthreads();   // the last group's x
-  {
-    const float* xp = xs + G;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float xv = xp[g];
-#pragma unroll
-      for (int c = 0; c < C; ++c) st.part[c] = fmaf(xv, e1[g][c], st.part[c]);
-    }
-  }
-  halfstep_flush(st);
-  float* dst = partial + static_cast<size_t>(blockIdx.x) * ppad;
+  halfstep_add(st, xs + G, e1);
+  double* dst = partial + static_cast<size_t>(blockIdx.x) * ppad;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int j = tid * C + c;
-    if (j < ppad) dst[j] = __fsub_rn(st.acc[c], st.comp[c]);
+    if (j < ppad) dst[j] = st.acc[c];
   }
 }
 
 // K11, and K9's pass 1 (kRecip, R = 1, b = u): out[k, i] = sum_j K[i, j]
-// b[k, j]. Thread t of a block owns G pixel rows of each step of AT_THREADS
-// x G rows (rows step * span + g * AT_THREADS + t), their features in
-// registers (zero past qpad: those rows are built and never written).
-// The samples go to shared memory interleaved, one float4 (r, c, y, b_0)
-// per sample and a float2 (b_1, b_2) for R > 1, so one broadcast load
-// feeds G entries. They are staged pchunk samples at a time
+// b[k, j], b float64. Thread t of a block owns G pixel rows of each step
+// of AT_THREADS x G rows (rows step * span + g * AT_THREADS + t), their
+// features in registers (zero past qpad: those rows are built and never
+// written). The samples go to shared memory, one float4 (r, c, y, unused)
+// and R doubles (b_0 .. b_{R-1}, one array each) per sample, so one
+// broadcast load feeds G entries. They are staged pchunk samples at a time
 // (streaming_kernel.atb_plan: all of ppad at once up to ST_ATB_CHUNK) by
-// 4-byte cp.async copies from every thread, which scatter the feature
-// rows into the interleaved layout; past one chunk a double-buffered ring
-// copies the next chunk while the block builds this one (one barrier a
-// chunk). Blocks stride over the steps. Each row sums its samples in
-// increasing j, two-level: a group of ST_ROW_GRAIN samples (at multiples
-// of 32 from sample 0) as one fp32 chain, each group's sum added to the
-// row's with compensation (kahan_add). On the streaming route u = Uinv t
-// carries 1/lambda up to 1e10 and w = K u cancels, so the rounding of a
-// 2176-term chain would reach x at full weight. The row's sums stay in
-// registers across chunks (pchunk does not change them) and a zero group
-// sum is a no-op (pad samples do not change them), so they depend on
-// neither pchunk, nor ppad, nor the plan. kRecip ends with x = mask *
-// safe_recip(w, eps). Rows are independent: no cross-block pass.
+// 4- and 8-byte cp.async copies from every thread, which scatter the
+// feature rows into the interleaved layout; past one chunk a
+// double-buffered ring copies the next chunk while the block builds this
+// one (one barrier a chunk). Blocks stride over the steps. Each row sums
+// its samples in increasing j in float64 (the fp32 entry widened exactly):
+// b = u (K9) or b = W t (the factored apply) carries 1/lambda up to 1e10
+// and the sum cancels. The row's sums stay in registers across chunks
+// (pchunk does not change them) and a pad sample (b = 0) adds an exact
+// zero, so they depend on neither pchunk, nor ppad, nor the plan. The row
+// is rounded once to fp32; kRecip ends with x = mask * safe_recip(w, eps)
+// instead. Rows are independent: no cross-block pass.
 constexpr int AT_THREADS = 256;
 constexpr int AT_MIN_BLOCKS = 4;    // an SM's blocks the registers hold
 constexpr int ST_ATB_CHUNK = 1536;  // samples a chunk at most
@@ -573,7 +570,7 @@ AT_TILES(AT_TILE_ROWS)
 template <int R, bool kRecip>
 __global__ void __launch_bounds__(AT_THREADS, AT_MIN_BLOCKS)
     stream_atb_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
-                      const float* __restrict__ b,
+                      const double* __restrict__ b,
                       const float* __restrict__ mask, float* __restrict__ out,
                       int qpad, int ppad, int pchunk, float sw, float pw,
                       float eps) {
@@ -584,7 +581,8 @@ __global__ void __launch_bounds__(AT_THREADS, AT_MIN_BLOCKS)
   const int nchunks = (ppad + pchunk - 1) / pchunk;
   const int nbuf = nchunks > 1 ? 2 : 1;
   float4* s4 = atb_smem4;                                  // [nbuf][pchunk]
-  float2* s2 = reinterpret_cast<float2*>(s4 + nbuf * pchunk);
+  // [nbuf][R][pchunk]
+  double* sb = reinterpret_cast<double*>(s4 + nbuf * pchunk);
   const int nsteps = (qpad + span - 1) / span;
   const int bid = blockIdx.x;
   const int nblocks = gridDim.x;
@@ -595,22 +593,22 @@ __global__ void __launch_bounds__(AT_THREADS, AT_MIN_BLOCKS)
     const int jb = ch * pchunk;
     const int nj = min(pchunk, ppad - jb);
     float* d4 = reinterpret_cast<float*>(s4 + buf * pchunk);
-    float* d2 = reinterpret_cast<float*>(s2 + buf * pchunk);
+    double* db = sb + static_cast<size_t>(buf) * R * pchunk;
     for (int e = tid; e < nj; e += AT_THREADS) {
       const int j = jb + e;
       nle::cp_async4(d4 + 4 * e, fa + j);
       nle::cp_async4(d4 + 4 * e + 1, fa + ppad + j);
       nle::cp_async4(d4 + 4 * e + 2, fa + 2 * ppad + j);
-      nle::cp_async4(d4 + 4 * e + 3, b + j);
 #pragma unroll
-      for (int k = 1; k < R; ++k) {
-        nle::cp_async4(d2 + 2 * e + k - 1, b + static_cast<size_t>(k) * ppad + j);
+      for (int k = 0; k < R; ++k) {
+        nle::cp_async8(db + k * pchunk + e, b + static_cast<size_t>(k) * ppad + j);
       }
     }
   };
   stage(0, 0);
   nle::cp_async_commit();
-  float br[G], bc[G], by[G], acc[R][G], comp[R][G];
+  float br[G], bc[G], by[G];
+  double acc[R][G];
   int i0 = 0;
   for (int s = 0; s < total; ++s) {
     const int ch = s % nchunks;
@@ -633,44 +631,28 @@ __global__ void __launch_bounds__(AT_THREADS, AT_MIN_BLOCKS)
         bc[g] = row ? fb[qpad + i] : 0.0f;
         by[g] = row ? fb[2 * qpad + i] : 0.0f;
 #pragma unroll
-        for (int k = 0; k < R; ++k) acc[k][g] = comp[k][g] = 0.0f;
+        for (int k = 0; k < R; ++k) acc[k][g] = 0.0;
       }
     }
     const int nj = min(pchunk, ppad - ch * pchunk);
     const float4* c4 = s4 + buf * pchunk;
-    const float2* c2 = s2 + buf * pchunk;
-    for (int g0 = 0; g0 < nj; g0 += ST_ROW_GRAIN) {
-      const int gend = min(g0 + ST_ROW_GRAIN, nj);
-      float part[R][G];
+    const double* cb = sb + static_cast<size_t>(buf) * R * pchunk;
+    // ST_P_GRAIN samples a step: chunks and ppad are whole steps.
+    for (int j = 0; j < nj; j += ST_P_GRAIN) {
 #pragma unroll
-      for (int k = 0; k < R; ++k)
+      for (int t = 0; t < ST_P_GRAIN; ++t) {
+        const float4 sv = c4[j + t];
+        double bv[R];
 #pragma unroll
-        for (int g = 0; g < G; ++g) part[k][g] = 0.0f;
-      // ST_P_GRAIN samples a step: chunks and ppad are whole steps.
-      for (int j = g0; j < gend; j += ST_P_GRAIN) {
+        for (int k = 0; k < R; ++k) bv[k] = cb[k * pchunk + j + t];
 #pragma unroll
-        for (int t = 0; t < ST_P_GRAIN; ++t) {
-          const float4 sv = c4[j + t];
-          float bv[R];
-          bv[0] = sv.w;
-          if constexpr (R > 1) {
-            const float2 b12 = c2[j + t];
-            bv[1] = b12.x;
-            if constexpr (R > 2) bv[2] = b12.y;
-          }
+        for (int g = 0; g < G; ++g) {
+          const double a = static_cast<double>(nle::affinity(
+              br[g], bc[g], by[g], sv.x, sv.y, sv.z, sw, pw));
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float a = nle::affinity(br[g], bc[g], by[g], sv.x, sv.y,
-                                          sv.z, sw, pw);
-#pragma unroll
-            for (int k = 0; k < R; ++k) part[k][g] = fmaf(a, bv[k], part[k][g]);
-          }
+          for (int k = 0; k < R; ++k) acc[k][g] = fma(a, bv[k], acc[k][g]);
         }
       }
-#pragma unroll
-      for (int k = 0; k < R; ++k)
-#pragma unroll
-        for (int g = 0; g < G; ++g) nle::kahan_add(acc[k][g], comp[k][g], part[k][g]);
     }
     if (ch == nchunks - 1) {
 #pragma unroll
@@ -678,13 +660,15 @@ __global__ void __launch_bounds__(AT_THREADS, AT_MIN_BLOCKS)
         const int i = i0 + g * AT_THREADS;
         if (i >= qpad) continue;
         if constexpr (kRecip) {
-          // Pad rows have real affinities: the mask kills them here.
-          const float w = __fsub_rn(acc[0][g], comp[0][g]);
-          out[i] = (fabsf(w) >= eps ? 1.0f / w : 0.0f) * mask[i];
+          // w's reciprocal rounded once to fp32. Pad rows have real
+          // affinities: the mask kills them here.
+          const double w = acc[0][g];
+          out[i] = (fabs(w) >= static_cast<double>(eps)
+                        ? __double2float_rn(1.0 / w) : 0.0f) * mask[i];
         } else {
 #pragma unroll
           for (int k = 0; k < R; ++k) {
-            out[static_cast<size_t>(k) * qpad + i] = __fsub_rn(acc[k][g], comp[k][g]);
+            out[static_cast<size_t>(k) * qpad + i] = __double2float_rn(acc[k][g]);
           }
         }
       }
@@ -712,6 +696,157 @@ __global__ void gram_chunk_add_kernel(const float* __restrict__ part,
   }
 }
 
+// K8's and K10's ap: their float64 block partials summed in block order,
+// in float64.
+__global__ void reduce_partials64_kernel(const double* __restrict__ partial,
+                                         double* __restrict__ out, int nparts,
+                                         int len) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= len) return;
+  double s = 0.0;
+  for (int b = 0; b < nparts; ++b) {
+    s = __dadd_rn(s, partial[static_cast<size_t>(b) * len + j]);
+  }
+  out[j] = s;
+}
+
+cudaError_t launch_reduce_partials64(const double* partial, double* out,
+                                     int nparts, int len, cudaStream_t st) {
+  reduce_partials64_kernel<<<(len + 255) / 256, 256, 0, st>>>(partial, out,
+                                                              nparts, len);
+  return cudaGetLastError();
+}
+
+// K12's float64 form, the sample-basis gram: H = (diag(c) K)^T (diag(c) K)
+// (ppad, ppad) over the rest rows, so that Sb = Uinv^T H Uinv (formed in
+// float64 by the caller) without phi. phi = K Uinv carries 1/lambda down
+// to eigenvalues of 1e-10 and cancels, so an fp32 phi (K12's fp32 path)
+// loses Sb's small directions, which Q's chain divides by Wa's small
+// eigenvalues; H's terms are products of fp32 entries, exact in float64,
+// and every sum here is float64. Block (t, s) owns the lower tile t =
+// (I, J), I >= J, of GS_TILE x GS_TILE, and the rows of split s
+// (streaming_kernel.stream_sample_gram_plan: contiguous whole GS_ROWS-row
+// steps); a step stages its rows' (r, c, y, c) in shared memory, builds
+// the step's entries c_i K[i, j] for the tile's I and J columns (thread
+// t: column t % GS_TILE, rows t / GS_TILE + 4 k) in float64 into shared
+// memory, then each thread adds its 4 x 4 outputs (rows ty + 16 a,
+// columns tx + 16 b) over the step's rows in increasing order. The
+// block's tile goes to partial[s][t]; stream_sample_gram_reduce_kernel
+// sums the splits in order and writes H with its mirror. Pad rows have c =
+// 0 and add exact zeros; pad sample columns give finite entries the
+// caller's zero Uinv rows drop.
+constexpr int GS_TILE = 64;
+constexpr int GS_ROWS = 32;
+constexpr int GS_THREADS = 256;
+
+__device__ __forceinline__ void gs_tile_of(int t, int& I, int& J) {
+  I = 0;
+  while (t > I) {
+    t -= I + 1;
+    ++I;
+  }
+  J = t;
+}
+
+__global__ void __launch_bounds__(GS_THREADS)
+    stream_sample_gram_kernel(const float* __restrict__ fb,
+                              const float* __restrict__ fa,
+                              const float* __restrict__ c,
+                              double* __restrict__ partial, int qpad,
+                              int ppad, int split_rows, float sw, float pw) {
+  __shared__ double ai[GS_ROWS][GS_TILE];
+  __shared__ double aj[GS_ROWS][GS_TILE];
+  __shared__ float rowf[4][GS_ROWS];
+  int I, J;
+  gs_tile_of(blockIdx.x, I, J);
+  const bool diag = I == J;
+  const int tid = threadIdx.x;
+  const int col = tid % GS_TILE;
+  const int rg = tid / GS_TILE;
+  const int ji = I * GS_TILE + col;
+  const int jj = J * GS_TILE + col;
+  const float ir = fa[ji], ic = fa[ppad + ji], iy = fa[2 * ppad + ji];
+  const float jr = fa[jj], jc = fa[ppad + jj], jy = fa[2 * ppad + jj];
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  double acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0;
+  const double(*bj)[GS_TILE] = diag ? ai : aj;
+  const int r0 = blockIdx.y * split_rows;
+  const int r1 = min(r0 + split_rows, qpad);
+  for (int rb = r0; rb < r1; rb += GS_ROWS) {
+    if (tid < 4 * GS_ROWS) {
+      const int a = tid / GS_ROWS;
+      const int i = rb + tid % GS_ROWS;
+      rowf[a][tid % GS_ROWS] =
+          a < 3 ? fb[static_cast<size_t>(a) * qpad + i] : c[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < GS_ROWS / (GS_THREADS / GS_TILE); ++k) {
+      const int i = rg + k * (GS_THREADS / GS_TILE);
+      const float br = rowf[0][i], bc = rowf[1][i], by = rowf[2][i];
+      const double cw = static_cast<double>(rowf[3][i]);
+      ai[i][col] = cw * static_cast<double>(
+                            nle::affinity(br, bc, by, ir, ic, iy, sw, pw));
+      if (!diag) {
+        aj[i][col] = cw * static_cast<double>(
+                              nle::affinity(br, bc, by, jr, jc, jy, sw, pw));
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < GS_ROWS; ++i) {
+      double va[4], vb[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) va[a] = ai[i][ty + 16 * a];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) vb[b] = bj[i][tx + 16 * b];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fma(va[a], vb[b], acc[a][b]);
+    }
+    __syncthreads();   // the step's entries and rows are read
+  }
+  double* dst = partial + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                           blockIdx.x) * GS_TILE * GS_TILE;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      dst[(ty + 16 * a) * GS_TILE + tx + 16 * b] = acc[a][b];
+    }
+}
+
+// H[I*64 + a][J*64 + b] (and its mirror) = the sum of the splits' tiles
+// in split order. A diagonal tile writes its lower triangle's values to
+// both halves.
+__global__ void stream_sample_gram_reduce_kernel(
+    const double* __restrict__ partial, double* __restrict__ H, int tiles,
+    int nsplit, int ppad) {
+  const int t = blockIdx.y;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= GS_TILE * GS_TILE) return;
+  int I, J;
+  gs_tile_of(t, I, J);
+  const int a = e / GS_TILE;
+  const int b = e % GS_TILE;
+  if (I == J && b > a) return;
+  double s = 0.0;
+  for (int k = 0; k < nsplit; ++k) {
+    s = __dadd_rn(
+        s, partial[(static_cast<size_t>(k) * tiles + t) * GS_TILE * GS_TILE + e]);
+  }
+  const size_t row = static_cast<size_t>(I) * GS_TILE + a;
+  const size_t col = static_cast<size_t>(J) * GS_TILE + b;
+  H[row * ppad + col] = s;
+  H[col * ppad + row] = s;
+}
+
 bool bad_stream_shape(int qpad, int ppad) {
   return qpad < ST_ROW_GRAIN || qpad % ST_ROW_GRAIN || ppad < 1 ||
          ppad % ST_P_GRAIN;
@@ -736,7 +871,7 @@ inline int even_piece(int n, int most) {
 // ranges (the sum order); X and fb 16-byte aligned (cp.async).
 template <int R>
 cudaError_t launch_ap(const float* fb, const float* fa, const float* X,
-                      float* partial, float* ap, int qpad, int ppad,
+                      double* partial, double* ap, int qpad, int ppad,
                       int threads, int cols, int rows, int ptile, int tiles,
                       int blocks, int per_block, int smem, float sw, float pw,
                       cudaStream_t st) {
@@ -754,14 +889,14 @@ cudaError_t launch_ap(const float* fb, const float* fa, const float* X,
       fb, fa, X, partial, qpad, ppad, ptile, per_block, sw, pw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return nle::launch_reduce_partials(partial, ap, blocks, R * ppad, st);
+  return launch_reduce_partials64(partial, ap, blocks, R * ppad, st);
 }
 
 // K11's launch as streaming_kernel.atb_plan(qpad, ppad, R) gives it
 // (threads, rows, blocks, pchunk, shared bytes), refused unless it is the
 // instantiation's with ppad in even ST_ATB_CHUNK pieces.
 template <int R, bool kRecip>
-cudaError_t launch_atb(const float* fb, const float* fa, const float* b,
+cudaError_t launch_atb(const float* fb, const float* fa, const double* b,
                        const float* mask, float* out, int qpad, int ppad,
                        int threads, int rows, int blocks, int pchunk,
                        int smem, float sw, float pw, float eps,
@@ -771,7 +906,7 @@ cudaError_t launch_atb(const float* fb, const float* fa, const float* b,
       rows != AtTile<R>::kRows || blocks < 1 ||
       pchunk != even_piece(ppad, ST_ATB_CHUNK) ||
       smem != nbuf * pchunk *
-                  static_cast<int>(sizeof(float4) + (R > 1 ? sizeof(float2) : 0))) {
+                  static_cast<int>(sizeof(float4) + R * sizeof(double))) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -786,15 +921,15 @@ cudaError_t launch_atb(const float* fb, const float* fa, const float* b,
 }  // namespace
 
 // K8 and K9 (one build of each entry; K8's unit_x pass is K10 with X =
-// mask). fb (3, qpad), fa (3, ppad), mask (qpad,), u (ppad,) -> x
-// (qpad,), ap (ppad,); partial is scratch of blocks * ppad floats. The
-// launch takes streaming_kernel.halfstep_plan(qpad, ppad) as it is
-// (threads, cols, rows, blocks, per_block, shared bytes) and refuses one
-// that does not cover every row and column exactly once with the fewest
-// threads for its cols.
+// mask). fb (3, qpad), fa (3, ppad), mask (qpad,), u (ppad,) float64 ->
+// x (qpad,) fp32, ap (ppad,) float64; partial is scratch of blocks * ppad
+// doubles. The launch takes streaming_kernel.halfstep_plan(qpad, ppad) as
+// it is (threads, cols, rows, blocks, per_block, shared bytes) and refuses
+// one that does not cover every row and column exactly once with the
+// fewest threads for its cols.
 extern "C" int nle_stream_halfstep_onebuild(
-    const float* fb, const float* fa, const float* mask, const float* u,
-    float* x, float* partial, float* ap, int qpad, int ppad, int threads,
+    const float* fb, const float* fa, const float* mask, const double* u,
+    float* x, double* partial, double* ap, int qpad, int ppad, int threads,
     int cols, int rows, int blocks, int per_block, int smem, float sw,
     float pw, float eps, void* stream) {
   const bool shape_ok =
@@ -803,8 +938,9 @@ extern "C" int nle_stream_halfstep_onebuild(
       per_block >= HS_SUM_ROWS && per_block % HS_SUM_ROWS == 0 &&
       (blocks - 1) * per_block < qpad && qpad <= blocks * per_block &&
       smem == static_cast<int>(sizeof(float4)) * HS_RING * HS_SUM_ROWS +
-                  static_cast<int>(sizeof(float)) * 2 * rows *
-                      (1 + threads / 32);
+                  static_cast<int>(sizeof(float)) * 2 * rows +
+                  static_cast<int>(sizeof(double)) * 2 * rows *
+                      (threads / 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
 #define HS_LAUNCH(CC, GG, MT)                                            \
@@ -817,17 +953,17 @@ extern "C" int nle_stream_halfstep_onebuild(
 #undef HS_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      nle::launch_reduce_partials(partial, ap, blocks, ppad, st));
+      launch_reduce_partials64(partial, ap, blocks, ppad, st));
 }
 
 // K9's two passes, for ppad past the one-build kernel's 4096 (the
 // wrapper's dispatch by shape): K8's contract without unit_x, at any
 // ppad; pass 1 (K11's kernel, atb_plan(qpad, ppad, 1)) writes x, pass 2
 // is K10's (ap_plan(qpad, ppad, 1)) on it; partial is scratch of the ap
-// plan's blocks * ppad floats.
+// plan's blocks * ppad doubles; u, ap float64.
 extern "C" int nle_stream_halfstep_ptiled(
-    const float* fb, const float* fa, const float* mask, const float* u,
-    float* x, float* partial, float* ap, int qpad, int ppad, int at_threads,
+    const float* fb, const float* fa, const float* mask, const double* u,
+    float* x, double* partial, double* ap, int qpad, int ppad, int at_threads,
     int at_rows, int at_blocks, int pchunk, int at_smem, int threads,
     int cols, int rows, int ptile, int tiles, int blocks, int per_block,
     int smem, float sw, float pw, float eps, void* stream) {
@@ -843,9 +979,9 @@ extern "C" int nle_stream_halfstep_ptiled(
 
 // K10. X (R, qpad) -> ap (R, ppad), 1 <= R <= 3 (one channel, or the three
 // of a colour frame), on ap_plan(qpad, ppad, R); partial is scratch of its
-// blocks * R * ppad floats.
+// blocks * R * ppad doubles; ap float64.
 extern "C" int nle_stream_ap(const float* fb, const float* fa, const float* X,
-                             float* partial, float* ap, int qpad, int ppad,
+                             double* partial, double* ap, int qpad, int ppad,
                              int R, int threads, int cols, int rows,
                              int ptile, int tiles, int blocks, int per_block,
                              int smem, float sw, float pw, void* stream) {
@@ -862,9 +998,9 @@ extern "C" int nle_stream_ap(const float* fb, const float* fa, const float* X,
   return static_cast<int>(err);
 }
 
-// K11. b (R, ppad) -> out (R, qpad), 1 <= R <= 3, on atb_plan(qpad, ppad,
-// R).
-extern "C" int nle_stream_atb(const float* fb, const float* fa, const float* b,
+// K11. b (R, ppad) float64 -> out (R, qpad) fp32, 1 <= R <= 3, on
+// atb_plan(qpad, ppad, R).
+extern "C" int nle_stream_atb(const float* fb, const float* fa, const double* b,
                               float* out, int qpad, int ppad, int R,
                               int threads, int rows, int blocks, int pchunk,
                               int smem, float sw, float pw, void* stream) {
@@ -930,4 +1066,32 @@ extern "C" int nle_stream_gram(
     if (is_last) break;
   }
   return 0;
+}
+
+// K12's float64 form (stream_sample_gram_kernel): fb (3, qpad), fa (3,
+// ppad), c (qpad,) zero on pad rows -> H (ppad, ppad) float64; partial is
+// scratch of nsplit * tiles * 64 * 64 doubles. The launch takes
+// streaming_kernel.stream_sample_gram_plan(qpad, ppad) as it is (tiles,
+// nsplit, split_rows) and refuses one that does not cover every lower
+// tile and every row exactly once.
+extern "C" int nle_stream_sample_gram(const float* fb, const float* fa,
+                                      const float* c, double* partial,
+                                      double* H, int qpad, int ppad,
+                                      int tiles, int nsplit, int split_rows,
+                                      float sw, float pw, void* stream) {
+  const int nt = ppad / GS_TILE;
+  if (bad_stream_shape(qpad, ppad) || ppad % GS_TILE ||
+      tiles != nt * (nt + 1) / 2 || split_rows < GS_ROWS ||
+      split_rows % GS_ROWS || nsplit < 1 ||
+      (nsplit - 1) * split_rows >= qpad || qpad > nsplit * split_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  stream_sample_gram_kernel<<<dim3(tiles, nsplit), GS_THREADS, 0, st>>>(
+      fb, fa, c, partial, qpad, ppad, split_rows, sw, pw);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stream_sample_gram_reduce_kernel<<<dim3(GS_TILE * GS_TILE / 256, tiles), 256,
+                                     0, st>>>(partial, H, tiles, nsplit, ppad);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,11 @@ so applying the filter needs only the (p, k) head/W pair, the Sinkhorn
 vector c, and the training features: ~17 B/pixel. The tail rows are
 regenerated at apply time by two streaming passes (K10, K11), and training
 runs the phi-free stage 2a (K8, or K9 past 1792 samples, and K12) and
-stops before V. Every piece takes any sampling density.
+stops before V. Every piece takes any sampling density. The entries stay
+fp32, and every sum that the small eigenpairs read is float64 (K8, K10,
+K11, K12's float64 form, the (p, k) pieces and the apply's algebra), so
+the edit follows the float64 reference at recipes that weight eigenvalues
+near eps at full strength (PERF.md).
 
 `FactoredFilter.save/load` use the JAX package's npz format (y_train, c,
 v_head, w, eigvals, shape, bandwidths, perm, factored), so a factored filter
@@ -24,17 +28,16 @@ import torch
 from nle_tpu_torch.config import EPS, check_nans, resolve_device
 from nle_tpu_torch.ops.affinity import bandwidth_weights
 from nle_tpu_torch.ops.pipeline import (
-    bucket_m,
     factored_apply,
-    factored_filter_pieces,
+    factored_pieces64,
     host_orthogonalize,
     ka_eigh_host64,
     pack_channel,
-    pack_stage1,
     train_filter_stage2a_streaming,
 )
 from nle_tpu_torch.ops.sampling import sample_grid
-from nle_tpu_torch.utils.logging import stage, warn_truncation
+from nle_tpu_torch.utils.logging import span, stage, warn_truncation
+from nle_tpu_torch.utils.transfer import Fetch, upload
 
 
 @dataclasses.dataclass
@@ -44,8 +47,8 @@ class FactoredFilter:
 
     y_train: np.ndarray    # (N,) packed training channel (uint8 or f32)
     c: torch.Tensor        # (N,) Sinkhorn column vector
-    v_head: torch.Tensor   # (p, k) sampled-pixel rows of V
-    w: torch.Tensor        # (p, k) tail generator Uinv GrT
+    v_head: torch.Tensor   # (p, k) sampled-pixel rows of V (float64 when
+    w: torch.Tensor        # (p, k) tail generator Uinv GrT   trained here)
     eigvals: torch.Tensor  # (k,)
     nrows: int
     ncols: int
@@ -106,25 +109,35 @@ class FactoredFilter:
             raise ValueError(
                 "Number of values in channel must match that of training "
                 "image.")
-        flat = channel_np.reshape(-1).astype(np.float32)[self.perm]
-        out = self._apply_packed(
-            torch.from_numpy(flat).to(self.c.device),
-            transformed_eigvals).cpu().numpy()
-        unpacked = np.empty_like(out)
-        unpacked[self.perm] = out
+        with span("Gather by perm"):
+            flat = channel_np.reshape(-1).astype(np.float32)[self.perm]
+        with span("Factored apply"):
+            y = upload(flat, self.c.device)
+            out = Fetch(self._apply_packed(y, transformed_eigvals)).result()
+        with span("Scatter by perm"):
+            unpacked = np.empty_like(out)
+            unpacked[self.perm] = out
         return unpacked.reshape(channel_np.shape)
 
     def apply_u8(self, channels_u8, scale_vals) -> np.ndarray:
         """Filter and clamp 8-bit channel(s), pixel order in and out, (H, W)
         or (H, W, C). All C channels ride one K10/K11 pass pair as kernel
-        rows."""
+        rows. The host permutes: the spans "Gather by perm" and "Scatter
+        by perm"; between them "Factored apply" holds the upload, the
+        features (built at the first apply), K10, K11, the round and
+        clamp, and the wait for the output."""
         channels_u8 = np.asarray(channels_u8)
-        flat = channels_u8.reshape(self.n_pixels, -1)[self.perm]   # (N, C)
-        y = torch.from_numpy(np.ascontiguousarray(flat.T)).to(self.c.device)
-        filt = self._apply_packed(y.to(torch.float32), scale_vals)
-        out_t = torch.clamp(torch.round(filt), 0, 255).to(torch.uint8)
-        unpacked = np.empty_like(flat)
-        unpacked[self.perm] = out_t.cpu().numpy().T
+        with span("Gather by perm"):
+            flat = channels_u8.reshape(self.n_pixels, -1)[self.perm]  # (N, C)
+            flat_t = np.ascontiguousarray(flat.T)
+        with span("Factored apply"):
+            y = upload(flat_t, self.c.device)
+            filt = self._apply_packed(y.to(torch.float32), scale_vals)
+            out_t = torch.clamp(torch.round(filt), 0, 255).to(torch.uint8)
+            out = Fetch(out_t).result()
+        with span("Scatter by perm"):
+            unpacked = np.empty_like(flat)
+            unpacked[self.perm] = out.T
         return unpacked.reshape(channels_u8.shape)
 
     def save(self, path: str) -> None:
@@ -177,8 +190,9 @@ def train_filter_factored(channel, n_row_samples: int, n_col_samples: int,
                           n_eig_vectors: int = 5, *, device,
                           eps: float | None = None) -> FactoredFilter:
     """Train a V-free factored filter on one channel (H, W) on `device`:
-    the phi-free stage 2a (K8/K9 Sinkhorn, K12 gram), the host f64 chain, and
-    the (p, k) head pieces; the (N, k) V is never built."""
+    the phi-free stage 2a (K8/K9 Sinkhorn, K12 gram, every sum float64),
+    the host f64 chain, and the (p, k) head pieces in float64; the (N, k) V
+    is never built."""
     dev = resolve_device(device)
     channel_np = np.asarray(channel)
     nrows, ncols = channel_np.shape
@@ -203,26 +217,20 @@ def train_filter_factored(channel, n_row_samples: int, n_col_samples: int,
     if m == 0:
         raise ValueError("Affinity matrix Ka has no eigenvalues above eps.")
     warn_truncation(p, m, float(eps))
-    mb = bucket_m(m, p)
-    stage1 = torch.from_numpy(pack_stage1(Um64, lam64, mb=mb)).to(dev)
     with stage("Nystrom approximation + Sinkhorn"):
-        rc, sb, c = train_filter_stage2a_streaming(
-            y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
-            n_sinkhorn_iter=n_sinkhorn_iter, eps=float(eps))
-        rc_np = rc.cpu().double().numpy()
+        rc_np, sb_np, c = train_filter_stage2a_streaming(
+            y, rr, cc, sw, pw, p=p, m=m, n_sinkhorn_iter=n_sinkhorn_iter,
+            eps=float(eps), stage1_64=(Um64, lam64))
     del y, rr, cc
     k = min(n_eig_vectors, m)
     with stage("Orthogonalize"):
-        sb_np = sb.cpu().double().numpy()
         check_nans("rc/Sb", rc_np, sb_np)
-        va_np, Sq = host_orthogonalize(rc_np, sb_np, Um64, lam64, m, mb, k,
+        va_np, Sq = host_orthogonalize(rc_np, sb_np, Um64, lam64, m, m, k,
                                        float(eps))
-        va_grt = torch.from_numpy(va_np).to(dev, torch.float32)
-        V_head, W = factored_filter_pieces(stage1, c, va_grt, p=p, m=m,
-                                           mb=mb)
+        V_head, W = factored_pieces64(rc_np, va_np, Um64, lam64, m, k)
     check_nans("V", V_head, W)
     check_nans("S", Sq)
     return FactoredFilter(
-        y_train=packed_np, c=c, v_head=V_head, w=W,
-        eigvals=torch.from_numpy(Sq).to(dev, torch.float32), nrows=nrows,
-        ncols=ncols, hx=float(hx), hy=float(hy), perm=grid.perm)
+        y_train=packed_np, c=c, v_head=upload(V_head, dev),
+        w=upload(W, dev), eigvals=torch.from_numpy(Sq).to(dev, torch.float32),
+        nrows=nrows, ncols=ncols, hx=float(hx), hy=float(hy), perm=grid.perm)

@@ -187,6 +187,7 @@ def _declare(lib) -> None:
         "nle_stream_gram": [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                             i, i, i, f, f, p],
         "nle_permute_rows_u8": [p, p, p, i, i, i, p],
+        "nle_stream_sample_gram": [p, p, p, p, p, i, i, i, i, i, f, f, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

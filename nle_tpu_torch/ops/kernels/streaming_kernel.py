@@ -102,8 +102,8 @@ class HalfstepPlan(NamedTuple):
     columns t * cols + c, c < cols (those < Ppad); block b owns the rows
     [b * per_block, min((b + 1) * per_block, Qpad)), walked `rows` at a
     time. shared_bytes: a ring of HS_RING 32-row chunks of pixel features
-    (16 B a row), the x of two row groups and each warp's sums of w for
-    them."""
+    (16 B a row), the fp32 x of two row groups and each warp's float64
+    sums of w for them."""
     threads: int
     cols: int
     rows: int
@@ -126,8 +126,8 @@ def halfstep_plan(qpad: int, ppad: int) -> HalfstepPlan:
     threads = round_up(-(-ppad // cols), 32)
     blocks, per_block = _row_ranges(qpad)
     return HalfstepPlan(threads, cols, rows, blocks, per_block,
-                        16 * HS_RING * HS_ROW_GRAIN
-                        + 4 * 2 * rows * (1 + threads // 32))
+                        16 * HS_RING * HS_ROW_GRAIN + 4 * 2 * rows
+                        + 8 * 2 * rows * (threads // 32))
 
 
 def _row_ranges(qpad: int) -> tuple[int, int]:
@@ -199,11 +199,11 @@ def ap_plan(qpad: int, ppad: int, R: int) -> ApPlan:
 
 # K11's kernel (csrc stream_atb_kernel): AT_THREADS threads a block, each
 # owning `rows` pixel rows of a step of AT_THREADS x rows rows (features in
-# registers); the samples staged interleaved in shared memory, (r, c, y,
-# b_0) a float4 and (b_1, b_2) a float2 for R > 1, pchunk at a time (the
-# fewest even pieces of at most AT_CHUNK samples; two buffers when there
-# is more than one). rows by R, the csrc's AT_TILES; the launch bound (256
-# threads, AT_MIN_BLOCKS an SM) caps the registers at 64. Rows are
+# registers); the samples staged in shared memory, (r, c, y) a float4 and
+# b_0 .. b_{R-1} a double each, pchunk at a time (the fewest even pieces
+# of at most AT_CHUNK samples; two buffers when there is more than one).
+# rows by R, the csrc's AT_TILES; the launch bound (256 threads,
+# AT_MIN_BLOCKS an SM) caps the registers at 64. Rows are
 # independent, so the grid does not change a bit: it is as many blocks as
 # AT_SMS SMs hold at once (at most AT_MIN_BLOCKS each, fewer where the
 # shared bytes do not fit), the steps strided over them.
@@ -219,8 +219,8 @@ AT_BLOCK_RESERVED = 1024     # of them, held back for each block
 class AtbPlan(NamedTuple):
     """The launch of K11's kernel: `blocks` blocks of `threads` threads,
     each thread `rows` pixel rows of a step; the samples in chunks of
-    pchunk; shared_bytes: one or two chunk buffers of 16 B a sample (24 B
-    for R > 1)."""
+    pchunk; shared_bytes: one or two chunk buffers of 16 + 8 R B a
+    sample."""
     threads: int
     rows: int
     blocks: int
@@ -243,7 +243,7 @@ def atb_plan(qpad: int, ppad: int, R: int) -> AtbPlan:
     rows = AT_TILES[R - 1][1]
     pchunk = _even_piece(ppad, AT_CHUNK)
     nbuf = 2 if pchunk < ppad else 1
-    shared = nbuf * pchunk * (16 + (8 if R > 1 else 0))
+    shared = nbuf * pchunk * (16 + 8 * R)
     per_sm = min(AT_MIN_BLOCKS,
                  AT_SM_SHARED // (shared + AT_BLOCK_RESERVED))
     steps = -(-qpad // (AT_THREADS * rows))
@@ -310,6 +310,43 @@ def stream_gram_plan(qpad: int, ppad: int, mpad: int,
                           gram_plan(chunk, mpad), gram_plan(last, mpad))
 
 
+# K12's float64 form (csrc/streaming.cu nle_stream_sample_gram): H =
+# (diag(c) K)^T (diag(c) K), (Ppad, Ppad) in GS_TILE tiles, its lower tiles
+# times row splits a grid of about GS_BLOCKS blocks (8 per SM of a 132-SM
+# card), each split whole GS_ROWS-row steps.
+GS_TILE = 64
+GS_ROWS = 32
+GS_BLOCKS = 1056
+
+
+class SampleGramPlan(NamedTuple):
+    """The sample-basis gram's launch: `tiles` lower GS_TILE tiles of H
+    times `nsplit` contiguous row ranges of `split_rows` rows (the last
+    shorter); scratch of nsplit * tiles * GS_TILE^2 doubles."""
+    tiles: int
+    nsplit: int
+    split_rows: int
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 8 * self.nsplit * self.tiles * GS_TILE * GS_TILE
+
+
+def stream_sample_gram_plan(qpad: int, ppad: int) -> SampleGramPlan:
+    """The sample-basis gram's plan for (Qpad, Ppad): a function of the
+    shapes alone, so each element's sum order (rows in increasing order
+    within a split, the splits in order) does not depend on the card.
+    Raises on shapes the kernel cannot take."""
+    _check_stream_shape(qpad, ppad, 1)
+    if ppad % GS_TILE:
+        raise ValueError(f"Ppad {ppad} must be a multiple of {GS_TILE}")
+    nt = ppad // GS_TILE
+    tiles = nt * (nt + 1) // 2
+    want = -(-GS_BLOCKS // tiles)
+    split_rows = round_up(-(-qpad // want), GS_ROWS)
+    return SampleGramPlan(tiles, -(-qpad // split_rows), split_rows)
+
+
 def halfstep_route(ppad: int) -> str:
     """Which kernel runs a half-step on the card at this Ppad: "one_build"
     (K8's kernel, each entry built once) up to HS_MAX_PPAD, "two_pass"
@@ -342,10 +379,11 @@ def pad_stream_operands(fa: torch.Tensor, fb: torch.Tensor):
 # therefore take the fp32 entries and accumulate in float64 within and
 # across chunks, rounding once at the end: the class of the CUDA kernels'
 # compensated sums (nle::kahan_add). K11's twin (out = K b, the two-pass
-# K9's w) sums its Ppad terms in float64 too: its kernel compensates each
-# row's sum, and on the streaming route b = u cancels. K8's one-sweep w
-# (at most Ppad terms) and the gram (as close to float64 as the
-# interpreted kernel's) stay fp32.
+# K9's w) sums its Ppad terms in float64 too. Since the kernels sum in
+# float64 as well (K8, K10, K11, the sample-basis gram), the twins are their
+# arithmetic: fp32 entries, float64 sums; ap and the gram are returned in
+# float64, K11's rows and x rounded once to fp32. The fp32 K12's twin (its
+# phi-chunk gram, off the training path) stays fp32.
 _ACC = torch.float64
 
 def _affinity_rows(fa_rows, fb_cols, lo: int, hi: int, sw, pw):
@@ -372,22 +410,23 @@ def streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
         x = mask[0]
     else:
         x = fb_cols.new_empty((qpad,))
+        u_acc = u_pad.to(_ACC)
     ap = fa_rows.new_zeros((ppad,), dtype=_ACC)
     for lo, hi in _chunks(fa_rows, fb_cols):
-        A = _affinity_rows(fa_rows, fb_cols, lo, hi, sw, pw)
+        A = _affinity_rows(fa_rows, fb_cols, lo, hi, sw, pw).to(_ACC)
         if not unit_x:
-            x[lo:hi] = safe_reciprocal(A @ u_pad, eps) * mask[0, lo:hi]
-        ap += x[lo:hi].to(_ACC) @ A.to(_ACC)
-    return x, ap.to(fa_rows.dtype)
+            x[lo:hi] = safe_reciprocal(A @ u_acc, eps) * mask[0, lo:hi]
+        ap += x[lo:hi].to(_ACC) @ A
+    return x, ap
 
 
 def streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad, sw, pw,
                                     eps):
-    """K9's plain twin, its two passes: x from each row's full w = K u,
-    then ap = K^T x over every row."""
-    w = streaming_atb_plain(fa_rows, fb_cols, u_pad, sw, pw)[0]
-    x = safe_reciprocal(w, eps) * mask[0]
-    return x, streaming_ap_plain(fa_rows, fb_cols, x[None], sw, pw)[0]
+    """K9's plain twin: its two passes' arithmetic is K8's (x from each
+    row's float64 w = K u, rounded once; ap = K^T x in float64), so it is
+    K8's twin."""
+    return streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw, pw,
+                                    eps)
 
 
 def streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw):
@@ -395,7 +434,7 @@ def streaming_ap_plain(fa_rows, fb_cols, x_rows, sw, pw):
     for lo, hi in _chunks(fa_rows, fb_cols):
         ap += x_rows[:, lo:hi].to(_ACC) @ _affinity_rows(
             fa_rows, fb_cols, lo, hi, sw, pw).to(_ACC)
-    return ap.to(fa_rows.dtype)
+    return ap
 
 
 def streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw):
@@ -408,6 +447,18 @@ def streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw):
         out[:, lo:hi] = b_acc @ _affinity_rows(fa_rows, fb_cols, lo, hi,
                                                sw, pw).to(_ACC).T
     return out
+
+
+def streaming_sample_gram_plain(fa_rows, fb_cols, c_row, sw, pw):
+    """H (Ppad, Ppad) = (diag(c) K)^T (diag(c) K) in float64 on the fp32
+    entries (the sample-basis gram's twin)."""
+    ppad = fa_rows.shape[1]
+    H = fa_rows.new_zeros((ppad, ppad), dtype=_ACC)
+    for lo, hi in _chunks(fa_rows, fb_cols):
+        ck = c_row[0, lo:hi, None].to(_ACC) * _affinity_rows(
+            fa_rows, fb_cols, lo, hi, sw, pw).to(_ACC)
+        H += ck.T @ ck
+    return H
 
 
 def streaming_scaled_gram_plain(fa_rows, fb_cols, c_row, uinv_pad, sw, pw):
@@ -436,15 +487,28 @@ def _check_rows(rows) -> None:
         raise ValueError(f"{rows.shape[0]} rows: K10/K11 take 1 to {MAX_ROWS}")
 
 
+def _mixed_on_card(f32_operands, vectors) -> bool:
+    """cuda_or_cpu for K8, K9 and K11: the features (and mask) fp32, the
+    vectors u or b fp32 or float64 (the kernels take them in float64)."""
+    on_card = cuda_or_cpu(*f32_operands, *vectors)
+    if on_card:
+        cuda_or_cpu(*f32_operands, dtype=torch.float32)
+        for v in vectors:
+            if v.dtype not in (torch.float32, torch.float64):
+                raise TypeError(f"kernel operand dtype {v.dtype}, expected "
+                                "torch.float32 or torch.float64")
+    return on_card
+
+
 def _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps, name,
                      route):
     """Launch the half-step on the card along route (halfstep_route's
-    names): K8's kernel on halfstep_plan, or K9's two passes."""
+    names): K8's kernel on halfstep_plan, or K9's two passes; u and ap
+    float64 either way."""
     lib = _build.load()
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
     dev = fb_cols.device
     x = torch.empty((qpad,), dtype=torch.float32, device=dev)
-    ap = torch.empty((ppad,), dtype=torch.float32, device=dev)
     if route == "one_build":
         entry, plan = lib.nle_stream_halfstep_onebuild, halfstep_plan(qpad,
                                                                       ppad)
@@ -456,7 +520,10 @@ def _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps, name,
             *atb_plan(qpad, ppad, 1), *apl)
         blocks = apl.blocks
         fb_cols = _aligned(fb_cols)
-    partial = torch.empty((blocks, ppad), dtype=torch.float32, device=dev)
+    f64 = torch.float64
+    u_pad = u_pad.to(f64).contiguous()
+    ap = torch.empty((ppad,), dtype=f64, device=dev)
+    partial = torch.empty((blocks, ppad), dtype=f64, device=dev)
     with torch.cuda.device(dev):
         status = entry(
             fb_cols.data_ptr(), fa_rows.data_ptr(), mask.data_ptr(),
@@ -475,16 +542,17 @@ def streaming_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
     past it unit_x runs K10 with x = mask, and a real half-step K9.
 
     fa_rows (3, Ppad), fb_cols (3, Qpad), mask (1, Qpad), u_pad (Ppad,) =
-    Uinv t zero-padded. Returns (x (Qpad,), ap (Ppad,)); pad columns of ap
-    are garbage the caller slices off. unit_x: x = mask, u unused (K10's
-    kernel on the mask, counted as K8's launch)."""
+    Uinv t zero-padded, fp32 or float64. Returns (x (Qpad,) fp32, ap
+    (Ppad,) float64); pad columns of ap are garbage the caller slices off.
+    unit_x: x = mask, u unused (K10's kernel on the mask, counted as K8's
+    launch)."""
     _check_layout(fa_rows, fb_cols)
     if fa_rows.shape[1] > MAX_STREAM_P_FUSED:
         if unit_x:
             return mask[0], streaming_ap(fa_rows, fb_cols, mask, sw, pw)[0]
         return streaming_halfstep_ptiled(fa_rows, fb_cols, mask, u_pad, sw,
                                          pw, eps)
-    if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
+    if not _mixed_on_card((fa_rows, fb_cols, mask), (u_pad,)):
         return streaming_halfstep_plain(fa_rows, fb_cols, mask, u_pad, sw,
                                         pw, eps, unit_x)
     if not unit_x:
@@ -500,7 +568,7 @@ def streaming_halfstep_ptiled(fa_rows, fb_cols, mask, u_pad, sw, pw, eps):
     mask * safe_recip(K u, eps), then ap (Ppad,) = K^T x. On the card K8's
     kernel up to HS_MAX_PPAD, two passes past it (halfstep_route)."""
     _check_layout(fa_rows, fb_cols)
-    if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
+    if not _mixed_on_card((fa_rows, fb_cols, mask), (u_pad,)):
         return streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad,
                                                sw, pw, eps)
     return _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
@@ -515,7 +583,7 @@ def two_pass_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps):
     yardstick chip_smoke holds K8's one-build kernel to at the same
     Ppad. On CPU tensors K9's plain version."""
     _check_layout(fa_rows, fb_cols)
-    if not cuda_or_cpu(fa_rows, fb_cols, mask, u_pad, dtype=torch.float32):
+    if not _mixed_on_card((fa_rows, fb_cols, mask), (u_pad,)):
         return streaming_halfstep_ptiled_plain(fa_rows, fb_cols, mask, u_pad,
                                                sw, pw, eps)
     return _halfstep_kernel(fa_rows, fb_cols, mask, u_pad, sw, pw, eps,
@@ -523,8 +591,8 @@ def two_pass_halfstep(fa_rows, fb_cols, mask, u_pad, sw, pw, eps):
 
 
 def streaming_ap(fa_rows, fb_cols, x_rows, sw, pw):
-    """ap (R, Ppad) = K^T x for x (R, Qpad), 1 <= R <= 3, zero on pad
-    columns (K10)."""
+    """ap (R, Ppad) float64 = K^T x for x (R, Qpad) fp32, 1 <= R <= 3, zero
+    on pad columns (K10: fp32 entries, float64 sums)."""
     _check_layout(fa_rows, fb_cols)
     _check_rows(x_rows)
     if not cuda_or_cpu(fa_rows, fb_cols, x_rows, dtype=torch.float32):
@@ -539,16 +607,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _ap_kernel(fa_rows, fb_cols, x_rows, sw, pw, name):
-    """K10's kernel on ap_plan: x (R, Qpad) -> ap (R, Ppad), counted under
-    name."""
+    """K10's kernel on ap_plan: x (R, Qpad) -> ap (R, Ppad) float64, counted
+    under name."""
     lib = _build.load()
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
     R = x_rows.shape[0]
     plan = ap_plan(qpad, ppad, R)
     dev = fb_cols.device
     fb_cols, x_rows = _aligned(fb_cols), _aligned(x_rows)
-    ap = torch.empty((R, ppad), dtype=torch.float32, device=dev)
-    partial = torch.empty((plan.blocks, R * ppad), dtype=torch.float32,
+    ap = torch.empty((R, ppad), dtype=torch.float64, device=dev)
+    partial = torch.empty((plan.blocks, R * ppad), dtype=torch.float64,
                           device=dev)
     with torch.cuda.device(dev):
         status = lib.nle_stream_ap(
@@ -561,14 +629,16 @@ def _ap_kernel(fa_rows, fb_cols, x_rows, sw, pw, name):
 
 
 def streaming_atb(fa_rows, fb_cols, b_rows, sw, pw):
-    """out (R, Qpad) = K b for b (R, Ppad) zero beyond the true p (K11),
+    """out (R, Qpad) fp32 = K b for b (R, Ppad) zero beyond the true p
+    (K11: fp32 entries, b and the sums float64, each row rounded once),
     1 <= R <= 3; a bare (Ppad,) vector gives (1, Qpad). Rows are
     independent."""
     _check_layout(fa_rows, fb_cols)
     b_rows = b_rows[None] if b_rows.ndim == 1 else b_rows
     _check_rows(b_rows)
-    if not cuda_or_cpu(fa_rows, fb_cols, b_rows, dtype=torch.float32):
+    if not _mixed_on_card((fa_rows, fb_cols), (b_rows,)):
         return streaming_atb_plain(fa_rows, fb_cols, b_rows, sw, pw)
+    b_rows = b_rows.to(torch.float64).contiguous()
     lib = _build.load()
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
     R = b_rows.shape[0]
@@ -584,10 +654,38 @@ def streaming_atb(fa_rows, fb_cols, b_rows, sw, pw):
     return out
 
 
+def streaming_sample_gram(fa_rows, fb_cols, c_row, sw, pw):
+    """H (Ppad, Ppad) float64 = (diag(c) K)^T (diag(c) K) over the rest
+    rows (K12's float64 form: fp32 entries, float64 products and sums), so
+    Sb = Uinv^T H Uinv without phi. c_row (1, Qpad) fp32, zero on pad
+    columns. Pad sample columns of H hold finite garbage the caller's zero
+    Uinv rows drop. Counted as K12's launch."""
+    _check_layout(fa_rows, fb_cols)
+    if not cuda_or_cpu(fa_rows, fb_cols, c_row, dtype=torch.float32):
+        return streaming_sample_gram_plain(fa_rows, fb_cols, c_row, sw, pw)
+    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    plan = stream_sample_gram_plan(qpad, ppad)
+    lib = _build.load()
+    dev = fb_cols.device
+    f64 = torch.float64
+    partial = torch.empty(plan.scratch_bytes // 8, dtype=f64, device=dev)
+    H = torch.empty((ppad, ppad), dtype=f64, device=dev)
+    with torch.cuda.device(dev):
+        status = lib.nle_stream_sample_gram(
+            fb_cols.data_ptr(), fa_rows.data_ptr(), c_row.data_ptr(),
+            partial.data_ptr(), H.data_ptr(), qpad, ppad, *plan, float(sw),
+            float(pw), _build.stream_ptr(fb_cols))
+    _build.check(status, "streaming_gram")
+    _build.count_launch("streaming_gram")
+    return H
+
+
 def streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw, *,
                           keep_phi: bool = False):
     """Sb (Mpad, Mpad) = (c phi_rest)^T (c phi_rest), phi_rest = K Uinv
-    recomputed per row chunk (K12). c_row (1, Qpad) is zero on pad
+    recomputed per row chunk, all fp32 (K12's fp32 form; the training
+    routes take its float64 form, streaming_sample_gram, since the fp32
+    phi loses Sb's small directions). c_row (1, Qpad) is zero on pad
     columns; uinv_pad (Ppad, Mpad), Mpad a 64 multiple (on the card a 128
     multiple). On the card the rows go in stream_gram_plan's chunks;
     keep_phi also returns the phi rows of the last chunk, pixel rows
@@ -633,18 +731,21 @@ def streaming_scaled_gram(fa_rows, fb_cols, c_row, uinv_pad, sw, pw, *,
 
 def streaming_loop(halfstep, ap0, Um, lam_m, ppad: int, max_iter: int,
                    eps: float):
-    """The streaming Sinkhorn loop around a half-step (u_pad (Ppad,) f32 ->
-    (x_rest, ap)) and the s0 pass's ap0 = K^T 1: returns (r_top, r_rest,
-    c_top, c_rest), f32.
+    """The streaming Sinkhorn loop around a half-step (u_pad (Ppad,)
+    float64 -> (x_rest, ap)) and the s0 pass's ap0 = K^T 1: returns (r_top,
+    r_rest, c_top, c_rest), the top rows (the p samples) float64, the rest
+    as the half-step gives them (fp32).
 
     The p-row projections around each half-step (u = Uinv t, x_top =
-    safe_recip(Um t), s = Um^T x_top + Uinv^T ap) run in float64 on the
-    f32 stage-1 values, with Uinv = Um / lambda formed in float64. With
-    eigenvalues down to 1e-10 s carries 1/lambda, and fp32 rounding of
-    these small products, repeated every half-step, moved the loop's c
-    2-10x further from its float64 twin than the kernels' own rounding does
-    (PERF.md); in float64 they cost a few p x m matvecs a half-step.
-    The JAX package runs them in fp32."""
+    safe_recip(Um t), s = Um^T x_top + Uinv^T ap) run in float64, with
+    Uinv = Um / lambda formed in float64, and u goes to the half-step in
+    float64. With eigenvalues down to 1e-10 s carries 1/lambda, and fp32
+    rounding of these small products, repeated every half-step, moved the
+    loop's c 2-10x further from its float64 twin than the kernels' own
+    rounding does (PERF.md); in float64 they cost a few p x m matvecs a
+    half-step. Give Um and lam_m in float64 (stage 1's own values): their
+    fp32 rounding moves c ~4e-6 from the float64 loop's, against ~5e-8
+    (PERF.md). The JAX package runs them in fp32."""
     f64 = torch.float64
     p = Um.shape[0]
     Um64 = Um.to(f64)
@@ -653,11 +754,10 @@ def streaming_loop(halfstep, ap0, Um, lam_m, ppad: int, max_iter: int,
     Uinv64 = torch.where(keep, Um64 / torch.where(keep, lam64, 1.0), 0.0)
 
     def half(t):
-        u_pad = torch.nn.functional.pad((Uinv64 @ t).float(), (0, ppad - p))
+        u_pad = torch.nn.functional.pad(Uinv64 @ t, (0, ppad - p))
         x_top = safe_reciprocal(Um64 @ t, eps)
         x_rest, ap = halfstep(u_pad.contiguous())
-        return (x_top.float(), x_rest,
-                Um64.T @ x_top + Uinv64.T @ ap[:p].to(f64))
+        return x_top, x_rest, Um64.T @ x_top + Uinv64.T @ ap[:p].to(f64)
 
     s = Um64.sum(dim=0) + Uinv64.T @ ap0[:p].to(f64)
     r_top = r_rest = c_top = c_rest = None
@@ -668,14 +768,16 @@ def streaming_loop(halfstep, ap0, Um, lam_m, ppad: int, max_iter: int,
 
 
 def streaming_sinkhorn_vectors(fa, fb, Um, lam_m, max_iter: int,
-                               eps: float, sw, pw):
+                               eps: float, sw, pw, top64: bool = False):
     """Sinkhorn balancing without phi: (r, c), each (N,) in packed
     [selected; rest] order for N = p + q. The p sampled rows of phi are Um
     (float64 projections, streaming_loop, which forms Uinv = Um / lam in
-    float64, so nle_tpu's f32 Uinv argument is not taken); the rest
-    rows are recomputed every half-step by K8 (K9 past Ppad 1792), after
-    one unit_x pass for s0 = phi^T 1 (K10 past 1792): 1 + 2 max_iter
-    launches."""
+    float64, so nle_tpu's f32 Uinv argument is not taken; Um and lam_m are
+    best stage 1's float64 values); the rest rows are recomputed every
+    half-step by K8 (K9 past Ppad 1792), after one unit_x pass for s0 =
+    phi^T 1 (K10 past 1792): 1 + 2 max_iter launches. The vectors are fp32;
+    top64 also returns the p top rows of r and c in float64 (the host
+    chain's Wa is built from them)."""
     p = Um.shape[0]
     q = fb.shape[0]
     fa_rows, fb_cols, mask = pad_stream_operands(fa, fb)
@@ -684,9 +786,14 @@ def streaming_sinkhorn_vectors(fa, fb, Um, lam_m, max_iter: int,
                                 fa_rows.new_zeros((ppad,)), sw, pw, eps,
                                 unit_x=True)
     if max_iter < 1:
-        return (torch.cat([fa_rows.new_ones((p,)), fb_cols.new_ones((q,))]),
-                fa_rows.new_zeros((p + q,)))
+        r = torch.cat([fa_rows.new_ones((p,)), fb_cols.new_ones((q,))])
+        c = fa_rows.new_zeros((p + q,))
+        if top64:
+            return r, c, r[:p].double(), c[:p].double()
+        return r, c
     r_top, r_rest, c_top, c_rest = streaming_loop(
         lambda u: streaming_halfstep(fa_rows, fb_cols, mask, u, sw, pw, eps),
         ap0, Um, lam_m, ppad, max_iter, eps)
-    return (torch.cat([r_top, r_rest[:q]]), torch.cat([c_top, c_rest[:q]]))
+    r = torch.cat([r_top.float(), r_rest[:q]])
+    c = torch.cat([c_top.float(), c_rest[:q]])
+    return (r, c, r_top, c_top) if top64 else (r, c)

@@ -29,6 +29,7 @@ from nle_tpu_torch.ops.linalg import (
     safe_rsqrt,
     topk_eigendecomposition,
 )
+from nle_tpu_torch.utils.logging import chain_log
 
 
 def _scaled_congruence(B: np.ndarray, sb: np.ndarray) -> np.ndarray:
@@ -56,7 +57,7 @@ def host_chain64(wa, rga, sb, k: int, eps: float, q_solver: str = "auto"):
     sb may be a zero-arg callable, resolved after eig(Wa) + E.
     q_solver: "auto" (ARPACK top-k when m >= 128 and 4k <= m, else full
     LAPACK), "evd" or "topk". Returns float64 (Va (m, k), GrT (m, k),
-    Sq (k,))."""
+    Sq (k,)). Logs one chain_log record with the counts above eps."""
     wa = np.asarray(wa, np.float64)
     rga = np.asarray(rga, np.float64)
     m = wa.shape[0]
@@ -102,6 +103,10 @@ def host_chain64(wa, rga, sb, k: int, eps: float, q_solver: str = "auto"):
         lq = np.where(lq >= eps, lq, 0.0)
         Vq[:, : min(k, m)] = Uq[:, :k]
         Sq[: min(k, m)] = lq[:k]
+    wa_kept, q_kept = int(np.count_nonzero(d)), int(np.count_nonzero(Sq))
+    chain_log.info("host chain: %d eigenvalues of Wa and %d of Q above eps "
+                   "(k = %d)", wa_kept, q_kept, k,
+                   extra={"wa_kept": wa_kept, "q_kept": q_kept, "k": k})
     X = d[:, None] * (Vq * rsqrt_safe(Sq)[None, :])
     T = Uw @ X
     va = wa @ T

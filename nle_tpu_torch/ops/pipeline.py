@@ -79,7 +79,7 @@ from nle_tpu_torch.ops.kernels.streaming_kernel import (
     pad_stream_operands,
     streaming_ap,
     streaming_atb,
-    streaming_scaled_gram,
+    streaming_sample_gram,
     streaming_sinkhorn_vectors,
 )
 from nle_tpu_torch.ops.linalg import (
@@ -355,33 +355,60 @@ def _masked_top(c, Um, p: int, m: int):
     return _rest_scaling(c[:p], m) * Um
 
 
-def train_filter_stage2a_streaming(y, rr, cc, stage1, sw, pw, *, p: int,
-                                   m: int, mb: int, n_sinkhorn_iter: int,
-                                   eps: float):
+def train_filter_stage2a_streaming(y, rr, cc, sw, pw, *, p: int, m: int,
+                                   n_sinkhorn_iter: int, eps: float,
+                                   stage1_64):
     """phi-free device half 1 (port of nle_tpu train_filter_stage2a_
-    streaming): Sinkhorn through K8 (K9 past 1792 samples) and the
-    rest-block Sb gram through K12 (which also stands in for the JAX
-    package's XLA gram on dense grids), all recomputing the affinity from
-    the features, so the (N, m) phi never exists. Returns (rc (2, mb) =
-    [r; c], Sb (mb, mb), c (N,))."""
-    Um, lam_m, Uinv = _unpack_stage1(stage1, p)
+    streaming): Sinkhorn through K8 (K9 past 1792 samples) and the Sb gram
+    through K12's float64 form, all recomputing the affinity from the
+    features, so the (N, m) phi never exists. stage1_64 is stage 1's (Um
+    (p, m), lam (m,)) in float64 on the host: the Sinkhorn loop's
+    projections and Sb = Uinv^T H Uinv take these, not an fp32 rounding of
+    them.
+
+    Every sum that Wa's and Q's small eigenvalues read is float64 (K8's,
+    the loop's, K12's and Sb's congruence; PERF.md): the fp32 entries stay.
+    Returns (rc (2, p) = the top rows of r and c, and Sb (m, m), both
+    float64 on the host, and c (N,) fp32 on the device). The span
+    "Streaming Sinkhorn" holds the loop up to the host's copy of r and c,
+    "Streaming gram" K12 up to the host's copy of Sb, so each lasts as long
+    as its device work."""
     f = features(rr, cc, y)
     fa, fb = f[:p], f[p:]
-    r, c = streaming_sinkhorn_vectors(fa, fb, Um, lam_m, n_sinkhorn_iter,
-                                      eps, sw, pw)
-    # Rows m..p of the gram come from the stored Um block (rows < m are
-    # masked to exact zeros); rows p..N are streamed.
-    cu = _masked_top(c, Um, p, m)
-    fa_rows, fb_cols, _ = pad_stream_operands(fa, fb)
-    del f, fa, fb
-    q = y.shape[0] - p
-    qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
-    mpad = round_up(mb, 128)
-    c_row = torch.nn.functional.pad(c[p:], (0, qpad - q))[None]
-    uinv_pad = torch.nn.functional.pad(Uinv, (0, mpad - mb, 0, ppad - p))
-    Sb = cu.T @ cu + streaming_scaled_gram(fa_rows, fb_cols, c_row,
-                                           uinv_pad, sw, pw)[:mb, :mb]
-    return torch.stack([r[:mb], c[:mb]]), Sb, c
+    with span("Streaming Sinkhorn"):
+        um64, lam64 = (upload(np.ascontiguousarray(a, np.float64), y.device)
+                       for a in stage1_64)
+        _, c, r_top, c_top = streaming_sinkhorn_vectors(
+            fa, fb, um64, lam64, n_sinkhorn_iter, eps, sw, pw, top64=True)
+        rc_np = Fetch(torch.stack([r_top, c_top])).result()
+    with span("Streaming gram"):
+        # Rows m..p of the gram come from the stored Um block (rows < m are
+        # masked to exact zeros); rows p..N are streamed as H.
+        cu = _masked_top(c_top, um64, p, m)
+        fa_rows, fb_cols, _ = pad_stream_operands(fa, fb)
+        del f, fa, fb
+        q = y.shape[0] - p
+        c_row = torch.nn.functional.pad(c[p:],
+                                        (0, fb_cols.shape[1] - q))[None]
+        H = streaming_sample_gram(fa_rows, fb_cols, c_row, sw, pw)[:p, :p]
+        uinv64 = um64 / lam64[None, :]
+        Sb = cu.T @ cu + uinv64.T @ H @ uinv64
+        sb_np = Fetch(Sb).result()
+    return rc_np, sb_np, c
+
+
+def factored_pieces64(rc_np, va_np, Um64, lam64, m: int, k: int):
+    """The V-free factored filter's small matrices in float64 on the host
+    (p x m x k work): V_head (p, k), the sampled-pixel rows of V (diag(c)
+    Um GrT with rows < m masked, plus Va on rows < m), and W = Uinv GrT
+    (p, k), the tail generator: V_rest = diag(c_rest) K W. rc_np (2, p)
+    holds the top rows of [r; c]; va_np (>= m, 2k) is [Va | GrT]."""
+    Va, GrT = va_np[:m, :k], va_np[:m, k:2 * k]
+    cu = rc_np[1][:, None] * Um64
+    cu[:m] = 0.0
+    V_head = cu @ GrT
+    V_head[:m] += Va
+    return V_head, (Um64 / lam64[None, :]) @ GrT
 
 
 # -- host side between stage 2a and 2b ---------------------------------------
@@ -516,27 +543,14 @@ def apply_filter(eigvecs: torch.Tensor, f_eigvals: torch.Tensor,
 
 # -- the phi-free stage 2b and the V-free factored filter --------------------
 
-def factored_filter_pieces(stage1, c, va_grt, *, p: int, m: int, mb: int):
-    """The small matrices of the V-free factored filter: V_head (p, k), the
-    sampled-pixel rows of V (diag(c) Um GrT with rows < m masked, plus the
-    host Va on rows < mb), and W = Uinv GrT (p, k), the tail generator:
-    V_rest = diag(c_rest) K W. va_grt is the (mb, 2k) [Va | GrT] upload."""
-    Um, _, Uinv = _unpack_stage1(stage1, p)
-    k = va_grt.shape[1] // 2
-    Va, GrT = va_grt[:, :k], va_grt[:, k:]
-    V_head = _masked_top(c, Um, p, m) @ GrT
-    V_head[:mb] += Va
-    return V_head, Uinv @ GrT
-
-
-def train_filter_stage2b_streaming(y, rr, cc, stage1, sw, pw, c, va_grt, *,
-                                   p: int, m: int, mb: int):
+def train_filter_stage2b_streaming(y, rr, cc, sw, pw, c, V_head, W, *,
+                                   p: int):
     """phi-free device half 2: V (N, k) in packed order, [V_head;
     diag(c_rest) K W], the tail one K1 call with the small right factor
-    W = Uinv GrT (p, k). K1's padded (Qpad, 128) output is the peak of this
-    stage (~512 B/pixel); the TPU's slab-chunked build, made for its lane
+    W = Uinv GrT (p, k); V_head and W are factored_pieces64's, in fp32 on
+    the device. K1's padded (Qpad, 128) output is the peak of this stage
+    (~512 B/pixel); the TPU's slab-chunked build, made for its lane
     padding, is not ported."""
-    V_head, W = factored_filter_pieces(stage1, c, va_grt, p=p, m=m, mb=mb)
     f = features(rr, cc, y)
     tail = affinity_matmul(f[:p], f[p:], W, sw, pw)
     return torch.cat([V_head, c[p:, None] * tail], dim=0)
@@ -548,12 +562,16 @@ def factored_apply(y, y_train, rr, cc, c, v_head, w, f_eigvals, sw, pw, *,
     are regenerated from the training features, by K10 for the projection
     V^T y and K11 for the output. y is (N,) or (C, N) packed float (the
     channels ride the same two passes as kernel rows); y_train (N,) is the
-    training channel. Returns y's shape."""
+    training channel. The (p, k) algebra between the passes is float64 (W
+    = Uinv GrT carries 1/lambda and cancels; K10's ap and K11's sums are
+    float64 too). Returns y's shape, fp32."""
     ft = features(rr, cc, y_train)
     fa_rows, fb_cols, _ = pad_stream_operands(ft[:p], ft[p:])
     del ft
     q = y_train.shape[0] - p
     qpad, ppad = fb_cols.shape[1], fa_rows.shape[1]
+    f64 = torch.float64
+    v_head, w = v_head.to(f64), w.to(f64)
     y = y.to(torch.float32)
     one_d = y.ndim == 1
     if one_d:
@@ -561,10 +579,12 @@ def factored_apply(y, y_train, rr, cc, c, v_head, w, f_eigvals, sw, pw, *,
     cy = torch.nn.functional.pad(c[None, p:] * y[:, p:], (0, qpad - q))
     ap = streaming_ap(fa_rows, fb_cols, cy, sw, pw)[:, :p]        # (C, p)
     del cy
-    t = (y[:, :p] @ v_head + ap @ w) * f_eigvals[None]           # (C, k)
+    t = ((y[:, :p].to(f64) @ v_head + ap.to(f64) @ w)
+         * f_eigvals.to(f64)[None])                              # (C, k)
     b = torch.nn.functional.pad(t @ w.T, (0, ppad - p))
     tail = streaming_atb(fa_rows, fb_cols, b.contiguous(), sw, pw)[:, :q]
-    out = torch.cat([t @ v_head.T, c[None, p:] * tail], dim=1)
+    out = torch.cat([(t @ v_head.T).to(torch.float32), c[None, p:] * tail],
+                    dim=1)
     return out[0] if one_d else out
 
 
@@ -822,6 +842,11 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
                              p=p, m=m, n_sinkhorn_iter=n_sinkhorn_iter,
                              n_eig_vectors=n_eig_vectors, eps=eps,
                              edit_weights=edit_weights)
+    elif kernels and resolve_streaming(streaming, dev, n, mb):
+        out = _train_streaming(y, rr, cc, sw, pw, Um64, lam64, p=p, m=m,
+                               mb=mb, n_sinkhorn_iter=n_sinkhorn_iter,
+                               n_eig_vectors=n_eig_vectors, eps=eps,
+                               edit_weights=edit_weights)
     else:
         stage1_dev = (pack_stage1_device(Um_d, lam_d, mb) if Um_d is not None
                       else upload(pack_stage1(Um64, lam64, mb=mb), dev))
@@ -831,12 +856,6 @@ def train_filter(channel, n_row_samples: int, n_col_samples: int, hx: float,
                                n_sinkhorn_iter=n_sinkhorn_iter,
                                n_eig_vectors=n_eig_vectors, eps=eps,
                                packed_y=packed_y, edit_weights=edit_weights)
-        elif resolve_streaming(streaming, dev, n, mb):
-            out = _train_streaming(y, rr, cc, stage1_dev, sw, pw, Um64,
-                                   lam64, p=p, m=m, mb=mb,
-                                   n_sinkhorn_iter=n_sinkhorn_iter,
-                                   n_eig_vectors=n_eig_vectors, eps=eps,
-                                   edit_weights=edit_weights)
         else:
             with stage("Nystrom approximation + Sinkhorn"):
                 frame = submit_dense(y, rr, cc, stage1_dev, sw, pw, Um64,
@@ -1024,27 +1043,28 @@ def resolve_streaming(streaming: bool | None, device: torch.device, n: int,
     return 4 * npad * mpad > stream_bytes_limit(device)
 
 
-def _train_streaming(y, rr, cc, stage1, sw, pw, Um64, lam64, *,
+def _train_streaming(y, rr, cc, sw, pw, Um64, lam64, *,
                      p: int, m: int, mb: int, n_sinkhorn_iter: int,
                      n_eig_vectors: int, eps: float, edit_weights):
     """train_filter's phi-free branch: streaming stage 2a (K8, K12), the
-    host f64 chain, and the streaming stage 2b (K1 with W = Uinv GrT)."""
+    host f64 chain and pieces (factored_pieces64), and the streaming stage
+    2b (K1 with W = Uinv GrT)."""
     logger.info("using the phi-free streaming stage 2 (%d pixels, m = %d)",
                 y.shape[0], m)
     with stage("Nystrom approximation + Sinkhorn"):
-        rc, sb, c = train_filter_stage2a_streaming(
-            y, rr, cc, stage1, sw, pw, p=p, m=m, mb=mb,
-            n_sinkhorn_iter=n_sinkhorn_iter, eps=eps)
-        rc_np = Fetch(rc).result().astype(np.float64)
+        rc_np, sb_np, c = train_filter_stage2a_streaming(
+            y, rr, cc, sw, pw, p=p, m=m, n_sinkhorn_iter=n_sinkhorn_iter,
+            eps=eps, stage1_64=(Um64, lam64))
     k = min(n_eig_vectors, m)
     with stage("Orthogonalize"):
-        sb_np = Fetch(sb).result().astype(np.float64)
         check_nans("rc/Sb", rc_np, sb_np)
         va_np, Sq = host_orthogonalize(rc_np, sb_np, Um64, lam64, m, mb, k,
                                        eps)
-        va_grt = upload(va_np.astype(np.float32), y.device)
+        V_head, W = (upload(a.astype(np.float32), y.device)
+                     for a in factored_pieces64(rc_np, va_np, Um64, lam64, m,
+                                                k))
         S = upload(Sq.astype(np.float32), y.device)
     with stage("Stage 2b"):
-        V = train_filter_stage2b_streaming(y, rr, cc, stage1, sw, pw, c,
-                                           va_grt, p=p, m=m, mb=mb)
+        V = train_filter_stage2b_streaming(y, rr, cc, sw, pw, c, V_head, W,
+                                           p=p)
         return _stage2_outputs(V, S, edit_weights, y)

@@ -36,7 +36,8 @@ routes do (ops/pipeline.py):
   block's Sb term; stage 2b is K7 on the rank's phi_b;
 - phi-free (`_train_2a_streaming`): K8 (K9 past Ppad 1792) inside the
   single-card loop (streaming_loop, its p-row projections in float64) and
-  K12 for Sb; stage 2b is K1 times c, or nothing for a factored filter;
+  K12's float64 form for Sb; stage 2b is K1 times c, or nothing for a
+  factored filter;
 - the factored apply: K10 and K11 on the rank's rows.
 
 Collectives: all_reduce and broadcast only, the two that both NCCL and
@@ -78,7 +79,7 @@ from nle_tpu_torch.ops.kernels.streaming_kernel import (
     streaming_atb,
     streaming_halfstep,
     streaming_loop,
-    streaming_scaled_gram,
+    streaming_sample_gram,
 )
 from nle_tpu_torch.ops.pipeline import (
     _masked_top,
@@ -403,14 +404,17 @@ def _train_2a(Um, lam_m, Uinv, m: int, fa, fb, *, p: int, mb: int,
     return rp, cp, Sb, phib, cb, crush
 
 
-def _train_2a_streaming(Um, lam_m, Uinv, m: int, fa, fb, *, p: int, mb: int,
-                        n_iter: int, eps: float, sw, pw, mesh: RankMesh):
+def _train_2a_streaming(m: int, fa, fb, *, p: int, n_iter: int, eps: float,
+                        sw, pw, mesh: RankMesh, stage1_64):
     """The phi-free body on the rank's rows (nle_tpu's
     _train_2a_streaming): the single-card loop streaming_loop (its p-row
-    projections in float64) around K8 (K9 past Ppad 1792) on the rank's
-    rows, each half-step's ap (p,) all_reduced in float64, after the s0
-    pass; K12 gives Sb's rest term. Returns (r_top, c_top, Sb, c_rest)
-    with c_rest the rank's valid rows."""
+    projections in float64, on stage1_64 = stage 1's float64 (Um, lam) on
+    the rank's device) around K8 (K9 past Ppad 1792) on the rank's rows,
+    each half-step's ap (p,) all_reduced in float64, after the s0 pass;
+    K12's float64 form gives the rank's H, and its share of Sb's rest term,
+    Uinv^T H Uinv in float64, is all_reduced. Returns (r_top, c_top
+    float64, Sb (m, m) float64, c_rest) with c_rest the rank's valid
+    rows."""
     fa_rows, fb_cols, mask = pad_stream_operands(fa, fb)
     q, qpad, ppad = fb.shape[0], fb_cols.shape[1], fa_rows.shape[1]
 
@@ -424,14 +428,14 @@ def _train_2a_streaming(Um, lam_m, Uinv, m: int, fa, fb, *, p: int, mb: int,
         rp, cp = fa.new_ones((p,)), fa.new_zeros((p,))
         c_rest = fb_cols.new_zeros((qpad,))
     else:
-        rp, _, cp, c_rest = streaming_loop(halfstep, ap0, Um, lam_m, ppad,
+        rp, _, cp, c_rest = streaming_loop(halfstep, ap0, *stage1_64, ppad,
                                            n_iter, eps)
-    cu = _masked_top(cp, Um, p, m)
-    mpad = round_up(mb, 128)
+    um64, lam64 = stage1_64
+    cu = _masked_top(cp, um64, p, m)
     c_row = torch.nn.functional.pad(c_rest[:q], (0, qpad - q))[None]
-    uinv_pad = torch.nn.functional.pad(Uinv, (0, mpad - mb, 0, ppad - p))
-    Sb = cu.T @ cu + _psum(streaming_scaled_gram(
-        fa_rows, fb_cols, c_row, uinv_pad, sw, pw)[:mb, :mb], mesh)
+    uinv64 = um64 / lam64[None, :]
+    H = streaming_sample_gram(fa_rows, fb_cols, c_row, sw, pw)[:p, :p]
+    Sb = cu.T @ cu + _psum(uinv64.T @ H @ uinv64, mesh)
     return rp, cp, Sb, c_rest[:q]
 
 
@@ -461,13 +465,14 @@ def factored_from_pieces(channel, grid, hx, hy, cp, c_rest, top, W, Sq):
     dev = c_rest.device
     y_train, _ = pack_channel(np.asarray(channel), grid.perm)
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    def as_dev(a, dtype):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
 
     return FactoredFilter(
         y_train=y_train, c=torch.cat([cp.to(torch.float32), c_rest]),
-        v_head=f32(top), w=f32(W), eigvals=f32(Sq), nrows=grid.nrows,
-        ncols=grid.ncols, hx=float(hx), hy=float(hy), perm=grid.perm)
+        v_head=as_dev(top, np.float64), w=as_dev(W, np.float64),
+        eigvals=as_dev(Sq, np.float32), nrows=grid.nrows, ncols=grid.ncols,
+        hx=float(hx), hy=float(hy), perm=grid.perm)
 
 
 def _stage1_once(channel: np.ndarray, grid, hx, hy, eps: float,
@@ -506,8 +511,11 @@ def train_element(channel: np.ndarray, grid, Um64, lam64, *, m: int, mb: int,
     Um, lam_m, Uinv = _unpack_stage1(stage1, p)
     body = dict(p=p, mb=mb, n_iter=n_iter, eps=eps, sw=sw, pw=pw, mesh=mesh)
     if streaming:
-        rp, cp, Sb, c_rest = _train_2a_streaming(Um, lam_m, Uinv, m, fa, fb,
-                                                 **body)
+        stage1_64 = [upload(np.ascontiguousarray(a, np.float64), dev)
+                     for a in (Um64, lam64)]
+        rp, cp, Sb, c_rest = _train_2a_streaming(
+            m, fa, fb, p=p, n_iter=n_iter, eps=eps, sw=sw, pw=pw, mesh=mesh,
+            stage1_64=stage1_64)
     else:
         int16 = _sharded_int16(dev)
         rp, cp, Sb, phib, cb, crush = _train_2a(
@@ -534,7 +542,7 @@ def train_element(channel: np.ndarray, grid, Um64, lam64, *, m: int, mb: int,
         cp64 = Fetch(cp).result().astype(np.float64)
         va_np, Sq, GrT, top = element_host_chain(
             rp64, cp64, lambda: sb_fetch.result(), Um64, lam64, m, mb,
-            k_chain, eps)
+            k_chain, eps, dtype=np.float64 if factored else np.float32)
         pieces = [va_np, Sq, top]
         if factored:
             pieces.append((Um64 / lam64[None, :]) @ GrT)
@@ -679,18 +687,25 @@ def train_filter_sharded(channels, n_row_samples: int, n_col_samples: int,
         for i in range(b):
             f = mine.get(i) if src_row[i] == row else None
             if n_data > 1:
-                # One broadcast a filter: [c; v_head; w; eigvals].
+                # One fp32 broadcast a filter: [v_head; w; c; eigvals], the
+                # float64 (p, k) pieces carried bit for bit as fp32 pairs.
                 k = min(n_eig_vectors, int(ms[i]))
-                buf = (torch.cat([f.c, f.v_head.reshape(-1), f.w.reshape(-1),
-                                  f.eigvals]) if f is not None else
-                       torch.empty(n + 2 * p * k + k, device=dev))
+                f32, f64 = torch.float32, torch.float64
+                pk = 2 * p * k          # fp32 words of the two pieces
+                buf = (torch.cat([
+                    torch.cat([f.v_head.reshape(-1), f.w.reshape(-1)]).to(
+                        f64).view(f32), f.c.to(f32), f.eigvals.to(f32)])
+                       if f is not None else
+                       torch.empty(2 * pk + n + k, device=dev))
                 _bcast_data(buf, src_row[i], mesh)
                 if f is None:
+                    pieces = buf[:2 * pk].view(f64)
                     f = FactoredFilter(
                         y_train=pack_channel(channels[i], grid.perm)[0],
-                        c=buf[:n], v_head=buf[n:n + p * k].view(p, k),
-                        w=buf[n + p * k:n + 2 * p * k].view(p, k),
-                        eigvals=buf[n + 2 * p * k:], nrows=nrows,
+                        c=buf[2 * pk:2 * pk + n],
+                        v_head=pieces[:p * k].view(p, k),
+                        w=pieces[p * k:].view(p, k),
+                        eigvals=buf[2 * pk + n:], nrows=nrows,
                         ncols=ncols, hx=float(hx), hy=float(hy),
                         perm=grid.perm)
             filters.append(f)
@@ -768,14 +783,16 @@ def apply_filter_factored_sharded(flt, channel, transformed_eigvals,
     y = channel_np.reshape(-1).astype(np.float32)[flt.perm]
     y_rest = torch.nn.functional.pad(upload(y[p + lo:p + hi], dev),
                                      (0, qpad - (hi - lo)))
+    f64 = torch.float64
     ap = streaming_ap(fa_rows, fb_cols, c_row * y_rest[None], sw, pw)
-    proj_rest = _psum((ap[:, :p] @ flt.w.to(dev))[0], mesh)
-    fS = torch.as_tensor(transformed_eigvals).to(dev, torch.float32)
-    v_head = flt.v_head.to(dev)
-    proj = upload(y[:p], dev) @ v_head + proj_rest
+    w = flt.w.to(dev, f64)
+    proj_rest = _psum((ap[:, :p].to(f64) @ w)[0], mesh)
+    fS = torch.as_tensor(transformed_eigvals).to(dev, f64)
+    v_head = flt.v_head.to(dev, f64)
+    proj = upload(y[:p], dev).to(f64) @ v_head + proj_rest
     t = fS * proj
-    out_head = v_head @ t
-    b = torch.nn.functional.pad(flt.w.to(dev) @ t, (0, ppad - p))
+    out_head = (v_head @ t).to(torch.float32)
+    b = torch.nn.functional.pad(w @ t, (0, ppad - p))
     tail = streaming_atb(fa_rows, fb_cols, b[None].contiguous(), sw, pw)
     out_l = torch.nn.functional.pad((c_row * tail)[0, :hi - lo],
                                     (0, nb_local - (hi - lo)))

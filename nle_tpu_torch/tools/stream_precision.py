@@ -193,9 +193,9 @@ def sinkhorn_loop(torch, halfstep, s0_ap, Um, lam, Uinv, q, ppad, iters,
         u = torch.nn.functional.pad(Uinv @ t, (0, ppad - p)).contiguous()
         x_top = safe_reciprocal(Um @ t, eps)
         x_rest, ap = halfstep(u)
-        return x_top, x_rest, Um.T @ x_top + Uinv.T @ ap[:p]
+        return x_top, x_rest, Um.T @ x_top + Uinv.T @ ap[:p].to(Um.dtype)
 
-    s = Um.sum(dim=0) + Uinv.T @ s0_ap()[:p]
+    s = Um.sum(dim=0) + Uinv.T @ s0_ap()[:p].to(Um.dtype)
     for _ in range(iters):
         c_top, c_rest, s = half(lam * s)
         r_top, _, s = half(lam * s)

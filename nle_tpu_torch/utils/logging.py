@@ -23,6 +23,11 @@ logger = logging.getLogger("nle_tpu_torch")
 # `retrained`): how a caller (tools/bench.py) counts the frames that
 # retrained through the f32 carrier without a change to any return value.
 carrier_log = logging.getLogger("nle_tpu_torch.carrier")
+# One INFO record per train's host chain (ops/orthogonalize.py host_chain64),
+# built like the carrier's: the counts above eps as record attributes,
+# `wa_kept` (eigenvalues of Wa), `q_kept` (eigenpairs of Q kept, at most k)
+# and `k` (the eigenvectors asked for, capped at m).
+chain_log = logging.getLogger("nle_tpu_torch.chain")
 
 
 def span(name: str):

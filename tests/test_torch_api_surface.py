@@ -26,6 +26,10 @@ ACCOUNTED = {
     "config.py:enable_persistent_cache": LEFT_BEHIND,
     "ops/affinity.py:affinity_matmul_xla":
         "renamed to ops/kernels/affinity_kernel.py:affinity_matmul_plain",
+    # The port builds the pieces in float64 on the host (the kept-rank
+    # repair of the factored route).
+    "ops/pipeline.py:factored_filter_pieces":
+        "renamed to ops/pipeline.py:factored_pieces64",
     "ops/pipeline.py:resolve_sb_tri": LEFT_BEHIND,
     "ops/pipeline.py:submit_sb_fetch": LEFT_BEHIND,
     "ops/pipeline.py:train_filter_stage2b_edit":

@@ -156,6 +156,72 @@ def test_gram_plan_raises_on_shapes_the_kernels_cannot_take(qpad, ppad,
         tsk.stream_gram_plan(qpad, ppad, mpad, chunk)
 
 
+# -- K12's float64 form: stream_sample_gram_plan ---------------------------
+
+@pytest.mark.parametrize("qpad,ppad", sorted({s[:2] for s in GRAM_SHAPES}))
+def test_sample_gram_plan_covers_rows_and_tiles_once(qpad, ppad):
+    """The sample-basis gram's splits cover every row once in whole
+    GS_ROWS steps (all but the last full), its tiles are H's lower
+    GS_TILE tiles, and the grid reaches GS_BLOCKS blocks where the rows
+    allow it."""
+    plan = tsk.stream_sample_gram_plan(qpad, ppad)
+    nt = ppad // tsk.GS_TILE
+    assert plan.tiles == nt * (nt + 1) // 2
+    assert plan.split_rows % tsk.GS_ROWS == 0
+    a = [k * plan.split_rows for k in range(plan.nsplit)]
+    assert _covered_once(a, [min(x + plan.split_rows, qpad) for x in a],
+                         qpad)
+    if qpad >= tsk.GS_BLOCKS * tsk.GS_ROWS:
+        assert plan.tiles * plan.nsplit >= tsk.GS_BLOCKS
+    assert plan.scratch_bytes == (8 * plan.nsplit * plan.tiles
+                                  * tsk.GS_TILE ** 2)
+
+
+@pytest.mark.parametrize("qpad,ppad", [(16, 640), (512, 100), (512, 96),
+                                       (100, 640)])
+def test_sample_gram_plan_raises_on_shapes_the_kernel_cannot_take(qpad,
+                                                                  ppad):
+    with pytest.raises(ValueError):
+        tsk.stream_sample_gram_plan(qpad, ppad)
+
+
+def test_sample_gram_mirrors_the_kernel_source():
+    """The plan's tile and step are the kernel's, and its static shared
+    memory (two GS_ROWS x GS_TILE float64 tiles of entries and the step's
+    rows) fits a block's 48 KiB of static shared memory."""
+    src = _read("streaming.cu")
+    assert _const(src, "GS_TILE") == tsk.GS_TILE
+    assert _const(src, "GS_ROWS") == tsk.GS_ROWS
+    static = 2 * 8 * tsk.GS_ROWS * tsk.GS_TILE + 4 * 4 * tsk.GS_ROWS
+    assert static <= 48 * 1024
+
+
+def test_sample_gram_plain_sums_the_fp32_entries_in_float64():
+    """The float64 form's plain twin (and its CPU route) is H = (c K)^T
+    (c K) on the fp32 entries with float64 products and sums: the fp32
+    entries' float64 gram to 1e-14 of the gram of absolute terms, and
+    unlike that gram summed in fp32."""
+    rng = np.random.default_rng(11)
+    p, q = 90, 3000
+    fa = torch.from_numpy(rng.integers(0, 64, (p, 3)).astype(np.float32))
+    fb = torch.from_numpy(rng.integers(0, 64, (q, 3)).astype(np.float32))
+    fa_rows, fb_cols, mask = tsk.pad_stream_operands(fa, fb)
+    c = torch.from_numpy(rng.random((1, fb_cols.shape[1])).astype(
+        np.float32)) * mask
+    got = tsk.streaming_sample_gram(fa_rows, fb_cols, c, SW, PW)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, tsk.streaming_sample_gram_plain(
+        fa_rows, fb_cols, c, SW, PW))
+    K = tsk._affinity_rows(fa_rows, fb_cols, 0, fb_cols.shape[1], SW, PW)
+    assert K.dtype == torch.float32
+    ck = c[0, :, None].double() * K.double()
+    want = ck.T @ ck
+    assert bool(((got - want).abs()[:p, :p] <= 1e-14 * want[:p, :p]).all())
+    ck32 = c[0, :, None] * K
+    off32 = ((ck32.T @ ck32).double() - want).abs()[:p, :p]
+    assert float((off32 / want[:p, :p]).max()) > 1e-9
+
+
 def test_gram_plan_mirrors_the_kernel_source():
     """K12's phi step is the affinity core's (csrc/affinity_core.cuh, K1's
     C entry), whose constants the plan mirrors: the block's rows, the
@@ -321,6 +387,24 @@ def test_gram_launch_reads_the_plan(fake_card):
     assert sum(_build.LAUNCHES.values()) == 1
 
 
+def test_sample_gram_launch_reads_the_plan(fake_card):
+    """K12's float64 entry point gets stream_sample_gram_plan's numbers as
+    they are and scratch of the plan's size; one launch, counted as
+    streaming_gram."""
+    qpad, ppad = 4096, 640
+    out = tsk.streaming_sample_gram(
+        torch.zeros((3, ppad)), torch.zeros((3, qpad)),
+        torch.zeros((1, qpad)), 0.1, 0.2)
+    plan = tsk.stream_sample_gram_plan(qpad, ppad)
+    [(name, args)] = fake_card.calls
+    assert name == "nle_stream_sample_gram"
+    assert args[5:10] == (qpad, ppad, *plan)
+    assert args[10:12] == (0.1, 0.2)
+    assert out.shape == (ppad, ppad) and out.dtype == torch.float64
+    assert _build.LAUNCHES["streaming_gram"] == 1
+    assert sum(_build.LAUNCHES.values()) == 1
+
+
 def test_gram_keep_phi_is_card_only():
     with pytest.raises(ValueError, match="card only"):
         tsk.streaming_scaled_gram(
@@ -467,6 +551,41 @@ def test_cuda_k12_matches_its_float64_version(ppad, mpad, q):
                                     SW, PW)
     assert torch.equal(phi[:q - lo, :m], k1)
     assert _build.LAUNCHES["streaming_gram"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ppad,q", [(640, 1_000_000), (2176, 60_000)])
+def test_cuda_sample_gram_matches_its_plain_version(ppad, q):
+    """K12's float64 form against its plain version on the same fp32
+    entries: bitwise symmetric, two launches bitwise equal, and within
+    2 (Qpad + 1) 2^-53 of the gram of absolute terms (each side's float64
+    chains), a bound that the same H summed in fp32 fails."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    p = ppad - 40
+    fa = torch.from_numpy(rng.integers(0, 64, (p, 3)).astype(np.float32))
+    fb = torch.from_numpy(rng.integers(0, 64, (q, 3)).astype(np.float32))
+    fa_rows, fb_cols, mask = (t.cuda() for t in
+                              tsk.pad_stream_operands(fa, fb))
+    qpad = fb_cols.shape[1]
+    c = torch.from_numpy(rng.random((1, qpad)).astype(np.float32)).cuda() \
+        * mask
+    _build.reset_launches()
+    got = tsk.streaming_sample_gram(fa_rows, fb_cols, c, SW, PW)
+    again = tsk.streaming_sample_gram(fa_rows, fb_cols, c, SW, PW)
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    assert _build.LAUNCHES["streaming_gram"] == 2
+    want = tsk.streaming_sample_gram_plain(fa_rows, fb_cols, c, SW,
+                                           PW)[:p, :p]
+    bound = 2 * (qpad + 1) * 2.0 ** -53 * want
+    assert bool(((got[:p, :p] - want).abs() <= bound).all())
+    h32 = torch.zeros((ppad, ppad), device="cuda")
+    for lo in range(0, qpad, 1 << 16):
+        hi = min(lo + (1 << 16), qpad)
+        ck = c[0, lo:hi, None] * tsk._affinity_rows(fa_rows, fb_cols, lo, hi,
+                                                    SW, PW)
+        h32 += ck.T @ ck
+    assert not bool(((h32[:p, :p].double() - want).abs() <= bound).all())
 
 
 @pytest.mark.cuda

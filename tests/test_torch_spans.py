@@ -177,3 +177,50 @@ def test_stage_logs_and_span_does_not(runs, call):
     finally:
         log.removeHandler(rec)
         log.setLevel(level)
+
+
+def test_factored_spans_and_chain_record():
+    """A factored train_and_enhance emits the factored route's spans inside
+    its root span, on its thread: the stage-2a loop and gram once, the
+    apply once between one gather and one scatter by perm; and the host
+    chain logs one record with the counts above eps on
+    nle_tpu_torch.chain."""
+    names = ("Streaming Sinkhorn", "Streaming gram", "Factored apply",
+             "Gather by perm", "Scatter by perm")
+    chain = logging.getLogger("nle_tpu_torch.chain")
+    rec = []
+
+    class Chain(logging.Handler):
+        def emit(self, record):
+            rec.append((record.wa_kept, record.q_kept, record.k))
+
+    handler, level = Chain(logging.INFO), chain.level
+    chain.setLevel(logging.INFO)
+    chain.addHandler(handler)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            f = NLEFilter(device="cpu", factored=True)
+            out = f.train_and_enhance(_frame(), *TRAIN, WEIGHTS)
+    finally:
+        chain.removeHandler(handler)
+        chain.setLevel(level)
+    events = [e for e in prof.events() if e.name in names
+              or e.name == "NLEFilter.train_and_enhance"]
+    roots = [e for e in events if e.name == "NLEFilter.train_and_enhance"]
+    assert len(roots) == 1 and out.shape == _frame().shape
+    root = roots[0].time_range
+    inside = [e for e in events if e is not roots[0]
+              and e.thread == roots[0].thread
+              and root.start <= e.time_range.start
+              and e.time_range.end <= root.end]
+    got = [e.name for e in inside]
+    assert {n: got.count(n) for n in names} == dict.fromkeys(names, 1), got
+    order = sorted(inside, key=lambda e: e.time_range.start)
+    apply_at = [e.name for e in order].index("Factored apply")
+    assert [e.name for e in order][apply_at - 1:apply_at + 2] == [
+        "Gather by perm", "Factored apply", "Scatter by perm"]
+    wa_kept, q_kept, k = rec[0]
+    assert len(rec) == 1 and k == TRAIN[-1]
+    assert q_kept == np.count_nonzero(f.trained.eigvals.numpy())
+    assert 0 < q_kept <= min(wa_kept, k)

@@ -92,7 +92,7 @@ def test_atb_plan_covers_every_row_and_sample_once(qpad, ppad, R):
 def test_plans_fit_a_hopper_block(ppad, R):
     """Shared bytes within the 227 KB a block may use (K10: the ring of
     AP_RING 32-row chunks of the 3 + R row arrays; K11: one or two chunk
-    buffers, 16 B a sample, 24 B for R > 1), threads within the
+    buffers, 16 + 8 R B a sample), threads within the
     instantiation's launch bound, and at least 64 registers a thread
     under it. K11's grid is what the SMs hold at once."""
     qpad = 31990272
@@ -106,7 +106,7 @@ def test_plans_fit_a_hopper_block(ppad, R):
                                        tsk.AT_TILES[R - 1][1])
     assert REGISTERS // (tsk.AT_THREADS * tsk.AT_MIN_BLOCKS) >= 64
     nbuf = 2 if atb.pchunk < ppad else 1
-    assert atb.shared_bytes == nbuf * atb.pchunk * (24 if R > 1 else 16)
+    assert atb.shared_bytes == nbuf * atb.pchunk * (16 + 8 * R)
     assert atb.shared_bytes <= SMEM_LIMIT
     per_sm = atb.blocks // tsk.AT_SMS
     assert per_sm * (atb.shared_bytes + tsk.AT_BLOCK_RESERVED) \

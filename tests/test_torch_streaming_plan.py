@@ -52,14 +52,15 @@ def test_plan_covers_every_row_and_column_once(qpad, ppad):
 
 @pytest.mark.parametrize("ppad", PPADS)
 def test_plan_fits_a_hopper_block(ppad):
-    """Shared bytes (the ring of staged pixel rows, two groups' x and each
-    warp's sums of w) within the 227 KB a block may use; (cols, rows,
-    threads) one of the kernel's instantiations, within its launch
-    bound."""
+    """Shared bytes (the ring of staged pixel rows, two groups' fp32 x and
+    each warp's float64 sums of w) within the 227 KB a block may use;
+    (cols, rows, threads) one of the kernel's instantiations, within its
+    launch bound."""
     plan = tsk.halfstep_plan(31990272, ppad)
     assert plan.shared_bytes <= SMEM_LIMIT
-    assert plan.shared_bytes == (16 * tsk.HS_RING * 32
-                                 + 4 * 2 * plan.rows * (1 + plan.threads // 32))
+    warps = plan.threads // 32
+    assert plan.shared_bytes == (16 * tsk.HS_RING * 32 + 4 * 2 * plan.rows
+                                 + 8 * 2 * plan.rows * warps)
     assert (plan.cols, plan.rows, plan.threads) in {
         (c, g, t) for c, g, most in tsk.HS_TILES for t in range(32, most + 1, 32)}
 
